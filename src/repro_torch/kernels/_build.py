@@ -1,0 +1,94 @@
+"""Build and load the CUDA kernels at first use.
+
+``nvcc`` compiles ``csrc/hamming.cu`` for ``sm_90a`` into a shared
+library with a plain C interface, which ``ctypes`` loads.  The library
+lands in ``build/repro_torch_kernels/`` at the root of the checkout,
+named by a hash of the source and the flags, so an edited source is
+rebuilt and a stale library is never loaded.  Nothing is built when the
+module is imported: the CPU tests import it on machines without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "hamming.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIB = None
+BUILD_INFO: dict = {}   # seconds, library path and nvcc's report of the last load
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "hamming_distances_launch": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
+    "sparse_verify_batch_launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
+                                   _I, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _compile(out: Path) -> str:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
+    return proc.stdout + proc.stderr
+
+
+def load_library() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    global _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in SOURCES:
+            digest.update(src.read_bytes())
+        path = BUILD_DIR / f"libhamming_{digest.hexdigest()[:16]}.so"
+        t0 = time.perf_counter()
+        report = "" if path.exists() else _compile(path)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.hamming_error_string.argtypes = [ctypes.c_int]
+        lib.hamming_error_string.restype = ctypes.c_char_p
+        BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(path),
+                          report=report)
+        _LIB = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if code != 0:
+        msg = lib.hamming_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({code}: {msg})")

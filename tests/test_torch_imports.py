@@ -1,0 +1,79 @@
+"""The port stands alone: importing it pulls in neither jax nor the JAX
+package, no source of it names ``repro``, its entry points refuse a
+missing CUDA device instead of running on the CPU, and ``chip_smoke.py``
+fails without a card."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import LinearScan, build_bst, build_fst_style, build_louds
+from repro_torch.core.bst import index_from_numpy
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def test_import_pulls_in_no_jax_and_no_repro():
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")]
+    assert "repro_torch.core.search" in names and "repro_torch.kernels.ops" in names
+    code = ("import importlib, sys\n"
+            f"for name in ['repro_torch'] + {names!r}:\n"
+            "    importlib.import_module(name)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert proc.returncode == 0, proc.stderr
+
+
+_REPRO_IMPORT = re.compile(r"^\s*(import\s+repro(\.|\s|$)|from\s+repro(\.|\s+import))",
+                           re.MULTILINE)
+_JAX_IMPORT = re.compile(r"^\s*(import|from)\s+jax\b", re.MULTILINE)
+
+
+def test_no_source_imports_repro_or_jax():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        text = f.read_text()
+        assert not _REPRO_IMPORT.search(text), f
+        assert not _JAX_IMPORT.search(text), f
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    db = np.random.default_rng(0).integers(0, 4, size=(50, 8)).astype(np.uint8)
+    for build in (build_bst, build_louds, build_fst_style, LinearScan.build):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build(db, 2)
+    index = build_bst(db, 2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        index.to("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        index_from_numpy({}, [])
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """A copy standing alone, away from the repository, exits nonzero and
+    prints no result line; so does the script itself without CUDA."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    scripts = [alone] + ([] if torch.cuda.is_available()
+                         else [ROOT / "chip_smoke.py"])
+    for script in scripts:
+        proc = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
