@@ -18,11 +18,26 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      with every kernel's launch count read around the run;
   4. times (CUDA events, after a warm-up): each kernel at the main path's
      shapes beside its bound, its plain version and a library call, the
-     end-to-end ``topk_batch`` and the peak device memory.
+     end-to-end ``topk_batch`` and the peak device memory;
+  5. the segmented path at the Review size: 12,886,488 token sets
+     (vocabulary 256, 8-39 distinct tokens each) sketched on the card by
+     ``bbit_minhash`` (L = 16, b = 2), their ``pack_sets`` payloads,
+     ingested into ``SegmentedIndex(auto_merge=True, delta_cap=2^20)``
+     with 1% of the ids deleted; for 64 queries (32 perturbed database
+     sets, 32 fresh sets) ``topk_batch``, ``search_columns_batch`` and
+     the Jaccard re-ranked ``topk_batch`` checked against the
+     ``LinearScan`` kernel and numpy, the fan-out (``use_arena=False``)
+     against the fused path, the kernels' launches read around the run,
+     and the new kernels timed at its shapes;
+  6. the plane fallback: the CP geometry (L = 32, b = 2) at 2^20 uniform
+     rows, where b·S > 32 sends the suffix store through the
+     ``sparse_verify_arena`` kernel; suffix and full layouts checked
+     against each other and the brute force.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
-the repository beside it, the script exits nonzero and prints no result.
+Each phase prints its seconds.  The line before the last is the
+kernels' JSON record; the last line is ``{"ok": true, "device":
+{...}}``.  Without CUDA, or without the rest of the repository beside it,
+the script exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -58,6 +73,20 @@ SWEEP_BL = [(1, 8), (2, 16), (2, 32), (4, 32), (8, 64), (4, 100)]
 SWEEP_N = [1, 130, 4097, 1_000_003]
 SWEEP_M = [1, 3, 8, 64]
 SWEEP_TAU = [0, 3]
+SWEEP_BS = [(1, 32), (2, 16), (2, 4), (4, 8), (8, 4), (2, 0)]
+SWEEP_T = [1, 7, 100_003]
+SWEEP_WP = [1, 8, 33]
+METRICS = ("jaccard", "cosine", "containment")
+
+# The segmented cell: the recall harness's corpus shape
+# (tools/eval_recall.py:46-66) at the Review size.
+VOCAB = 256
+SET_MIN, SET_MAX = 8, 40              # rng.integers(8, 40): 8..39 tokens
+DELTA_CAP = 1 << 20
+GEN_CHUNK = 1 << 19
+DELETE_FRAC = 0.01
+# The CP geometry (configs/registry.py:92) at 2^20 rows: the plane fallback.
+CP_L, CP_B, CP_N, CP_DELTA = 32, 2, 1 << 20, 1 << 19
 
 
 def fail(msg: str) -> None:
@@ -86,6 +115,14 @@ def time_ms(torch, fn, iters: int = 5) -> float:
     return statistics.median(times)
 
 
+def bound_ms(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the card's
+    memory rate and the operations over its 32-bit rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def bound(b: int, W: int, n: int, m: int, verify: bool):
     """(bound_ms, bound_by) of one scan: each input read once, each output
     written once, against the card's peak bytes and operations.  Per
@@ -94,9 +131,540 @@ def bound(b: int, W: int, n: int, m: int, verify: bool):
     planes = 3 if verify else 1                   # base in; mask, dist out
     nbytes = 4 * (b * W * n + b * W * m + planes * m * n)
     ops = m * n * (W * (2 * b + 1) + (3 if verify else 0))
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(nbytes, ops)
+
+
+def arena_bound(groups, m: int, T: int):
+    """Bound of one rung's arena verifies.  ``groups``: (n, words per
+    column, ops per (query, column)) for each launch.  Bytes: each column
+    lane once (its words, base index and liveness), the (m, T) base plane
+    once, the query words and the two (m, n) output planes."""
+    nbytes = 4 * m * T + sum(n * (4 * w + 4 + 1) + 4 * w * m + 8 * m * n
+                             for n, w, _ in groups)
+    ops = sum(m * n * per for n, _, per in groups)
+    return bound_ms(nbytes, ops)
+
+
+def rerank_bound(Wp: int, n: int, m: int):
+    """Bound of one re-rank pass: the (Wp, n) payloads and (Wp, m) query
+    words read once, the (m, n) survivor plane in and the scores out;
+    per (query, column) Wp·(and + popc + add) plus ~8 float ops, and
+    Wp·(popc + add) per column for |B|."""
+    return bound_ms(4 * (Wp * n + Wp * m + 2 * m * n),
+                    m * n * (3 * Wp + 8) + 2 * Wp * n)
+
+
+def perturb(rng, s, vocab: int, frac: float = 0.25) -> np.ndarray:
+    """The recall harness's query perturbation (tools/eval_recall.py:54):
+    drop a quarter of the set's tokens, then add random ones until the
+    set has at least that many."""
+    s = set(int(t) for t in s)
+    n_swap = max(1, int(len(s) * frac))
+    drop = rng.choice(sorted(s), size=min(n_swap, len(s) - 1), replace=False)
+    s -= set(int(t) for t in drop)
+    while len(drop):
+        s.add(int(rng.integers(0, vocab)))
+        if len(s) >= n_swap:
+            break
+    return np.array(sorted(s), np.int64)
+
+
+def random_sets(torch, gen, c: int, dev):
+    """c token sets of SET_MIN..SET_MAX-1 distinct tokens over VOCAB, made
+    on the card: (c, SET_MAX) int32 items with their validity mask, and
+    the (c, VOCAB) multihot."""
+    order = torch.rand((c, VOCAB), generator=gen, device=dev).argsort(dim=1)
+    order = order[:, :SET_MAX]
+    size = torch.randint(SET_MIN, SET_MAX, (c,), generator=gen, device=dev)
+    mask = torch.arange(SET_MAX, device=dev)[None, :] < size[:, None]
+    multihot = torch.zeros((c, VOCAB), dtype=torch.bool, device=dev)
+    multihot.scatter_(1, order, mask)
+    return order.to(torch.int32), mask, multihot
+
+
+def set_of(payload_row: np.ndarray) -> np.ndarray:
+    """The token ids of one (Wp,) uint32 payload bitmap."""
+    bits = np.unpackbits(payload_row.astype("<u4").view(np.uint8),
+                         bitorder="little")
+    return np.flatnonzero(bits)
+
+
+def jaccard_np(q_row: np.ndarray, pays: np.ndarray) -> np.ndarray:
+    """numpy float32 Jaccard of one query bitmap against (k, Wp) rows:
+    inter / ((|A| + |B|) - inter), 0.0 on an empty union."""
+    def pop(x):
+        x = np.ascontiguousarray(x, np.uint32)
+        return np.unpackbits(x.view(np.uint8), axis=-1).sum(axis=-1)
+    inter = pop(pays & q_row[None, :]).astype(np.float32)
+    den = (np.float32(pop(q_row[None, :])[0]) + pop(pays).astype(np.float32)) \
+        - inter
+    safe = np.where(den > 0, den, np.float32(1))
+    return np.where(den > 0, (inter / safe).astype(np.float32),
+                    np.float32(0))
+
+
+def check_arena_kernels(torch, ops, ref, dev, gen, words, maxerr,
+                        err) -> int:
+    """Phase 2, the slice-2 kernels: packed verify over SWEEP_BS, plane
+    verify over SWEEP_BL, both over SWEEP_T roots with ragged n and m,
+    dead lanes and BIG bases; re-rank over SWEEP_WP words, all metrics,
+    empty sets and a sparse survivor mask, its scores compared as int32
+    bit patterns.  Returns the number of shapes checked."""
+    checks = 0
+    for n in SWEEP_N:
+        for m in SWEEP_M:
+            for T in SWEEP_T:
+                plane = torch.randint(0, 6, (m, T), dtype=torch.int32,
+                                      device=dev, generator=gen)
+                pruned = torch.rand((m, T), device=dev, generator=gen) < 0.2
+                plane[pruned] = BIG
+                idx = torch.randint(0, T, (n,), dtype=torch.int32, device=dev,
+                                    generator=gen)
+                live = torch.rand(n, device=dev, generator=gen) < 0.8
+                db, q = words(n), words(m)
+                for b, S in SWEEP_BS:
+                    got = ops.sparse_verify_arena_packed(
+                        db, q, plane, idx, live, b=b, S=S, tau=3)
+                    want = ref.sparse_verify_arena_packed_ref(
+                        db, q, plane, idx, live, b, S, 3)
+                    e = max(maxerr(got[0], want[0]), maxerr(got[1], want[1]))
+                    err["sparse_verify_arena_packed"] = max(
+                        err["sparse_verify_arena_packed"], e)
+                    check(e == 0, f"sparse_verify_arena_packed b={b} S={S} "
+                                  f"n={n} m={m} T={T}")
+                    checks += 1
+                for b, L in SWEEP_BL:
+                    W = (L + 31) // 32
+                    dbv, qv = words(b, W, n), words(b, W, m)
+                    got = ops.sparse_verify_arena(dbv, qv, plane, idx, live,
+                                                  tau=3)
+                    want = ref.sparse_verify_arena_ref(dbv, qv, plane, idx,
+                                                       live, 3)
+                    e = max(maxerr(got[0], want[0]), maxerr(got[1], want[1]))
+                    err["sparse_verify_arena"] = max(
+                        err["sparse_verify_arena"], e)
+                    check(e == 0, f"sparse_verify_arena b={b} L={L} n={n} "
+                                  f"m={m} T={T}")
+                    checks += 1
+            for Wp in SWEEP_WP:
+                pay, qp = words(Wp, n), words(Wp, m)
+                pay[:, n // 3] = 0                          # |B| = 0
+                qp[:, 0] = 0                                # |A| = 0
+                surv = (torch.rand((m, n), device=dev, generator=gen)
+                        < 0.1).to(torch.int32)
+                for metric in METRICS:
+                    got = ops.exact_rerank(pay, qp, surv, metric=metric)
+                    want = ref.exact_rerank_ref(pay, qp, surv, metric)
+                    e = maxerr(got.view(torch.int32), want.view(torch.int32))
+                    err["exact_rerank"] = max(err["exact_rerank"], e)
+                    check(e == 0, f"exact_rerank {metric} Wp={Wp} n={n} m={m}")
+                    checks += 1
+    return checks
+
+
+def profile_window(torch, name: str, fn, calls: int = 3) -> None:
+    """Where the time goes: ``torch.profiler`` over ``calls`` calls of
+    ``fn``; prints the device's busy share of the window (kernel time
+    over wall time) and the kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not dev_ms:
+        print(f"{name}: the profiler saw no device time; busy share not "
+              "measured", flush=True)
+        return
+    print(f"{name}: profiler window {window_ms:.2f} ms for {calls} calls, "
+          f"device kernel time {dev_ms:.2f} ms, busy share "
+          f"{dev_ms / window_ms:.3f}; by kernel (ms per call):", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3 / calls:9.3f}  "
+              f"x{e.count // calls:<4d} {e.key[:90]}", flush=True)
+
+
+def review_cell(torch, seed: int, dev):
+    """The segmented Review cell, made from ``seed``: REVIEW_N token sets
+    (sketched by ``bbit_minhash`` and packed by ``pack_sets`` on the
+    card, chunk by chunk), M_QUERIES queries (perturbed database sets and
+    fresh sets) with their payloads, the ``SegmentedIndex`` they are
+    ingested into (size-tiered ``auto_merge``), and DELETE_FRAC of the
+    ids deleted.  Prints the corpus, ingest and stack."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import (SegmentedIndex, bbit_minhash, hash_params,
+                                  pack_sets, sketch_tokens)
+
+    n, L, b = REVIEW_N, REVIEW_L, REVIEW_B
+    Wp = (VOCAB + 31) // 32
+    params = hash_params(L, torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    t0 = time.perf_counter()
+    sketches = np.empty((n, L), np.uint8)
+    payloads = np.empty((n, Wp), np.uint32)
+    for lo in range(0, n, GEN_CHUNK):
+        c = min(GEN_CHUNK, n - lo)
+        items, mask, multihot = random_sets(torch, gen, c, dev)
+        sketches[lo:lo + c] = bbit_minhash(params, items, mask, L=L,
+                                           b=b).cpu().numpy()
+        payloads[lo:lo + c] = pack_sets(multihot.cpu().numpy(), VOCAB)
+        del items, mask, multihot
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(seed + 5)
+    src = rng.choice(n, size=M_QUERIES // 2, replace=False)
+    q_sets = [perturb(rng, set_of(payloads[i]), VOCAB) for i in src]
+    q_sets += [rng.choice(VOCAB, size=int(rng.integers(SET_MIN, SET_MAX)),
+                          replace=False) for _ in range(M_QUERIES // 2)]
+    tokens = np.full((M_QUERIES, SET_MAX), -1, np.int32)
+    for r, toks in enumerate(q_sets):
+        tokens[r, :len(toks)] = toks
+    qs = sketch_tokens(params, torch.from_numpy(tokens).to(dev), L=L,
+                       b=b).cpu().numpy()
+    qp = pack_sets(q_sets, VOCAB)
+    head = payloads[:65536]
+    print(f"corpus: {n} sets of {SET_MIN}-{SET_MAX - 1} tokens over "
+          f"{VOCAB}, bbit_minhash L={L} b={b} and pack_sets Wp={Wp} on the "
+          f"card in {gen_s:.1f} s; mean set size "
+          f"{np.unpackbits(head.view(np.uint8)).sum() / len(head):.2f}",
+          flush=True)
+
+    idx = SegmentedIndex(L, b, delta_cap=DELTA_CAP, payload_words=Wp,
+                         device="cuda")
+    t0 = time.perf_counter()
+    step = DELTA_CAP // 4
+    for lo in range(0, n, step):
+        idx.insert(sketches[lo:lo + step], payloads=payloads[lo:lo + step])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    stack = [(s.n, s.index.ls, int(s.index.tail.t_root), s.index.t[-1])
+             for s in idx.segments]
+    T = 1 + sum(t_root for _, _, t_root, _ in stack)
+    nd = len(idx._delta_ids)
+    print(f"ingest: {ingest_s:.1f} s (host clock, {idx.counters}); stack "
+          f"(rows, l_s, roots, leaves) {stack}; delta rows {nd}; T = {T}",
+          flush=True)
+    sizes = [s[0] for s in stack]
+    check(sum(sizes) + nd == n and nd == n % DELTA_CAP
+          and len({s.bit_length() for s in sizes}) == len(sizes),
+          f"the size-tiered policy left {stack}, delta {nd}")
+
+    dead = rng.choice(n, size=int(n * DELETE_FRAC), replace=False)
+    check(idx.delete(dead) == len(dead), "delete count")
+    live = np.ones(n, bool)
+    live[dead] = False
+    return SimpleNamespace(idx=idx, sketches=sketches, payloads=payloads,
+                           qs=qs, qp=qp, live=live, T=T, Wp=Wp)
+
+
+def segmented_review(torch, args, dev, ops, ref, err, maxerr) -> dict:
+    """Phase 5: the segmented path at the Review size.  Returns the JSON
+    fields (launches and times) of the packed verify and the re-rank."""
+    from repro_torch.core import (LinearScan, dispatch_stats,
+                                  pack_suffix_words_torch,
+                                  reset_dispatch_stats)
+    from repro_torch.core.hamming import as_words
+    from repro_torch.core.segments import _root_plane, _stack_inverse
+
+    cell = review_cell(torch, args.seed, dev)
+    idx, sketches, payloads = cell.idx, cell.sketches, cell.payloads
+    qs, qp, live, T, Wp = cell.qs, cell.qp, cell.live, cell.T, cell.Wp
+    L, b = REVIEW_L, REVIEW_B
+    scan = LinearScan.build(sketches, b, device="cuda")
+    d = scan.distances(qs)
+    d = torch.where(torch.from_numpy(live).to(dev)[None, :], d, BIG)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_stats()                       # the path's window
+    reset_dispatch_stats()
+    t0 = time.perf_counter()
+    top = idx.topk_batch(qs, TOPK)
+    cols = idx.search_columns_batch(qs, top.tau)
+    rr = idx.topk_batch(qs, TOPK, rerank="jaccard", q_payloads=qp)
+    idx.use_arena = False                          # the reference fan-out
+    fan = idx.topk_batch(qs, TOPK)
+    idx.use_arena = True
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = ops.kernel_stats()
+    disp = dispatch_stats()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"segmented path: {path_s:.2f} s, launches {launches}, dispatches "
+          f"{disp}, peak {peak / 2**30:.2f} GiB", flush=True)
+    for name in ("sparse_verify_arena_packed", "hamming_distances",
+                 "exact_rerank", "sparse_verify_batch"):
+        check(launches.get(name, 0) > 0,
+              f"{name} kernel not launched on the segmented path")
+    check(not any(k.endswith(":ref") for k in launches),
+          f"plain version ran on the segmented path: {launches}")
+
+    check(top.overflow == 0 and rr.overflow == 0, "segmented topk overflow")
+    for r0 in range(0, M_QUERIES, 8):              # stable sort: ties by id
+        sd, si = torch.sort(d[r0:r0 + 8], dim=1, stable=True)
+        check(torch.equal(top.ids[r0:r0 + 8], si[:, :TOPK].to(torch.int32))
+              and torch.equal(top.dists[r0:r0 + 8], sd[:, :TOPK]),
+              f"segmented topk rows {r0}..{r0 + 7} != brute force")
+        del sd, si
+    check(fan.tau == top.tau and fan.overflow == 0
+          and torch.equal(fan.ids, top.ids)
+          and torch.equal(fan.dists, top.dists),
+          "use_arena=False top-k differs from the fused path")
+    want = d.index_select(1, torch.from_numpy(cols.ids).to(dev))
+    want = torch.where(want <= top.tau, want, BIG)
+    check(cols.overflow == 0 and torch.equal(cols.dist, want)
+          and torch.equal(cols.mask, want <= top.tau),
+          "search_columns_batch differs from the brute force in the ball")
+    del want
+    r_ids, r_d = rr.ids.cpu().numpy(), rr.dists.cpu().numpy()
+    r_s = rr.scores.cpu().numpy()
+    n_surv = []
+    for i in range(M_QUERIES):
+        cand = torch.nonzero(d[i] <= rr.tau).flatten().cpu().numpy()
+        n_surv.append(len(cand))
+        sc = jaccard_np(qp[i], payloads[cand])
+        order = np.lexsort((cand, -sc))[:TOPK]
+        k = len(order)
+        check(np.array_equal(r_ids[i, :k], cand[order])
+              and np.array_equal(r_d[i, :k], d[i].index_select(
+                  0, torch.from_numpy(cand[order]).to(dev)).cpu().numpy())
+              and np.array_equal(r_s[i, :k].view(np.int32),
+                                 sc[order].view(np.int32))
+              and (r_ids[i, k:] == -1).all(),
+              f"re-ranked top-{TOPK} row {i} != numpy Jaccard")
+    print(f"segmented path exact: top-{TOPK} (tau*={top.tau}), the fan-out, "
+          f"search_columns at tau*, and the Jaccard re-rank (tau={rr.tau}, "
+          f"survivors per query min/median/max {min(n_surv)}/"
+          f"{int(np.median(n_surv))}/{max(n_surv)}) match the scan kernel, "
+          "the stable sort and numpy", flush=True)
+
+    for rerank, extra in ((None, {}),
+                          ("jaccard", dict(rerank="jaccard", q_payloads=qp))):
+        ops.reset_kernel_stats()
+        reset_dispatch_stats()
+        idx.topk_batch(qs, TOPK, **extra)
+        torch.cuda.synchronize()
+        print(f"per topk_batch (rerank={rerank}): launches "
+              f"{ops.kernel_stats()}, dispatches {dispatch_stats()}",
+              flush=True)
+
+    e2e = {}
+    for rerank, extra in ((None, {}),
+                          ("jaccard", dict(rerank="jaccard", q_payloads=qp))):
+        idx.topk_batch(qs, TOPK, **extra)          # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            idx.topk_batch(qs, TOPK, **extra)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        e2e[rerank] = statistics.median(times)
+        print(f"segmented topk_batch (m={M_QUERIES}, k={TOPK}, "
+              f"rerank={rerank}): {e2e[rerank]:.2f} ms median of 5 "
+              f"({sorted(round(t, 2) for t in times)}), "
+              f"{M_QUERIES / e2e[rerank] * 1e3:.0f} queries/s", flush=True)
+
+    profile_window(torch, "segmented topk_batch", lambda: idx.topk_batch(
+        qs, TOPK))
+    profile_window(torch, "segmented topk_batch + Jaccard re-rank",
+                   lambda: idx.topk_batch(qs, TOPK, rerank="jaccard",
+                                          q_payloads=qp))
+
+    # the kernels at the path's shapes: the rung's packed launches on
+    # the base plane its traversal gives, and the re-rank of its plane
+    store = idx._refresh_store()
+    plan = store.plan()
+    qs_t = torch.from_numpy(qs.astype(np.int32)).to(dev)
+    base_plane, _ = _root_plane(idx._stack_constants(top.tau, 0), qs_t,
+                                top.tau, True)
+    groups = []
+    for g in plan:
+        check(g.geom.packed, f"Review segment not packed: {g.geom}")
+        S = g.geom.suffix_len
+        groups.append((g.cols_hot, pack_suffix_words_torch(qs_t[:, L - S:], b),
+                       g.base_idx,
+                       store.live[torch.from_numpy(g.perm).to(dev)], S))
+    slices = range(0, M_QUERIES, 8)
+
+    def packed_kernel():
+        return [ops.sparse_verify_arena_packed(c, q, base_plane, bi, lv, b=b,
+                                               S=S, tau=top.tau)
+                for c, q, bi, lv, S in groups]
+
+    def packed_plain():
+        return [[ref.sparse_verify_arena_packed_ref(
+            c, q[r0:r0 + 8], base_plane[r0:r0 + 8], bi, lv, b, S, top.tau)
+            for r0 in slices] for c, q, bi, lv, S in groups]
+
+    for (mask_k, dist_k), plain in zip(packed_kernel(), packed_plain()):
+        for r0, (w_mask, w_dist) in zip(slices, plain):
+            e = max(maxerr(mask_k[r0:r0 + 8], w_mask),
+                    maxerr(dist_k[r0:r0 + 8], w_dist))
+            err["sparse_verify_arena_packed"] = max(
+                err["sparse_verify_arena_packed"], e)
+            check(e == 0, "packed verify at the segmented path's shape")
+    del mask_k, dist_k, plain, w_mask, w_dist
+    pk_ms = time_ms(torch, packed_kernel)
+    pk_plain = time_ms(torch, packed_plain, iters=3)
+    pk_bound, pk_by = arena_bound([(c.shape[0], 1, 3 * b + 4)
+                                   for c, *_ in groups],
+                                  M_QUERIES, base_plane.shape[1])
+    check(base_plane.shape[1] == T, f"root plane width {base_plane.shape[1]}")
+    shapes = [(c.shape[0], S) for c, *_, S in groups]
+    print(f"sparse_verify_arena_packed (groups (n, S) {shapes}, "
+          f"m={M_QUERIES}, T={T}): {pk_ms:.3f} ms, bound {pk_bound:.3f} ms "
+          f"({pk_by}), plain {pk_plain:.3f} ms", flush=True)
+    del base_plane, groups
+
+    dist, _, _ = idx._fused_call("dist", qs, rr.tau)
+    surv = (dist < BIG).to(torch.int32)
+    del dist
+    inv = _stack_inverse(plan, dev)
+    pays = torch.cat([g.pays_hot for g in plan], dim=-1)
+    if inv is not None:
+        pays = pays.index_select(1, inv)
+    pays = torch.cat([pays, idx._delta_pay_planes()], dim=-1).contiguous()
+    q_pay = as_words(qp.T, dev)
+    R = pays.shape[1]
+    got = ops.exact_rerank(pays, q_pay, surv, metric="jaccard")
+    for r0 in slices:
+        want = ref.exact_rerank_ref(pays, q_pay[:, r0:r0 + 8],
+                                    surv[r0:r0 + 8], "jaccard")
+        e = maxerr(got[r0:r0 + 8].view(torch.int32), want.view(torch.int32))
+        err["exact_rerank"] = max(err["exact_rerank"], e)
+        check(e == 0, "exact_rerank at the segmented path's shape")
+    del got, want
+    rk_ms = time_ms(torch, lambda: ops.exact_rerank(pays, q_pay, surv,
+                                                    metric="jaccard"))
+    rk_plain = time_ms(torch, lambda: [ref.exact_rerank_ref(
+        pays, q_pay[:, r0:r0 + 8], surv[r0:r0 + 8], "jaccard")
+        for r0 in slices], iters=3)
+    rk_bound, rk_by = rerank_bound(Wp, R, M_QUERIES)
+    print(f"exact_rerank (Wp={Wp}, n={R}, m={M_QUERIES}, "
+          f"{int(surv.sum())} survivors): {rk_ms:.3f} ms, bound "
+          f"{rk_bound:.3f} ms ({rk_by}), plain {rk_plain:.3f} ms", flush=True)
+    print(f"max_memory_allocated: segmented path {peak / 2**30:.2f} GiB",
+          flush=True)
+    del pays, surv, q_pay, d, scan, idx, store, plan
+    torch.cuda.empty_cache()
+    return {
+        "sparse_verify_arena_packed": {
+            "launches": launches["sparse_verify_arena_packed"], "ms": pk_ms,
+            "plain_ms": pk_plain, "bound_ms": pk_bound, "bound_by": pk_by,
+            "library_ms": None},
+        "exact_rerank": {
+            "launches": launches["exact_rerank"], "ms": rk_ms,
+            "plain_ms": rk_plain, "bound_ms": rk_bound, "bound_by": rk_by,
+            "library_ms": None},
+    }
+
+
+def plane_fallback(torch, args, dev, ops, ref, err, maxerr) -> dict:
+    """Phase 6: the CP geometry at 2^20 uniform rows, where b·S > 32 sends
+    the suffix store through the plane-packed ``sparse_verify_arena``
+    kernel.  Returns that kernel's JSON fields."""
+    from repro_torch.core import LinearScan, SegmentedIndex
+    from repro_torch.core.hamming import pack_vertical_torch
+    from repro_torch.core.segments import _root_plane
+
+    L, b, n = CP_L, CP_B, CP_N
+    rng = np.random.default_rng(args.seed + 6)
+    db = rng.integers(0, 1 << b, size=(n, L), dtype=np.uint8)
+    near = db[rng.integers(0, n, size=M_QUERIES // 2)].copy()
+    for row in near:                     # 0-3 symbols perturbed per row
+        pos = rng.choice(L, size=rng.integers(0, 4), replace=False)
+        row[pos] = (row[pos] + rng.integers(1, 1 << b, size=len(pos))) \
+            % (1 << b)
+    qs = np.concatenate([near, rng.integers(0, 1 << b, size=(
+        M_QUERIES // 2, L), dtype=np.uint8)])
+    t0 = time.perf_counter()
+    sfx = SegmentedIndex(L, b, delta_cap=CP_DELTA, device="cuda")
+    full = SegmentedIndex(L, b, delta_cap=CP_DELTA, layout="full",
+                          device="cuda")
+    for idx in (sfx, full):
+        for lo in range(0, n, 1 << 18):
+            idx.insert(db[lo:lo + (1 << 18)])
+    store = sfx._refresh_store()
+    geoms = [blk.geom for blk in store.blocks]
+    print(f"CP ingest: {time.perf_counter() - t0:.1f} s for both layouts; "
+          f"suffix stack {[(s.n, s.index.ls) for s in sfx.segments]}, "
+          f"geometries {geoms}", flush=True)
+    check(any(not g.packed for g in geoms), f"no plane group: {geoms}")
+
+    ops.reset_kernel_stats()                       # the path's window
+    rs = sfx.topk_batch(qs, TOPK)
+    torch.cuda.synchronize()
+    l_sfx = ops.kernel_stats()
+    ops.reset_kernel_stats()
+    rf = full.topk_batch(qs, TOPK)
+    torch.cuda.synchronize()
+    l_full = ops.kernel_stats()
+    print(f"CP launches: suffix {l_sfx}, full {l_full}", flush=True)
+    check(l_sfx.get("sparse_verify_arena", 0) > 0,
+          "sparse_verify_arena not launched on the suffix layout")
+    check(not any(k.endswith(":ref") for k in {**l_sfx, **l_full}),
+          "plain version ran on the plane-fallback path")
+    check(rs.overflow == 0 and rs.tau == rf.tau
+          and torch.equal(rs.ids, rf.ids) and torch.equal(rs.dists, rf.dists),
+          "suffix and full layouts disagree")
+    d = LinearScan.build(db, b, device="cuda").distances(qs)
+    for r0 in range(0, M_QUERIES, 8):
+        sd, si = torch.sort(d[r0:r0 + 8], dim=1, stable=True)
+        check(torch.equal(rs.ids[r0:r0 + 8], si[:, :TOPK].to(torch.int32))
+              and torch.equal(rs.dists[r0:r0 + 8], sd[:, :TOPK]),
+              f"CP topk rows {r0}..{r0 + 7} != brute force")
+    del d, sd, si
+    print(f"CP top-{TOPK} (tau*={rs.tau}): suffix == full == brute force",
+          flush=True)
+
+    plan = store.plan()
+    qs_t = torch.from_numpy(qs.astype(np.int32)).to(dev)
+    base_plane, _ = _root_plane(sfx._stack_constants(rs.tau, 0), qs_t,
+                                rs.tau, True)
+    g = next(g for g in plan if not g.geom.packed)
+    S = g.geom.suffix_len
+    qv = ops.to_lane_major(pack_vertical_torch(qs_t[:, L - S:], b))
+    lv = store.live[torch.from_numpy(g.perm).to(dev)]
+    slices = range(0, M_QUERIES, 8)
+
+    def kernel():
+        return ops.sparse_verify_arena(g.cols_hot, qv, base_plane, g.base_idx,
+                                       lv, tau=rs.tau)
+
+    def plain():
+        return [ref.sparse_verify_arena_ref(g.cols_hot, qv[..., r0:r0 + 8],
+                                            base_plane[r0:r0 + 8],
+                                            g.base_idx, lv, rs.tau)
+                for r0 in slices]
+
+    mask_k, dist_k = kernel()
+    for r0, (w_mask, w_dist) in zip(slices, plain()):
+        e = max(maxerr(mask_k[r0:r0 + 8], w_mask),
+                maxerr(dist_k[r0:r0 + 8], w_dist))
+        err["sparse_verify_arena"] = max(err["sparse_verify_arena"], e)
+        check(e == 0, "sparse_verify_arena at the CP path's shape")
+    bw, W_s, n_g = g.cols_hot.shape
+    ms = time_ms(torch, kernel)
+    plain_ms = time_ms(torch, plain, iters=3)
+    bnd, by = arena_bound([(n_g, bw * W_s, W_s * (2 * bw + 1) + 4)],
+                          M_QUERIES, base_plane.shape[1])
+    print(f"sparse_verify_arena (b={bw} W={W_s} S={S} n={n_g} m={M_QUERIES} "
+          f"T={base_plane.shape[1]}): {ms:.3f} ms, bound {bnd:.3f} ms ({by}), "
+          f"plain {plain_ms:.3f} ms", flush=True)
+    return {"sparse_verify_arena": {
+        "launches": l_sfx["sparse_verify_arena"]
+        + l_full.get("sparse_verify_arena", 0),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+        "library_ms": None}}
 
 
 def main() -> int:
@@ -122,6 +690,13 @@ def main() -> int:
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase {name}: {now - t_phase:.1f} s", flush=True)
+        t_phase = now
 
     # -- 1. device and build -------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -137,10 +712,13 @@ def main() -> int:
     for line in _build.BUILD_INFO["report"].splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    phase_done("1 (device and build)")
 
     # -- 2. kernels against their plain versions ---------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    err = {"sparse_verify_batch": 0, "hamming_distances": 0}
+    err = dict.fromkeys(("sparse_verify_batch", "hamming_distances",
+                         "sparse_verify_arena_packed", "sparse_verify_arena",
+                         "exact_rerank"), 0)
     n_checks = 0
 
     def words(*shape):
@@ -185,6 +763,13 @@ def main() -> int:
     print(f"kernels vs plain: {n_checks} verify + "
           f"{n_checks // len(SWEEP_TAU)} scan shapes bit-exact "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    arena_checks = check_arena_kernels(torch, ops, ref, dev, gen, words,
+                                       maxerr, err)
+    torch.cuda.synchronize()
+    print(f"arena and re-rank kernels vs plain: {arena_checks} bit-exact "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    phase_done("2 (kernels against their plain versions)")
 
     # -- 3. main path at the Review size -------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -262,6 +847,7 @@ def main() -> int:
     print(f"main path exact: ranges tau=1,2,3 and top-{TOPK} (tau*={top.tau}) "
           "match the scan kernel, the stable sort and the numpy host check",
           flush=True)
+    phase_done("3 (static main path)")
 
     ops.reset_kernel_stats()
     topk_batch(index, qs_t, TOPK)
@@ -363,6 +949,14 @@ def main() -> int:
     print(f"max_memory_allocated: main path {peak_main / 2**30:.2f} GiB, "
           f"run {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
+    del index, scan, qs_t, tail, base, q_sfx, qv, qf
+    torch.cuda.empty_cache()
+    phase_done("4 (static kernels timed)")
+
+    seg = segmented_review(torch, args, dev, ops, ref, err, maxerr)
+    phase_done("5 (segmented path at the Review size)")
+    cp = plane_fallback(torch, args, dev, ops, ref, err, maxerr)
+    phase_done("6 (plane fallback, CP geometry)")
 
     kernels = [
         {"name": "sparse_verify_batch", "route": "cuda",
@@ -379,6 +973,20 @@ def main() -> int:
          "max_abs_err": err["hamming_distances"], "ms": scan_ms,
          "plain_ms": scan_plain, "bound_ms": scan_bound, "bound_by": scan_by,
          "library_ms": scan_lib},
+        {"name": "sparse_verify_arena_packed", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/packed.cu",
+         "replaces": "src/repro/kernels/hamming_kernel.py:203",
+         "max_abs_err": err["sparse_verify_arena_packed"],
+         **seg["sparse_verify_arena_packed"]},
+        {"name": "sparse_verify_arena", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/hamming.cu",
+         "replaces": "src/repro/kernels/hamming_kernel.py:278",
+         "max_abs_err": err["sparse_verify_arena"],
+         **cp["sparse_verify_arena"]},
+        {"name": "exact_rerank", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rerank.cu",
+         "replaces": "src/repro/kernels/hamming_kernel.py:381",
+         "max_abs_err": err["exact_rerank"], **seg["exact_rerank"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ at a position iff *any* plane differs there, so
 
 — the layout the CUDA kernels in ``repro_torch.kernels`` stream.
 
-The host packers (``pack_vertical``/``unpack_vertical``) are copies of
+The host packers (``pack_vertical``/``unpack_vertical``,
+``pack_suffix_words``, ``pack_sets``) are copies of
 ``repro.core.hamming``'s numpy functions and return uint32; on the device
 the words are int32 bit-views of the same uint32 values (``as_words``).
 """
@@ -105,5 +106,81 @@ def pack_vertical_torch(sketches: torch.Tensor, b: int) -> torch.Tensor:
     shifts = torch.arange(WORD_BITS, dtype=torch.int64, device=s.device)
     planes = torch.stack([(((s >> i) & 1) << shifts).sum(dim=-1)
                           for i in range(b)], dim=1)       # (n, b, W)
-    return torch.where(planes >= 1 << 31, planes - (1 << 32),
-                       planes).to(torch.int32)
+    return _to_int32_view(planes)
+
+
+def _to_int32_view(words: torch.Tensor) -> torch.Tensor:
+    """int64 tensor of uint32 values -> int32 bit-views of the same words."""
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def pack_suffix_words(sketches: np.ndarray, b: int) -> np.ndarray:
+    """(n, S) uint8 suffixes with b·S <= 32 -> (n,) uint32, all b bit
+    planes of one row packed into a single word (host-side).
+
+    Plane ``i``'s S bits occupy bit offsets [i·S, (i+1)·S) LSB-first —
+    the layout of the packed suffix column store: XOR-ing two words and
+    OR-folding the b S-bit fields reproduces the vertical-format Hamming
+    distance of the suffixes.
+    """
+    sketches = np.asarray(sketches)
+    if sketches.ndim == 1:
+        sketches = sketches[None, :]
+    n, S = sketches.shape
+    if b * S > WORD_BITS:
+        raise ValueError(f"b*S = {b * S} exceeds one {WORD_BITS}-bit word")
+    out = np.zeros((n,), np.uint64)
+    for i in range(b):
+        bits = ((sketches >> i) & 1).astype(np.uint64)        # (n, S)
+        shifts = (np.arange(S) + i * S).astype(np.uint64)
+        out |= (bits << shifts).sum(axis=1, dtype=np.uint64)
+    return out.astype(np.uint32)
+
+
+def pack_suffix_words_torch(sketches: torch.Tensor, b: int) -> torch.Tensor:
+    """Device version of :func:`pack_suffix_words`: (m, S) integer
+    suffixes -> (m,) int32 bit-views of the packed words.  The bits are
+    summed in int64 (disjoint positions: the sum is an exact OR) and
+    wrap to int32 at the end."""
+    if sketches.dim() == 1:
+        sketches = sketches[None, :]
+    m, S = sketches.shape
+    if b * S > WORD_BITS:
+        raise ValueError(f"b*S = {b * S} exceeds one {WORD_BITS}-bit word")
+    s = sketches.to(torch.int64)
+    out = torch.zeros((m,), dtype=torch.int64, device=s.device)
+    for i in range(b):
+        shifts = torch.arange(S, dtype=torch.int64, device=s.device) + i * S
+        out += (((s >> i) & 1) << shifts[None, :]).sum(dim=1)
+    return _to_int32_view(out)
+
+
+def pack_sets(sets, vocab: int) -> np.ndarray:
+    """Token-id sets -> (n, Wp) uint32 LSB-first membership bitmaps.
+
+    ``sets`` is a sequence of integer token-id arrays (each over
+    ``[0, vocab)``) or an already-multihot (n, vocab) 0/1 array.  Word
+    ``w`` bit ``j`` holds membership of token ``32*w + j``, so one
+    AND+popcount pass recovers exact set intersections — the re-rank
+    payload format.
+    """
+    if vocab <= 0:
+        raise ValueError("vocab must be positive")
+    Wp = n_words(vocab)
+    if isinstance(sets, np.ndarray) and sets.ndim == 2 \
+            and sets.shape[1] == vocab:
+        multihot = sets.astype(bool)
+    else:
+        multihot = np.zeros((len(sets), vocab), bool)
+        for r, toks in enumerate(sets):
+            toks = np.asarray(toks, np.int64).ravel()
+            if toks.size and (toks.min() < 0 or toks.max() >= vocab):
+                raise ValueError(f"token ids of row {r} outside [0, {vocab})")
+            multihot[r, toks] = True
+    n = multihot.shape[0]
+    padded = np.zeros((n, Wp * WORD_BITS), bool)
+    padded[:, :vocab] = multihot
+    bits = padded.reshape(n, Wp, WORD_BITS).astype(np.uint32)
+    shifts = np.arange(WORD_BITS, dtype=np.uint32)
+    return (bits << shifts).sum(axis=2, dtype=np.uint32)

@@ -75,6 +75,9 @@ class TopKResult(NamedTuple):
     dists: torch.Tensor      # (k,) int32 — exact distances; BIG on pad
     tau: int                 # final rung of the τ-escalation ladder
     overflow: int            # dropped frontier entries (0 = provably exact)
+    scores: torch.Tensor | None = None  # (k,) f32 exact re-rank scores —
+    #   descending (score, -id); -1.0 pad.  None on sketch-only requests;
+    #   when set, ids/dists re-order to score order.
 
 
 def _compact_batch(ids: torch.Tensor, dists: torch.Tensor,
@@ -176,6 +179,46 @@ def select_topk_columns(dist: torch.Tensor, col_ids: torch.Tensor, k: int):
     d_k = (key >> 32).to(torch.int32)
     l_k = (key & 0xFFFFFFFF).to(torch.int32)
     return torch.where(d_k < BIG, l_k, -1), torch.clamp(d_k, max=BIG)
+
+
+def select_topk_scores(scores: torch.Tensor, dist: torch.Tensor,
+                       col_ids: torch.Tensor, k: int):
+    """k-*largest* selection over re-ranked column planes.
+
+    scores: (m, R) float32 exact re-rank scores, -1.0 on non-survivor
+    lanes; dist: (m, R) int32 Hamming distances (carried along, BIG off
+    the survivors); col_ids: (R,) global labels (non-negative, below
+    2^31); returns ((m, k) int32 ids, (m, k) int32 dists, (m, k) f32
+    scores), each row descending by (score, -label), so equal scores
+    order by the smaller id.  Lanes past the survivors come back as
+    (-1, BIG, -1.0) pads.  Requires k <= R.
+
+    The sort key is the int32 bit pattern of the score (monotone on
+    [0, 1]; the -1.0 sentinel's is negative): one ``torch.topk`` over the
+    unique int64 key ``bits << 32 | (0xFFFFFFFF - label)`` picks the
+    columns, and dist and score are gathered there — the order both of
+    the JAX package's lowerings give."""
+    bits = scores.to(torch.float32).contiguous().view(torch.int32)
+    key = (bits.to(torch.int64) << 32) | (
+        0xFFFFFFFF - col_ids.to(torch.int64))[None, :]
+    col = torch.topk(key, k, dim=1, largest=True, sorted=True).indices
+    s_k = scores.to(torch.float32).gather(1, col)
+    d_k = dist.gather(1, col)
+    l_k = col_ids.to(torch.int32)[col]
+    hit = s_k >= 0
+    return (torch.where(hit, l_k, -1), torch.where(hit, d_k, BIG),
+            torch.where(hit, s_k, -1.0))
+
+
+def _pad_topk(dists: torch.Tensor, ids: torch.Tensor,
+              k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad (m, kk) selections out to (m, k) with (BIG, -1)."""
+    kk = ids.shape[-1]
+    if kk == k:
+        return dists, ids
+    pad = tuple(ids.shape[:-1]) + (k - kk,)
+    return (torch.cat([dists, dists.new_full(pad, BIG)], dim=-1),
+            torch.cat([ids, ids.new_full(pad, -1)], dim=-1))
 
 
 def _search_trace_batch(index: SketchIndex, qs: torch.Tensor, *, tau: int,
@@ -381,8 +424,5 @@ def topk_batch(index: SketchIndex, qs, k: int, tau0: int | None = None,
         tau = min(index.L, max(tau + 1, 2 * tau))
     col = torch.arange(index.n, dtype=torch.int32, device=index.device)
     ids, dists = select_topk_columns(res.dist, col, kk)
-    if kk < k:
-        m = ids.shape[0]
-        ids = torch.cat([ids, ids.new_full((m, k - kk), -1)], dim=1)
-        dists = torch.cat([dists, dists.new_full((m, k - kk), BIG)], dim=1)
+    dists, ids = _pad_topk(dists, ids, k)
     return TopKResult(ids=ids, dists=dists, tau=tau, overflow=overflow)

@@ -1,0 +1,1442 @@
+"""Dynamic segmented bST index: streaming insert/delete with size-tiered
+merges, on the suffix column store.
+
+The paper's bST is static; this module adds LSM-style maintenance on top
+of the unchanged static machinery:
+
+  * a small mutable **delta buffer** absorbs inserts and answers queries
+    by brute-force scan (``ops.hamming_distances`` — exact distances at
+    any τ);
+  * sealed **segments** are immutable bSTs with a per-segment
+    **tombstone bitmap**: ``delete`` flips a bit, and liveness is an
+    argument of every query program, so deletes never rebuild anything;
+  * a size-tiered ``merge()`` rebuilds two segments into one (dropping
+    tombstones) and ``compact()`` rebuilds one segment;
+  * queries run through a **fused program** per τ-ladder rung: every
+    segment's traversal to its ℓ_s roots, one concatenated root base
+    plane, the arena verify kernels over the sealed columns (suffix
+    layout: packed suffix words, or plane columns when b·S > 32; full
+    layout: full-length columns), the delta scan and the on-device
+    (distance, id) selection.  The per-segment fan-out survives as the
+    reference path (``use_arena=False``).  Both are bit-identical to
+    each other and to the JAX package's ``repro.core.segments``.
+
+Torch runs eagerly, so a "fused program" is a cached closure over the
+stack's constants (capacities, plan, labels, base-offset lanes); it still
+counts one ``dispatch_stats()["fused"]`` per rung, and the two-stage
+re-rank one ``"rerank"`` per request.
+
+Ids are **stable**: ``insert`` assigns monotonically increasing global
+ids that survive merges and compactions.  Query planes are
+column-compressed — (m, R) over the *physical* rows currently held
+(every segment's rows in stack order, then the delta buffer's), labeled
+by global id.  Planes and top-k results are torch tensors on the index's
+device; column labels (``ColumnSearchResult.ids``) are host int64.
+
+This slice ports the bst backend with every column block hot.  The
+multi-index and sharded backends, ``ShardedSegmentedIndex``, the cold
+tier (``hot_bytes``), ``explain=True`` and its spans, ``cost_hint`` and
+the durability ``store`` binding raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import threading
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+from ..kernels.ops import DEFAULT_BLOCK_M
+from ..kernels.ref import BIG, RERANK_METRICS
+from .bst import build_bst
+from .column_store import ColumnStore
+from .cost_model import frontier_capacities, tau_for_k
+from .distributed_search import topk_from_dists
+from .hamming import (as_words, n_words, pack_suffix_words_torch,
+                      pack_vertical, pack_vertical_torch, resolve_device,
+                      unpack_vertical)
+from .search import (CAP_MAX_DEFAULT, LADDER_CAP_MAX, TopKResult,
+                     _CACHE_STATS, _pad_rows, _pad_topk,
+                     _traverse_frontier_batch, bucket_m, get_searcher,
+                     scatter_root_plane, select_topk_columns,
+                     select_topk_scores)
+
+BIG_I = int(BIG)
+
+BACKENDS = ("bst", "multi", "sharded")
+
+# Column layouts of the fused path: "suffix" (default) stores
+# per-segment packed suffix columns below each segment's ℓ_s in the
+# ``ColumnStore``; "full" keeps the full-length ``_ColumnArena`` — the
+# bit-identical reference.
+LAYOUTS = ("suffix", "full")
+
+# Monotonic segment serials: every sealed Segment gets the next value,
+# and merged/compacted replacements get fresh ones.  Serials key the
+# fused-program cache — unlike ``id()``, a serial is never reused.
+_SEG_SERIALS = itertools.count()
+
+# Program launches issued by the segmented query path: "fanout" counts
+# the per-segment reference path (one per segment searcher call,
+# capacity-ladder retries included, plus one per delta-buffer scan),
+# "fused" the fused path (one per τ-ladder rung and capacity rung),
+# "rerank" the exact re-rank pass (one per ``topk(rerank=...)``
+# request, regardless of segment count).
+_DISPATCH_STATS = {"total": 0, "fused": 0, "fanout": 0, "rerank": 0}
+_DISPATCH_LOCK = threading.Lock()
+
+
+def _dispatch(kind: str) -> None:
+    with _DISPATCH_LOCK:
+        _DISPATCH_STATS["total"] += 1
+        _DISPATCH_STATS[kind] += 1
+
+
+def dispatch_stats() -> Dict[str, int]:
+    """Program-launch counters of the segmented query path: ``total``,
+    split into ``fused`` (one per τ rung, independent of segment count),
+    ``fanout`` (one per segment per rung) and ``rerank`` (one per
+    ``topk(rerank=...)`` request)."""
+    with _DISPATCH_LOCK:
+        return dict(_DISPATCH_STATS)
+
+
+def reset_dispatch_stats() -> None:
+    with _DISPATCH_LOCK:
+        for k in _DISPATCH_STATS:
+            _DISPATCH_STATS[k] = 0
+
+
+def tombstone_bits(n: int) -> int:
+    """Storage cost in bits of one tombstone bitmap over ``n`` ids,
+    accounted like ``BitVector.nbits``: word-padded payload + the 32-bit
+    per-word cumulative-popcount table.
+
+    >>> tombstone_bits(64)      # 2 payload words + 3 table entries
+    160
+    """
+    words = max(1, (int(n) + 31) // 32)
+    return words * 32 + (words + 1) * 32
+
+
+@dataclasses.dataclass
+class Segment:
+    """One immutable sealed segment: a static index + host-side metadata.
+
+    Attributes:
+      index:    the queryable ``SketchIndex`` (on the index's device).
+      packed:   (n_seg, b, W) uint32 — the sealed sketches kept host-side
+                in ``pack_vertical`` bit-plane form; merges, compacts and
+                the suffix store unpack on demand through :attr:`sketches`.
+      ids:      (n_seg,) int64 global ids, sorted ascending.
+      live:     (n_seg,) bool tombstone bitmap (False = deleted).
+      L, b:     the sketch geometry ``packed`` was packed with.
+      serial:   process-monotonic id (auto-assigned), never reused.
+      payloads: optional (n_seg, Wp) uint32 — the rows' token-set bitmaps
+                (``hamming.pack_sets``) for the exact re-rank; row order
+                matches ``ids``.
+    """
+
+    index: object
+    packed: np.ndarray
+    ids: np.ndarray
+    live: np.ndarray
+    L: int
+    b: int
+    serial: int = dataclasses.field(
+        default_factory=lambda: next(_SEG_SERIALS))
+    payloads: Optional[np.ndarray] = None
+
+    @property
+    def sketches(self) -> np.ndarray:
+        """(n_seg, L) uint8, unpacked on demand."""
+        return unpack_vertical(self.packed, self.b, self.L)
+
+    @property
+    def n(self) -> int:
+        return int(self.ids.shape[0])
+
+    @property
+    def n_live(self) -> int:
+        return int(self.live.sum())
+
+
+class SegmentedSearchResult(NamedTuple):
+    mask: torch.Tensor    # (m, n_ids) bool — live ids within τ per query
+    dist: torch.Tensor    # (m, n_ids) int32 — exact distance on mask, BIG off
+    overflow: int         # total dropped frontier entries (0 = exact)
+
+
+class ColumnSearchResult(NamedTuple):
+    """Column-compressed range-search result — the primary contract: one
+    column per *physical* row currently held (every segment's rows in
+    stack order, then the delta buffer's), labeled by stable global id.
+    O(m · R) where R shrinks with merge/compact."""
+
+    mask: torch.Tensor    # (m, R) bool — live columns within τ per query
+    dist: torch.Tensor    # (m, R) int32 — exact distance where mask, BIG off
+    ids: np.ndarray       # (R,) int64 — global id per column (host)
+    overflow: int         # total dropped frontier entries (0 = exact)
+
+
+class _ColumnArena:
+    """Device-resident verify state of the full-length layout: one
+    full-length (b, W) column per sealed row, maintained across queries
+    and appended to on a flush.
+
+    Attributes (R = sealed physical rows, T = 1 + Σ per-segment ℓ_s-root
+    counts — slot 0 is the delta buffer's trivial base):
+      cols:      (b, W, R) int32 — segment blocks in stack order;
+      base_idx:  (R,) int32 — ``1 + root_offset[s] + leaf_root[id_leaf[row]]``;
+      gids:      (R,) int32 — global id per column (selection labels);
+      live:      (R,) bool — liveness lanes, flipped in place by ``delete``;
+      col_ids:   (R,) int64 host — global id per column (result labels);
+      col_off:   dict serial -> first column of that segment's block;
+      root_off:  dict serial -> first root slot of that segment;
+      t_root_total: Σ per-segment root counts;
+      serials:   the segment-stack fingerprint this arena matches.
+    """
+
+    def __init__(self):
+        self.serials: Tuple[int, ...] = ()
+        self.cols: Optional[torch.Tensor] = None
+        self.base_idx: Optional[torch.Tensor] = None
+        self.gids: Optional[torch.Tensor] = None
+        self.live: Optional[torch.Tensor] = None
+        self.col_ids = np.zeros((0,), np.int64)
+        self.col_off: Dict[int, int] = {}
+        self.root_off: Dict[int, int] = {}
+        self.t_root_total = 0
+
+    @property
+    def n_cols(self) -> int:
+        return int(self.col_ids.shape[0])
+
+    def array_bytes(self) -> int:
+        """Device bytes held by the arena."""
+        if self.cols is None:
+            return 0
+        return sum(x.numel() * x.element_size()
+                   for x in (self.cols, self.base_idx, self.gids, self.live))
+
+    def host_bytes(self) -> int:
+        return 0
+
+    def col_bytes(self, tier: Optional[str] = None) -> int:
+        if self.cols is None or tier == "cold":
+            return 0
+        return self.cols.numel() * self.cols.element_size()
+
+    def tier_summary(self) -> Dict[str, int]:
+        return {"hot_blocks": len(self.col_off), "cold_blocks": 0,
+                "hot_bytes": self.col_bytes(), "cold_bytes": 0}
+
+
+# Fused programs, keyed on (backend, layout, index scope, segment-serial
+# fingerprint, placement generation, kind, τ, capacity rung, k,
+# block_m); the closures pin the segment indexes and column arrays they
+# stream, and an index drops its own dead-generation entries the moment
+# its fingerprint changes (``_fused_fn``).
+_FUSED_CACHE: Dict[tuple, object] = {}
+_FUSED_CACHE_CAP = 32
+
+
+def clear_fused_cache() -> None:
+    """Drop every cached fused program (and its pinned arrays)."""
+    _FUSED_CACHE.clear()
+
+
+def _empty_topk(m: int, k: int, device) -> TopKResult:
+    return TopKResult(
+        ids=torch.full((m, k), -1, dtype=torch.int32, device=device),
+        dists=torch.full((m, k), BIG_I, dtype=torch.int32, device=device),
+        tau=0, overflow=0)
+
+
+def _ladder(columns_fn, n_live: int, b: int, L: int, qs: np.ndarray, k: int,
+            tau0: Optional[int]):
+    """The shared τ ladder over column planes: escalate τ (seeded by
+    ``tau_for_k`` over the live count) until every query has ≥
+    min(k, n_live) survivors.  Returns (kk, τ, dist, col_ids, overflow)."""
+    kk = min(int(k), n_live)
+    tau = tau0 if tau0 is not None else tau_for_k(b, L, n_live, kk)
+    tau = min(max(int(tau), 0), L)
+    while True:
+        dist, col_ids, overflow = columns_fn(qs, tau)
+        if int((dist < BIG_I).sum(dim=1).min()) >= kk or tau >= L:
+            return kk, tau, dist, col_ids, overflow
+        tau = min(L, max(tau + 1, 2 * tau))
+
+
+def _ladder_topk(columns_fn, n_live: int, b: int, L: int, qs: np.ndarray,
+                 k: int, tau0: Optional[int], device) -> TopKResult:
+    """The reference kNN ladder over column-compressed fan-out planes.
+
+    ``columns_fn(qs, tau)`` -> ((m, R) int32 distances over the physical
+    columns, BIG on non-results; (R,) int64 global id per column;
+    overflow).  After the ladder, the host shard-merge selection
+    (``topk_from_dists``) orders by (distance, global id)."""
+    m = qs.shape[0]
+    if n_live == 0:
+        return _empty_topk(m, int(k), device)
+    _, tau, dist, col_ids, overflow = _ladder(columns_fn, n_live, b, L, qs,
+                                              k, tau0)
+    ids, dists = topk_from_dists(dist.cpu().numpy(), int(k), ids=col_ids)
+    return TopKResult(ids=torch.from_numpy(ids).to(device),
+                      dists=torch.from_numpy(dists).to(device),
+                      tau=tau, overflow=overflow)
+
+
+class _PayloadArena:
+    """Device payload plane of the full-length layout: one (Wp, R) bitmap
+    column per sealed row, stack order — a flush appends a block, a
+    merge/compact rebuilds.  (The suffix layout keeps payloads inside
+    the ``ColumnStore`` blocks instead.)"""
+
+    def __init__(self, pay_words: int, device):
+        self.pay_words = int(pay_words)
+        self.device = device
+        self.serials: Tuple[int, ...] = ()
+        self.pays = torch.zeros((self.pay_words, 0), dtype=torch.int32,
+                                device=device)
+
+    def refresh(self, segments: List[Segment],
+                serials: Tuple[int, ...]) -> torch.Tensor:
+        if self.serials == serials:
+            return self.pays
+        if not (len(serials) > len(self.serials)
+                and serials[:len(self.serials)] == self.serials):
+            self.pays = self.pays[:, :0]
+            self.serials = ()
+        new_segs = segments[len(self.serials):]
+        if new_segs:
+            block = np.concatenate([seg.payloads.T for seg in new_segs],
+                                   axis=-1)
+            self.pays = torch.cat([self.pays, as_words(block, self.device)],
+                                  dim=-1)
+        self.serials = serials
+        return self.pays
+
+    def array_bytes(self) -> int:
+        return self.pays.numel() * self.pays.element_size()
+
+
+def _rerank_select(dist: torch.Tensor, pay_vert: torch.Tensor,
+                   q_pay: torch.Tensor, col_ids: torch.Tensor, *,
+                   metric: str, kk: int, block_m: int):
+    """Exact re-rank + selection of the reference path: survivors of the
+    final-τ dist plane are scored by ``ops.exact_rerank`` and selected by
+    ``select_topk_scores`` — the kernel and sort of the fused re-rank
+    program, so every path is bit-identical."""
+    surv = (dist < BIG).to(torch.int32)
+    scores = ops.exact_rerank(pay_vert, q_pay, surv, metric=metric,
+                              block_m=block_m)
+    return select_topk_scores(scores, dist, col_ids, kk)
+
+
+def _pad_topk_scores(ids: torch.Tensor, dists: torch.Tensor,
+                     scores: torch.Tensor, k: int):
+    """Pad re-ranked (m, kk) planes out to (m, k): (-1, BIG, -1.0)."""
+    kk = ids.shape[-1]
+    if kk == k:
+        return ids, dists, scores
+    pad = tuple(ids.shape[:-1]) + (k - kk,)
+    return (torch.cat([ids, ids.new_full(pad, -1)], dim=-1),
+            torch.cat([dists, dists.new_full(pad, BIG_I)], dim=-1),
+            torch.cat([scores, scores.new_full(pad, -1.0)], dim=-1))
+
+
+def _empty_topk_rerank(m: int, k: int, device) -> TopKResult:
+    return _empty_topk(m, k, device)._replace(
+        scores=torch.full((m, k), -1.0, dtype=torch.float32, device=device))
+
+
+def _ladder_topk_rerank(columns_fn, payload_rows_fn, n_live: int, b: int,
+                        L: int, block_m: int, qs: np.ndarray, k: int,
+                        tau0: Optional[int], metric: str,
+                        q_pay: np.ndarray, device) -> TopKResult:
+    """The reference two-stage ladder: escalate τ until every query has
+    ≥ min(k, n_live) survivors, then ONE ``_rerank_select`` scores the
+    final survivor plane against ``payload_rows_fn()``'s (R, Wp) host
+    rows and selects the k best (score desc, id asc)."""
+    m = qs.shape[0]
+    if n_live == 0:
+        return _empty_topk_rerank(m, int(k), device)
+    kk, tau, dist, col_ids, overflow = _ladder(columns_fn, n_live, b, L, qs,
+                                               k, tau0)
+    pay_vert = as_words(payload_rows_fn().T, device)
+    _dispatch("rerank")
+    ids, dists, scores = _rerank_select(
+        dist, pay_vert, as_words(q_pay.T, device),
+        torch.from_numpy(col_ids.astype(np.int32)).to(device),
+        metric=metric, kk=kk, block_m=block_m)
+    ids, dists, scores = _pad_topk_scores(ids, dists, scores, int(k))
+    return TopKResult(ids=ids, dists=dists, tau=tau, overflow=int(overflow),
+                      scores=scores)
+
+
+def _root_plane(stack, qs: torch.Tensor, tau: int, exact_prefix: bool):
+    """Every segment's 2D-frontier descent to its ℓ_s roots, scattered
+    onto ONE concatenated (m, T) root plane (slot 0 the delta's trivial
+    0).  ``stack``: (index, caps, t_root) per segment.  ``exact_prefix``:
+    the suffix layout carries the traversal's exact prefix distances,
+    which its suffix verify completes; the full layout carries only
+    reached (0) / pruned (BIG), its full-length columns recomputing the
+    prefix.  Returns (plane, (m,) overflow)."""
+    m = qs.shape[0]
+    planes = [torch.zeros((m, 1), dtype=torch.int32, device=qs.device)]
+    overflow = torch.zeros((m,), dtype=torch.int32, device=qs.device)
+    for ix, caps, t_root in stack:
+        ids, dists, valid, ov, _ = _traverse_frontier_batch(ix, qs, tau=tau,
+                                                            caps=caps)
+        vals = dists if exact_prefix else torch.zeros_like(dists)
+        planes.append(scatter_root_plane(ids, vals, valid, m, t_root))
+        overflow += ov
+    return torch.cat(planes, dim=1), overflow
+
+
+def _stack_inverse(plan, device) -> Optional[torch.Tensor]:
+    """The static inverse permutation from the plan's group order back to
+    stack order (None when the two agree)."""
+    if not plan:
+        return None
+    inv = np.argsort(np.concatenate([g.perm for g in plan]))
+    if (inv == np.arange(len(inv))).all():
+        return None
+    return torch.from_numpy(inv).to(device)
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet")
+
+
+class SegmentedIndex:
+    """A dynamic, incrementally maintained index over b-bit sketches.
+
+    Parameters:
+      L, b:       sketch length / bits per character (Σ = [0, 2^b)).
+      delta_cap:  delta-buffer rows that trigger an automatic ``flush``.
+      backend:    "bst" (each segment is one bST); "multi" and "sharded"
+                  are not ported yet.
+      mi_blocks, n_shards: the other backends' parameters (kept for the
+                  JAX signature).
+      lam:        the paper's λ collapse parameter, forwarded to builds.
+      auto_merge: run the size-tiered merge policy after every automatic
+                  flush (manual ``flush()`` never merges implicitly).
+      block_m:    query tile of the verify kernels.
+      use_arena:  serve queries through the fused program (one dispatch
+                  per τ rung regardless of segment count); False runs the
+                  per-segment reference fan-out.
+      layout:     "suffix" (default): packed per-segment suffix columns
+                  in the ``ColumnStore``; "full": the full-length
+                  ``_ColumnArena`` reference.
+      hot_bytes:  device budget of the cold tier; only None (everything
+                  on the device) is ported.
+      payload_words: uint32 words per row payload bitmap
+                  (``ceil(vocab / 32)``, see ``hamming.pack_sets``).
+                  When set, every ``insert`` must supply matching
+                  ``payloads`` and ``topk*(rerank=metric)`` runs the exact
+                  re-rank; None disables both.
+      device:     where the segments, columns and query planes live
+                  (default "cuda"; raises if CUDA is asked for and
+                  missing).
+
+    >>> import numpy as np
+    >>> idx = SegmentedIndex(L=8, b=2, delta_cap=4, device="cpu")
+    >>> ids = idx.insert(np.zeros((5, 8), np.uint8))   # auto-flush at 4
+    >>> (len(ids), idx.n_live, len(idx.segments))
+    (5, 5, 1)
+    >>> int(idx.delete(ids[:2]))
+    2
+    >>> idx.n_live
+    3
+    """
+
+    def __init__(self, L: int, b: int, *, delta_cap: int = 4096,
+                 backend: str = "bst", mi_blocks: int = 2, n_shards: int = 4,
+                 lam: float = 0.5, auto_merge: bool = True,
+                 block_m: int = DEFAULT_BLOCK_M, use_arena: bool = True,
+                 layout: str = "suffix",
+                 hot_bytes: Optional[int] = None,
+                 payload_words: Optional[int] = None, device="cuda"):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}")
+        if layout not in LAYOUTS:
+            raise ValueError(f"layout must be one of {LAYOUTS}")
+        if backend != "bst":
+            raise _unported(f"backend={backend!r}")
+        if hot_bytes is not None:
+            raise _unported("hot_bytes (the cold tier)")
+        self.device = resolve_device(device)
+        self.L = int(L)
+        self.b = int(b)
+        self.delta_cap = int(delta_cap)
+        self.backend = backend
+        self.mi_blocks = int(mi_blocks)
+        self.n_shards = int(n_shards)
+        self.lam = float(lam)
+        self.auto_merge = bool(auto_merge)
+        self.block_m = int(block_m)
+        self.use_arena = bool(use_arena)
+        self.layout = layout
+        self.hot_bytes = hot_bytes
+        self.payload_words = (None if payload_words is None
+                              else int(payload_words))
+
+        self.segments: List[Segment] = []
+        self.n_ids = 0                      # global ids ever assigned
+        self._delta_sk = np.zeros((0, self.L), np.uint8)
+        self._delta_ids = np.zeros((0,), np.int64)
+        self._delta_live = np.zeros((0,), bool)
+        self._delta_vert: Optional[torch.Tensor] = None  # (b, W, ndb)
+        self._delta_pay = (np.zeros((0, self.payload_words), np.uint32)
+                           if self.payload_words is not None else None)
+        self._delta_pay_vert: Optional[torch.Tensor] = None  # (Wp, ndb)
+        self._pay_arena: Optional[_PayloadArena] = None
+        # the suffix ColumnStore (layout "suffix") or the full-length
+        # _ColumnArena ("full") — the same maintenance surface (serials /
+        # live / col_off / col_ids / array_bytes)
+        self._arena: Optional[object] = None
+        self._fused_id = next(_SEG_SERIALS)             # per-index cache scope
+        self._fused_stamp: Tuple = ()                   # (serials, gen)
+        self.counters = {"flushes": 0, "merges": 0, "compactions": 0,
+                         "inserted": 0, "deleted": 0}
+        # write hook: fn(event: str, info: dict) fired after every
+        # lifecycle write ("insert" / "delete" / "flush" / "merge" /
+        # "compact").  Exceptions are the caller's problem.
+        self.event_hook: Optional[object] = None
+
+    @property
+    def store(self):
+        """The durability binding; none is ported, so always None."""
+        return None
+
+    @store.setter
+    def store(self, binding) -> None:
+        if binding is not None:
+            raise _unported("the durability store binding")
+
+    # -- mutation --------------------------------------------------------
+
+    def _emit(self, event: str, **info) -> None:
+        if self.event_hook is not None:
+            self.event_hook(event, info)
+
+    def _check_payloads(self, payloads, k: int) -> Optional[np.ndarray]:
+        """Validate insert-time payloads against ``payload_words``."""
+        if self.payload_words is None:
+            if payloads is not None:
+                raise ValueError(
+                    "payloads supplied but the index was built without "
+                    "payload_words")
+            return None
+        if payloads is None:
+            raise ValueError(
+                "payload_words is set: insert requires (k, "
+                f"{self.payload_words}) uint32 payload bitmaps")
+        pay = np.asarray(payloads, dtype=np.uint32)
+        if pay.ndim == 1:
+            pay = pay[None, :]
+        if pay.shape != (k, self.payload_words):
+            raise ValueError(f"payloads shape {pay.shape} != "
+                             f"({k}, {self.payload_words})")
+        return pay
+
+    def insert(self, sketches: np.ndarray,
+               payloads: Optional[np.ndarray] = None) -> np.ndarray:
+        """Append sketches to the delta buffer; returns their (k,) int64
+        global ids.  ``sketches``: (k, L) or (L,) uint8 over [0, 2^b);
+        ``payloads``: the rows' (k, Wp) uint32 set bitmaps when the index
+        has ``payload_words``.  Triggers ``flush`` (and, if
+        ``auto_merge``, the size-tiered merge policy) once the delta
+        buffer reaches ``delta_cap`` rows."""
+        sk = np.asarray(sketches, dtype=np.uint8)
+        if sk.ndim == 1:
+            sk = sk[None, :]
+        if sk.shape[1] != self.L:
+            raise ValueError(f"sketch length {sk.shape[1]} != L={self.L}")
+        if sk.size and int(sk.max()) >= (1 << self.b):
+            raise ValueError("character exceeds alphabet [0, 2^b)")
+        k = sk.shape[0]
+        pay = self._check_payloads(payloads, k)
+        new_ids = np.arange(self.n_ids, self.n_ids + k, dtype=np.int64)
+        self.n_ids += k
+        self._delta_sk = np.concatenate([self._delta_sk, sk])
+        self._delta_ids = np.concatenate([self._delta_ids, new_ids])
+        self._delta_live = np.concatenate(
+            [self._delta_live, np.ones(k, bool)])
+        self._delta_vert = None
+        if pay is not None:
+            self._delta_pay = np.concatenate([self._delta_pay, pay])
+            self._delta_pay_vert = None
+        self.counters["inserted"] += k
+        self._emit("insert", rows=k)
+        if len(self._delta_ids) >= self.delta_cap:
+            self.flush()
+            if self.auto_merge:
+                self.maybe_merge()
+        return new_ids
+
+    def delete(self, ids) -> int:
+        """Tombstone global ids (scalar or (k,) array-like); returns the
+        number of ids newly deleted (already-dead or unknown ids are
+        ignored).  No index is rebuilt: the host tombstone bitmaps flip,
+        and so do the column store's device liveness lanes.  The JAX
+        package builds a new lane array here; this port writes the lanes
+        in place, which is safe because every fused program reads
+        ``live`` afresh on each call."""
+        ids = np.unique(np.atleast_1d(np.asarray(ids, dtype=np.int64)))
+        newly = 0
+        arena = self._arena
+        lanes: List[np.ndarray] = []     # arena columns going dead
+        containers: List[Tuple[np.ndarray, np.ndarray, Optional[int]]] = [
+            (self._delta_ids, self._delta_live, None)]
+        containers += [
+            (seg.ids, seg.live,
+             arena.col_off.get(seg.serial) if arena is not None else None)
+            for seg in self.segments]
+        for id_arr, live_arr, col0 in containers:
+            if id_arr.size == 0:
+                continue
+            pos = np.searchsorted(id_arr, ids)
+            ok = (pos < id_arr.size) & (
+                id_arr[np.minimum(pos, id_arr.size - 1)] == ids)
+            sel = pos[ok]
+            newly += int(live_arr[sel].sum())
+            live_arr[sel] = False
+            if col0 is not None and sel.size:
+                lanes.append(col0 + sel)
+        if lanes:
+            arena.live[torch.from_numpy(np.concatenate(lanes)).to(
+                arena.live.device)] = False
+        self.counters["deleted"] += newly
+        self._emit("delete", rows=newly)
+        return newly
+
+    def flush(self) -> Optional[Segment]:
+        """Seal the delta buffer's live rows into a new immutable segment
+        (dead delta rows are dropped for free).  Returns the new Segment,
+        or None when nothing was live."""
+        live = self._delta_live
+        seg = None
+        if live.any():
+            sk = self._delta_sk[live]
+            ids = self._delta_ids[live]
+            pay = (self._delta_pay[live]
+                   if self._delta_pay is not None else None)
+            seg = Segment(index=self._build(sk),
+                          packed=pack_vertical(sk, self.b), ids=ids,
+                          live=np.ones(len(ids), bool), L=self.L, b=self.b,
+                          payloads=pay)
+            self.segments.append(seg)
+            self.counters["flushes"] += 1
+            self._emit("flush", rows=seg.n)
+        self._delta_sk = np.zeros((0, self.L), np.uint8)
+        self._delta_ids = np.zeros((0,), np.int64)
+        self._delta_live = np.zeros((0,), bool)
+        self._delta_vert = None
+        if self._delta_pay is not None:
+            self._delta_pay = np.zeros((0, self.payload_words), np.uint32)
+            self._delta_pay_vert = None
+        return seg
+
+    def merge(self, i: Optional[int] = None,
+              j: Optional[int] = None) -> bool:
+        """Rebuild two segments into one, dropping tombstoned rows.
+        Defaults to the two smallest segments (size-tiered choice);
+        returns False when fewer than two segments exist."""
+        if len(self.segments) < 2:
+            return False
+        if i is None or j is None:
+            order = np.argsort([seg.n for seg in self.segments],
+                               kind="stable")
+            i, j = int(order[0]), int(order[1])
+        if i == j:
+            raise ValueError("cannot merge a segment with itself")
+        a, b_ = self.segments[i], self.segments[j]
+        sk = np.concatenate([a.sketches[a.live], b_.sketches[b_.live]])
+        ids = np.concatenate([a.ids[a.live], b_.ids[b_.live]])
+        pay = None
+        if self.payload_words is not None:
+            pay = np.concatenate([a.payloads[a.live], b_.payloads[b_.live]])
+        order = np.argsort(ids, kind="stable")   # keep ids sorted for delete
+        sk, ids = sk[order], ids[order]
+        if pay is not None:
+            pay = pay[order]
+        lo, hi = min(i, j), max(i, j)
+        del self.segments[hi], self.segments[lo]
+        if len(ids):
+            self.segments.insert(lo, Segment(
+                index=self._build(sk), packed=pack_vertical(sk, self.b),
+                ids=ids, live=np.ones(len(ids), bool), L=self.L, b=self.b,
+                payloads=pay))
+        self.counters["merges"] += 1
+        self._emit("merge", rows=int(len(ids)))
+        return True
+
+    def maybe_merge(self) -> int:
+        """Size-tiered merge policy: while two segments share a size tier
+        (⌊log2 n⌋ bucket), merge the two smallest of that tier.  Returns
+        the number of merges performed."""
+        merges = 0
+        while True:
+            tiers: Dict[int, List[int]] = {}
+            for si, seg in enumerate(self.segments):
+                tiers.setdefault(max(seg.n, 1).bit_length(), []).append(si)
+            crowded = [idxs for idxs in tiers.values() if len(idxs) >= 2]
+            if not crowded:
+                return merges
+            idxs = min(crowded, key=lambda g: min(self.segments[s].n
+                                                  for s in g))
+            pair = sorted(idxs, key=lambda s: self.segments[s].n)[:2]
+            self.merge(pair[0], pair[1])
+            merges += 1
+
+    def compact(self, i: Optional[int] = None,
+                min_dead_frac: float = 0.0) -> int:
+        """Rebuild segment ``i`` (or every segment when None) without its
+        tombstoned rows; fully dead segments are removed outright.
+        ``min_dead_frac`` skips segments whose dead fraction is at or
+        below the threshold.  Returns the number of segments rebuilt or
+        removed."""
+        targets = range(len(self.segments)) if i is None else [i]
+        out: List[Optional[Segment]] = list(self.segments)
+        done = 0
+        for si in targets:
+            seg = self.segments[si]
+            dead = seg.n - seg.n_live
+            if dead == 0 or (seg.n and dead / seg.n <= min_dead_frac):
+                continue
+            if seg.n_live == 0:
+                out[si] = None
+            else:
+                sk, ids = seg.sketches[seg.live], seg.ids[seg.live]
+                pay = (seg.payloads[seg.live]
+                       if seg.payloads is not None else None)
+                out[si] = Segment(index=self._build(sk),
+                                  packed=pack_vertical(sk, self.b), ids=ids,
+                                  live=np.ones(len(ids), bool), L=self.L,
+                                  b=self.b, payloads=pay)
+            done += 1
+        self.segments = [s for s in out if s is not None]
+        self.counters["compactions"] += done
+        if done:
+            self._emit("compact", segments=done)
+        return done
+
+    # -- queries ---------------------------------------------------------
+
+    @staticmethod
+    def _as_batch(qs) -> np.ndarray:
+        qs = np.asarray(qs, dtype=np.uint8)
+        return qs[None, :] if qs.ndim == 1 else qs
+
+    def search_columns_batch(self, qs: np.ndarray, tau: int,
+                             explain: bool = False) -> ColumnSearchResult:
+        """Range search, column-compressed — the primary result contract:
+        ``qs`` (m, L) uint8 -> ``ColumnSearchResult`` with (m, R)
+        mask/dist planes over the physical columns plus the (R,)
+        global-id labels.  One fused dispatch per capacity rung on the
+        arena path."""
+        if explain:
+            raise _unported("explain=True")
+        qs = self._as_batch(qs)
+        dist, col_ids, overflow = self._columns(qs, int(tau))
+        return ColumnSearchResult(mask=dist <= tau, dist=dist, ids=col_ids,
+                                  overflow=overflow)
+
+    def search_columns(self, q: np.ndarray, tau: int) -> ColumnSearchResult:
+        """Single-query ``search_columns_batch`` (m=1 planes squeezed)."""
+        res = self.search_columns_batch(np.asarray(q)[None], tau)
+        return ColumnSearchResult(mask=res.mask[0], dist=res.dist[0],
+                                  ids=res.ids, overflow=res.overflow)
+
+    def search_batch(self, qs: np.ndarray, tau: int,
+                     explain: bool = False) -> SegmentedSearchResult:
+        """Range search on the opt-in dense contract: (m, L) queries ->
+        (m, n_ids) mask and exact-distance planes over every id ever
+        assigned (BIG off-mask and on dead ids)."""
+        if explain:
+            raise _unported("explain=True")
+        qs = self._as_batch(qs)
+        dist, col_ids, overflow = self._columns(qs, int(tau))
+        plane = torch.full((qs.shape[0], self.n_ids), BIG_I,
+                           dtype=torch.int32, device=self.device)
+        plane[:, torch.from_numpy(col_ids).to(self.device)] = dist
+        return SegmentedSearchResult(mask=plane <= tau, dist=plane,
+                                     overflow=overflow)
+
+    def search(self, q: np.ndarray, tau: int,
+               explain: bool = False) -> SegmentedSearchResult:
+        """Single-query ``search_batch`` (m=1 planes squeezed)."""
+        res = self.search_batch(np.asarray(q)[None], tau, explain=explain)
+        return SegmentedSearchResult(mask=res.mask[0], dist=res.dist[0],
+                                     overflow=res.overflow)
+
+    def topk_batch(self, qs: np.ndarray, k: int,
+                   tau0: Optional[int] = None, *,
+                   rerank: Optional[str] = None,
+                   q_payloads: Optional[np.ndarray] = None,
+                   explain: bool = False) -> TopKResult:
+        """Exact k-nearest neighbours over the live ids: (m, L) uint8
+        queries -> (m, k) int32 global ids / int32 exact distances,
+        ascending by (distance, id); (-1, BIG) pads past the live count.
+        The fused path runs one program per τ rung with the selection on
+        the device; the reference fan-out (``use_arena=False``) selects
+        on the host.  Both give the same bits.
+
+        ``rerank`` ("jaccard" / "cosine" / "containment") switches on
+        the two-stage contract: the final-τ survivor plane stays on the
+        device and ONE more dispatch scores the survivors' payload
+        bitmaps exactly against ``q_payloads`` ((m, Wp) uint32) and
+        selects the k largest (score, -id) — ``TopKResult.scores``
+        carries the scores, ids/dists follow score order, pads are
+        (-1, BIG, -1.0).  Requires ``payload_words``."""
+        if explain:
+            raise _unported("explain=True")
+        qs = self._as_batch(qs)
+        if rerank is not None:
+            q_pay = self._check_rerank(rerank, q_payloads, qs.shape[0])
+            if self.use_arena:
+                return self._fused_topk_rerank(qs, int(k), tau0, rerank,
+                                               q_pay)
+            return self._rerank_ladder(qs, int(k), tau0, rerank, q_pay)
+        if q_payloads is not None:
+            raise ValueError("q_payloads supplied without rerank=")
+        if self.use_arena:
+            return self._fused_topk(qs, int(k), tau0)
+        return _ladder_topk(self._search_columns, self.n_live, self.b,
+                            self.L, qs, k, tau0, self.device)
+
+    def topk(self, q: np.ndarray, k: int,
+             tau0: Optional[int] = None, *,
+             rerank: Optional[str] = None,
+             q_payloads: Optional[np.ndarray] = None,
+             explain: bool = False) -> TopKResult:
+        """Single-query ``topk_batch`` (row 0)."""
+        qp = None
+        if q_payloads is not None:
+            qp = np.asarray(q_payloads, np.uint32)
+            if qp.ndim == 1:
+                qp = qp[None, :]
+        res = self.topk_batch(np.asarray(q)[None], k, tau0=tau0,
+                              rerank=rerank, q_payloads=qp, explain=explain)
+        return TopKResult(ids=res.ids[0], dists=res.dists[0], tau=res.tau,
+                          overflow=res.overflow,
+                          scores=(None if res.scores is None
+                                  else res.scores[0]))
+
+    def cost_hint(self, op: str, *, k: Optional[int] = None,
+                  tau: Optional[int] = None, rows: int = 1) -> float:
+        """The admission controller's cost estimate: not ported yet."""
+        raise _unported("cost_hint")
+
+    # -- accounting ------------------------------------------------------
+
+    @property
+    def n_live(self) -> int:
+        """Live (inserted minus deleted) ids across delta + segments."""
+        return int(self._delta_live.sum()) + sum(
+            seg.n_live for seg in self.segments)
+
+    @property
+    def tombstones(self) -> int:
+        """Dead rows still physically held (reclaimable by merge/compact)
+        across the delta buffer and every segment."""
+        dead_delta = int((~self._delta_live).sum())
+        return dead_delta + sum(seg.n - seg.n_live for seg in self.segments)
+
+    def __len__(self) -> int:
+        return self.n_live
+
+    def space_ledger(self) -> Dict[str, int]:
+        """The space ledger:
+
+        ``model_bits``   — per-segment index bits + tombstone bitmaps,
+          plus the per-row lanes of the dynamic machinery (9 bytes per
+          sealed column on the arena path) and the delta verify planes at
+          their power-of-two bucket size.
+        ``device_bytes`` — resident device arrays: the column store or
+          arena, the materialized delta planes, the payload planes and
+          every segment's static index.
+        ``host_bytes``   — resident host arrays: packed sealed sketches,
+          id/liveness lanes, payload rows and raw delta rows.
+        """
+        model = 0
+        r_sealed = 0
+        for seg in self.segments:
+            model += int(seg.index.model_bits()) + tombstone_bits(seg.n)
+            r_sealed += seg.n
+        nd = len(self._delta_ids)
+        W = n_words(self.L)
+        if nd:
+            model += bucket_m(nd) * self.b * W * 32 + tombstone_bits(nd)
+        if r_sealed and self.use_arena and self.backend == "bst":
+            model += r_sealed * (4 + 4 + 1) * 8   # base_idx/gids/live lanes
+        device = 0
+        host = 0
+        ar = self._arena
+        if ar is not None:
+            device += ar.array_bytes()
+            host += ar.host_bytes()
+        for t in (self._delta_vert, self._delta_pay_vert):
+            if t is not None:
+                device += t.numel() * t.element_size()
+        if self._pay_arena is not None:
+            device += self._pay_arena.array_bytes()
+        for seg in self.segments:
+            device += int(seg.index.array_bytes())
+            host += int(seg.packed.nbytes + seg.ids.nbytes
+                        + seg.live.nbytes)
+            if seg.payloads is not None:
+                host += int(seg.payloads.nbytes)
+        host += int(self._delta_sk.nbytes + self._delta_ids.nbytes
+                    + self._delta_live.nbytes)
+        if self._delta_pay is not None:
+            host += int(self._delta_pay.nbytes)
+        return {"model_bits": model, "device_bytes": device,
+                "host_bytes": host}
+
+    def space_bits(self) -> int:
+        """Model-space accounting — ``space_ledger()['model_bits']``."""
+        return self.space_ledger()["model_bits"]
+
+    def stats(self) -> Dict[str, object]:
+        """Lifecycle counters, per-segment occupancy, and the space
+        ledger."""
+        led = self.space_ledger()
+        ar = self._arena
+        return {
+            "n_ids": self.n_ids, "n_live": self.n_live,
+            "tombstones": self.tombstones,
+            "delta_rows": int(len(self._delta_ids)),
+            "delta_live": int(self._delta_live.sum()),
+            "n_segments": len(self.segments),
+            "segments": [(seg.n, seg.n_live) for seg in self.segments],
+            "space_bits": led["model_bits"],
+            "device_bytes": led["device_bytes"],
+            "host_bytes": led["host_bytes"],
+            "arena_bytes": ar.array_bytes() if ar is not None else 0,
+            "tier": (ar.tier_summary() if ar is not None else
+                     {"hot_blocks": 0, "cold_blocks": 0, "hot_bytes": 0,
+                      "cold_bytes": 0}),
+            **self.counters,
+        }
+
+    # -- internals -------------------------------------------------------
+
+    def _build(self, sk: np.ndarray):
+        return build_bst(sk, self.b, self.lam, device=self.device)
+
+    def _q_tensor(self, qs: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(qs.astype(np.int32)).to(self.device)
+
+    def _delta_planes(self) -> torch.Tensor:
+        """(b, W, ndb) int32 delta-buffer verify planes, the row axis
+        padded up to the power-of-two bucket ``ndb = bucket_m(nd)`` with
+        zero columns that every caller masks dead — the column layout of
+        the JAX package's bucketed scan, so that ``dist[:, :r_sealed +
+        nd]`` slices the same columns."""
+        if self._delta_vert is None:
+            nd = len(self._delta_ids)
+            ndb = bucket_m(nd)
+            vert = np.zeros((self.b, n_words(self.L), ndb), np.uint32)
+            vert[..., :nd] = np.transpose(pack_vertical(self._delta_sk,
+                                                        self.b), (1, 2, 0))
+            self._delta_vert = as_words(vert, self.device)
+        return self._delta_vert
+
+    def _delta_pay_planes(self) -> torch.Tensor:
+        """(Wp, ndb) int32 delta-buffer payload plane, bucketed like
+        ``_delta_planes`` (zero columns past nd: the survivor mask
+        already kills them)."""
+        if self._delta_pay_vert is None:
+            nd = len(self._delta_ids)
+            vert = np.zeros((self.payload_words, bucket_m(nd)), np.uint32)
+            vert[:, :nd] = self._delta_pay.T
+            self._delta_pay_vert = as_words(vert, self.device)
+        return self._delta_pay_vert
+
+    def _search_columns(self, qs: np.ndarray, tau: int
+                        ) -> Tuple[torch.Tensor, np.ndarray, int]:
+        """Per-segment reference fan-out: (m, L) queries -> ((m, R) int32
+        distances over the physical columns — BIG on non-results, (R,)
+        int64 global id per column, total overflow).  Every segment
+        contributes exact distances within τ through its cached batch
+        searcher; the delta buffer a brute-force scan clamped to the same
+        τ.  One dispatch per segment plus one for the delta buffer."""
+        m = qs.shape[0]
+        dists: List[torch.Tensor] = []
+        col_ids: List[np.ndarray] = []
+        overflow = 0
+        qs_t = self._q_tensor(qs)
+        for seg in self.segments:
+            if seg.live.any():
+                dist, ov = self._search_segment(seg, qs_t, tau)
+                overflow += ov
+            else:
+                dist = torch.full((m, seg.n), BIG_I, dtype=torch.int32,
+                                  device=self.device)
+            dists.append(dist)
+            col_ids.append(seg.ids)
+        nd = len(self._delta_ids)
+        if nd:
+            q_vert = ops.to_lane_major(pack_vertical_torch(qs_t, self.b))
+            _dispatch("fanout")
+            d = ops.hamming_distances(self._delta_planes(), q_vert)[:, :nd]
+            live = torch.from_numpy(self._delta_live).to(self.device)
+            dists.append(torch.where(live[None, :] & (d <= tau), d, BIG_I))
+            col_ids.append(self._delta_ids)
+        if not dists:
+            return (torch.zeros((m, 0), dtype=torch.int32,
+                                device=self.device),
+                    np.zeros((0,), np.int64), 0)
+        return torch.cat(dists, dim=1), np.concatenate(col_ids), overflow
+
+    def _columns(self, qs: np.ndarray,
+                 tau: int) -> Tuple[torch.Tensor, np.ndarray, int]:
+        """Route to the fused path or the per-segment reference fan-out
+        (identical contracts, bit-identical results)."""
+        if self.use_arena:
+            return self._fused_columns(qs, tau)
+        return self._search_columns(qs, tau)
+
+    def _search_segment(self, seg: Segment, qs_t: torch.Tensor,
+                        tau: int) -> Tuple[torch.Tensor, int]:
+        """One segment, the whole batch -> ((m, n_seg) int32 exact local
+        distances — BIG off-mask and on tombstones, overflow): the cached
+        batch searcher with the tombstone bitmap, on the doubled capacity
+        ladder until exact."""
+        live_t = torch.from_numpy(seg.live).to(self.device)
+        cap = CAP_MAX_DEFAULT
+        while True:
+            fn = get_searcher(seg.index, tau, cap, batch=True,
+                              block_m=self.block_m, with_live=True)
+            _dispatch("fanout")
+            res = fn(qs_t, live_t)
+            ov = int(res.overflow.sum())
+            if ov == 0 or cap >= LADDER_CAP_MAX:
+                return res.dist, ov
+            cap *= 2
+
+    # -- fused path --------------------------------------------------------
+
+    def _seg_serials(self) -> Tuple[int, ...]:
+        return tuple(seg.serial for seg in self.segments)
+
+    def _refresh_arena(self) -> _ColumnArena:
+        """Bring the full-length column arena up to date with the segment
+        stack: a flush *appends* the new segment's columns and lanes, a
+        merge or compact (a non-monotone change of the serial
+        fingerprint) rebuilds it."""
+        serials = self._seg_serials()
+        ar = self._arena
+        if isinstance(ar, _ColumnArena) and ar.serials == serials:
+            return ar
+        incremental = (isinstance(ar, _ColumnArena) and ar.cols is not None
+                       and len(serials) > len(ar.serials)
+                       and serials[:len(ar.serials)] == ar.serials)
+        if not incremental:
+            ar = _ColumnArena()
+        new_segs = self.segments[len(ar.serials):]
+        dev = self.device
+        cols, idx, gid, live, cid = [], [], [], [], []
+        col0 = ar.n_cols
+        root0 = 1 + ar.t_root_total          # slot 0: delta's trivial base
+        for seg in new_segs:
+            tail = seg.index.tail
+            cols.append(as_words(np.transpose(seg.packed, (1, 2, 0)), dev))
+            idx.append(root0 + tail.leaf_root.index_select(
+                0, seg.index.id_leaf.long()))
+            gid.append(torch.from_numpy(seg.ids.astype(np.int32)).to(dev))
+            live.append(torch.from_numpy(seg.live.copy()).to(dev))
+            cid.append(seg.ids)
+            ar.col_off[seg.serial] = col0
+            ar.root_off[seg.serial] = root0
+            col0 += seg.n
+            root0 += int(tail.t_root)
+        if ar.cols is None:
+            W = n_words(self.L)
+            ar.cols = torch.zeros((self.b, W, 0), dtype=torch.int32,
+                                  device=dev)
+            ar.base_idx = torch.zeros((0,), dtype=torch.int32, device=dev)
+            ar.gids = torch.zeros((0,), dtype=torch.int32, device=dev)
+            ar.live = torch.zeros((0,), dtype=torch.bool, device=dev)
+        if new_segs:
+            ar.cols = torch.cat([ar.cols] + cols, dim=-1)
+            ar.base_idx = torch.cat([ar.base_idx] + idx)
+            ar.gids = torch.cat([ar.gids] + gid)
+            ar.live = torch.cat([ar.live] + live)
+            ar.col_ids = np.concatenate([ar.col_ids] + cid)
+        ar.t_root_total = root0 - 1
+        ar.serials = serials
+        self._arena = ar
+        return ar
+
+    def _refresh_store(self) -> ColumnStore:
+        """Bring the suffix ``ColumnStore`` up to date with the segment
+        stack — the same discipline as ``_refresh_arena``: a flush
+        appends one block, a merge/compact rebuilds."""
+        serials = self._seg_serials()
+        st = self._arena
+        if isinstance(st, ColumnStore) and st.serials == serials:
+            return st
+        incremental = (isinstance(st, ColumnStore)
+                       and len(serials) > len(st.serials)
+                       and serials[:len(st.serials)] == st.serials)
+        if not incremental:
+            st = ColumnStore(self.L, self.b, hot_bytes=self.hot_bytes,
+                             payload_words=self.payload_words,
+                             device=self.device)
+        for seg in self.segments[len(st.serials):]:
+            st.append_segment(seg)
+        st.seal(serials)
+        self._arena = st
+        return st
+
+    def _suffix_store(self) -> bool:
+        return self.backend == "bst" and self.layout == "suffix"
+
+    def _cache_get(self, key: tuple, build):
+        """The fused-program cache with the searcher cache's counters."""
+        fn = _FUSED_CACHE.get(key)
+        if fn is None:
+            fn = build()
+            while len(_FUSED_CACHE) >= _FUSED_CACHE_CAP:
+                _FUSED_CACHE.pop(next(iter(_FUSED_CACHE)))
+            _FUSED_CACHE[key] = fn
+            _CACHE_STATS["misses"] += 1
+        else:
+            _CACHE_STATS["hits"] += 1
+        return fn
+
+    def _fused_fn(self, kind: str, tau: int, rung: int, kk: Optional[int]):
+        """Fetch (or build) the fused program for this segment stack:
+        ``kind="cols"`` -> ((mb, R) int32 dist plane, overflow);
+        ``kind="dist"`` -> (dist plane, min survivors, overflow);
+        ``kind="topk"`` -> ((mb, kk) ids, (mb, kk) dists, min survivors,
+        overflow) with the selection on the device."""
+        serials = self._seg_serials()
+        gen = self._refresh_store().gen if self._suffix_store() else 0
+        if (serials, gen) != self._fused_stamp:
+            # the stack changed generation: this index's programs keyed on
+            # the old fingerprint are unreachable (serials are monotonic)
+            # — drop them now so they do not pin dead column copies
+            for stale in [k for k in _FUSED_CACHE if k[2] == self._fused_id]:
+                del _FUSED_CACHE[stale]
+            self._fused_stamp = (serials, gen)
+        key = (self.backend, self.layout, self._fused_id, serials, gen,
+               kind, tau, rung, kk, self.block_m)
+        build = (self._build_fused_bst_suffix if self._suffix_store()
+                 else self._build_fused_bst)
+        return self._cache_get(key, lambda: build(kind, tau, rung, kk))
+
+    def _stack_constants(self, tau: int, rung: int):
+        """The fused programs' traversal constants: each segment's index,
+        its frontier capacities at this (τ, capacity rung), and its
+        ℓ_s-root count."""
+        cap = CAP_MAX_DEFAULT << rung
+        return [(seg.index, frontier_capacities(seg.index.t, self.b, tau, cap),
+                 int(seg.index.tail.t_root)) for seg in self.segments]
+
+    @staticmethod
+    def _finish(kind: str, dist: torch.Tensor, overflow: torch.Tensor,
+                labels, kk: Optional[int]):
+        """The fused programs' common tail: the (m, R) dist plane for
+        "cols", plus the ladder scalar for "dist", or the on-device
+        (distance, id) selection for "topk"."""
+        ov = overflow.sum()
+        if kind == "cols":
+            return dist, ov
+        min_surv = (dist < BIG).sum(dim=1).min()
+        if kind == "dist":
+            return dist, min_surv, ov
+        sel_ids, sel_d = select_topk_columns(dist, labels(), kk)
+        return sel_ids, sel_d, min_surv, ov
+
+    def _build_fused_bst(self, kind: str, tau: int, rung: int,
+                         kk: Optional[int]):
+        """The full-layout program: every segment's traversal, a 0/BIG
+        reach scatter onto one root plane, the arena verify kernel over
+        the sealed + delta full-length columns, and the selection."""
+        arena = self._refresh_arena()
+        stack = self._stack_constants(tau, rung)
+        cols0, idx0, gids0 = arena.cols, arena.base_idx, arena.gids
+        b_, block_m = self.b, self.block_m
+
+        def run(qs, live_sealed, delta_vert, delta_live, delta_gids):
+            base_plane, overflow = _root_plane(stack, qs, tau, False)
+            ndb = delta_vert.shape[-1]
+            cols = torch.cat([cols0, delta_vert], dim=-1)
+            live = torch.cat([live_sealed, delta_live])
+            base_idx = torch.cat([idx0, torch.zeros(
+                (ndb,), dtype=torch.int32, device=qs.device)])
+            q_vert = ops.to_lane_major(pack_vertical_torch(qs, b_))
+            hm, dist = ops.sparse_verify_arena(
+                cols, q_vert, base_plane, base_idx, live, tau=tau,
+                block_m=block_m)
+            dist = torch.where(hm > 0, dist, BIG_I)
+            return self._finish(kind, dist, overflow,
+                                lambda: torch.cat([gids0, delta_gids]), kk)
+        return run
+
+    def _build_fused_bst_suffix(self, kind: str, tau: int, rung: int,
+                                kk: Optional[int]):
+        """The suffix-layout program: the same traversal, ONE root plane
+        carrying exact prefix distances, one verify launch per geometry
+        group (packed words, or plane columns when b·S > 32), the
+        full-length delta scan, and the selection.  The groups' columns
+        come back in group order; a static inverse permutation restores
+        stack order, on which the selection's tie order depends."""
+        store = self._refresh_store()
+        plan = store.plan()
+        stack = self._stack_constants(tau, rung)
+        gids0 = store.gids
+        b_, L, block_m = self.b, self.L, self.block_m
+        perms = [torch.from_numpy(g.perm).to(self.device) for g in plan]
+        inv = _stack_inverse(plan, self.device)
+
+        def run(qs, live_sealed, delta_vert, delta_live, delta_gids):
+            base_plane, overflow = _root_plane(stack, qs, tau, True)
+            parts: List[torch.Tensor] = []
+            for g, perm in zip(plan, perms):
+                live_g = live_sealed[perm]
+                S = g.geom.suffix_len
+                if g.geom.packed:
+                    qw = pack_suffix_words_torch(qs[:, L - S:], b_)
+                    hm, d = ops.sparse_verify_arena_packed(
+                        g.cols_hot, qw, base_plane, g.base_idx, live_g,
+                        b=b_, S=S, tau=tau, block_m=block_m)
+                else:
+                    qv = ops.to_lane_major(pack_vertical_torch(qs[:, L - S:],
+                                                               b_))
+                    hm, d = ops.sparse_verify_arena(
+                        g.cols_hot, qv, base_plane, g.base_idx, live_g,
+                        tau=tau, block_m=block_m)
+                parts.append(torch.where(hm > 0, d, BIG_I))
+            sealed = (torch.cat(parts, dim=1) if parts else torch.zeros(
+                (qs.shape[0], 0), dtype=torch.int32, device=qs.device))
+            if inv is not None:
+                sealed = sealed.index_select(1, inv)
+            # the delta buffer scans full-length (its rows have no trie,
+            # hence no ℓ_s to slice at); its columns come last in both
+            # orders.  An empty buffer launches nothing.
+            if delta_vert.shape[-1]:
+                q_vert = ops.to_lane_major(pack_vertical_torch(qs, b_))
+                dd = ops.hamming_distances(delta_vert, q_vert)
+                dd = torch.where(delta_live[None, :] & (dd <= tau), dd, BIG_I)
+                dist = torch.cat([sealed, dd], dim=1)
+            else:
+                dist = sealed
+            return self._finish(kind, dist, overflow,
+                                lambda: torch.cat([gids0, delta_gids]), kk)
+        return run
+
+    def _fused_saturated(self, rung: int) -> bool:
+        return (CAP_MAX_DEFAULT << rung) >= LADDER_CAP_MAX
+
+    def _delta_args(self):
+        """(delta_vert, delta_live, delta_gids) bucketed to ``ndb``: the
+        live and gid lanes are zero (dead, label 0) past nd."""
+        nd = len(self._delta_ids)
+        if nd:
+            delta_vert = self._delta_planes()
+            ndb = delta_vert.shape[-1]
+        else:
+            delta_vert = torch.zeros((self.b, n_words(self.L), 0),
+                                     dtype=torch.int32, device=self.device)
+            ndb = 0
+        delta_live = np.zeros(ndb, bool)
+        delta_live[:nd] = self._delta_live
+        delta_gids = np.zeros(ndb, np.int32)
+        delta_gids[:nd] = self._delta_ids.astype(np.int32)
+        return (delta_vert, torch.from_numpy(delta_live).to(self.device),
+                torch.from_numpy(delta_gids).to(self.device))
+
+    def _fused_call(self, kind: str, qs: np.ndarray, tau: int,
+                    kk: Optional[int] = None):
+        """Dispatch ONE fused program per capacity rung: pads the query
+        axis to its power-of-two bucket by repeating the last row (the
+        overflow sums over the padded bucket, as in the JAX package),
+        assembles the bucketed delta args, and escalates the
+        frontier-capacity rung until the traversal is exact."""
+        m = qs.shape[0]
+        mb = bucket_m(m)
+        qs_t = self._q_tensor(qs)
+        if mb != m:
+            qs_t = _pad_rows(qs_t, mb)
+        live = (self._refresh_store().live if self._suffix_store()
+                else self._refresh_arena().live)
+        args = (live,) + self._delta_args()
+        rung = 0
+        while True:
+            fn = self._fused_fn(kind, tau, rung, kk)
+            _dispatch("fused")
+            out = fn(qs_t, *args)
+            if int(out[-1]) == 0 or self._fused_saturated(rung):
+                return out
+            rung += 1
+
+    def _fused_columns(self, qs: np.ndarray, tau: int
+                       ) -> Tuple[torch.Tensor, np.ndarray, int]:
+        """Fused-path ``_search_columns``: the same ((m, R) dist, (R,)
+        ids, overflow) contract, one dispatch per capacity rung."""
+        m = qs.shape[0]
+        r_sealed = sum(seg.n for seg in self.segments)
+        nd = len(self._delta_ids)
+        if r_sealed + nd == 0:
+            return (torch.zeros((m, 0), dtype=torch.int32,
+                                device=self.device),
+                    np.zeros((0,), np.int64), 0)
+        dist, ov = self._fused_call("cols", qs, tau)
+        col_ids = np.concatenate([seg.ids for seg in self.segments]
+                                 + [self._delta_ids])
+        return dist[:m, :r_sealed + nd], col_ids, int(ov)
+
+    def _fused_topk(self, qs: np.ndarray, k: int,
+                    tau0: Optional[int]) -> TopKResult:
+        """The fused τ ladder: each rung is one program whose selection
+        already ran on the device; the host reads two scalars (min
+        survivor count, overflow) to steer the ladder."""
+        m = qs.shape[0]
+        n_live = self.n_live
+        if n_live == 0:
+            return _empty_topk(m, k, self.device)
+        kk = min(int(k), n_live)
+        tau = tau0 if tau0 is not None else tau_for_k(self.b, self.L,
+                                                      n_live, kk)
+        tau = min(max(int(tau), 0), self.L)
+        while True:
+            ids, dists, min_surv, ov = self._fused_call("topk", qs, tau,
+                                                        kk=kk)
+            if int(min_surv) >= kk or tau >= self.L:
+                break
+            tau = min(self.L, max(tau + 1, 2 * tau))
+        dists, ids = _pad_topk(dists[:m], ids[:m], int(k))
+        return TopKResult(ids=ids, dists=dists, tau=tau, overflow=int(ov))
+
+    # -- exact re-rank ---------------------------------------------------
+
+    def _check_rerank(self, metric: str, q_payloads,
+                      m: int) -> np.ndarray:
+        """Validate the two-stage request: known metric, payload-bearing
+        index, (m, Wp) uint32 query bitmaps."""
+        if metric not in RERANK_METRICS:
+            raise ValueError(f"rerank must be one of {RERANK_METRICS}")
+        if self.payload_words is None:
+            raise ValueError(
+                "rerank requires an index built with payload_words")
+        if q_payloads is None:
+            raise ValueError("rerank requires q_payloads — the queries' "
+                             "(m, Wp) uint32 set bitmaps")
+        qp = np.asarray(q_payloads, np.uint32)
+        if qp.ndim == 1:
+            qp = qp[None, :]
+        if qp.shape != (m, self.payload_words):
+            raise ValueError(f"q_payloads shape {qp.shape} != "
+                             f"({m}, {self.payload_words})")
+        return qp
+
+    def _payload_rows(self) -> np.ndarray:
+        """(R, Wp) uint32 host payload rows in global column order (every
+        segment's rows in stack order, then the delta buffer's)."""
+        parts = [seg.payloads for seg in self.segments]
+        if len(self._delta_ids):
+            parts.append(self._delta_pay)
+        if not parts:
+            return np.zeros((0, self.payload_words), np.uint32)
+        return np.concatenate(parts, axis=0)
+
+    def _rerank_ladder(self, qs: np.ndarray, k: int, tau0: Optional[int],
+                       metric: str, q_pay: np.ndarray) -> TopKResult:
+        """Reference two-stage path (``use_arena=False``): the fan-out
+        ladder finds the final-τ survivor plane, then ONE
+        ``_rerank_select`` scores and selects."""
+        return _ladder_topk_rerank(
+            self._search_columns, self._payload_rows, self.n_live, self.b,
+            self.L, self.block_m, qs, k, tau0, metric, q_pay, self.device)
+
+    def _rerank_fn(self, metric: str, kk: int):
+        """Fetch (or build) the stage-2 program for this stack — the same
+        cache and fingerprint as ``_fused_fn`` (whose stale-generation
+        purge also drops stale re-rank programs)."""
+        serials = self._seg_serials()
+        gen = self._refresh_store().gen if self._suffix_store() else 0
+        key = (self.backend, self.layout, self._fused_id, serials, gen,
+               "rerank", metric, 0, kk, self.block_m)
+        return self._cache_get(key, lambda: self._build_rerank(metric, kk))
+
+    def _build_rerank(self, metric: str, kk: int):
+        """The stage-2 program: the (Wp, R) payload plane in global column
+        order (sealed payloads ordered once, here; the delta's bucketed
+        plane appended per call), the exact re-rank kernel over the
+        stage-1 survivors, and the (score desc, id asc) selection — the
+        dist plane never leaves the device between the stages."""
+        block_m = self.block_m
+        if self._suffix_store():
+            store = self._refresh_store()
+            plan = store.plan()
+            gids0 = store.gids
+            # the inverse permutation the dist program applies: payload
+            # columns land in dist order
+            inv = _stack_inverse(plan, self.device)
+            pays0 = (torch.cat([g.pays_hot for g in plan], dim=-1) if plan
+                     else torch.zeros((self.payload_words, 0),
+                                      dtype=torch.int32, device=self.device))
+            if inv is not None:
+                pays0 = pays0.index_select(1, inv)
+        else:
+            if self._pay_arena is None:
+                self._pay_arena = _PayloadArena(self.payload_words,
+                                                self.device)
+            pays0 = self._pay_arena.refresh(self.segments,
+                                            self._seg_serials())
+            gids0 = self._refresh_arena().gids
+
+        def run(dist, q_pay, delta_pay, delta_gids):
+            pays = torch.cat([pays0, delta_pay], dim=-1)
+            col_ids = torch.cat([gids0, delta_gids])
+            return _rerank_select(dist, pays, q_pay, col_ids, metric=metric,
+                                  kk=kk, block_m=block_m)
+        return run
+
+    def _fused_topk_rerank(self, qs: np.ndarray, k: int,
+                           tau0: Optional[int], metric: str,
+                           q_pay: np.ndarray) -> TopKResult:
+        """The fused two-stage ladder: stage 1 runs the kind="dist" fused
+        program per τ rung (the survivor plane stays on the device; only
+        the two ladder scalars cross), then stage 2 is ONE re-rank
+        dispatch for the whole request."""
+        m = qs.shape[0]
+        n_live = self.n_live
+        if n_live == 0:
+            return _empty_topk_rerank(m, int(k), self.device)
+        kk = min(int(k), n_live)
+        tau = tau0 if tau0 is not None else tau_for_k(self.b, self.L,
+                                                      n_live, kk)
+        tau = min(max(int(tau), 0), self.L)
+        while True:
+            dist, min_surv, ov = self._fused_call("dist", qs, tau)
+            if int(min_surv) >= kk or tau >= self.L:
+                break
+            tau = min(self.L, max(tau + 1, 2 * tau))
+        qp = np.zeros((dist.shape[0], self.payload_words), np.uint32)
+        qp[:m] = q_pay
+        if len(self._delta_ids):
+            delta_pay = self._delta_pay_planes()
+        else:
+            delta_pay = torch.zeros((self.payload_words, 0),
+                                    dtype=torch.int32, device=self.device)
+        delta_gids = self._delta_args()[2]
+        fn = self._rerank_fn(metric, kk)
+        _dispatch("rerank")
+        ids, dists, scores = fn(dist, as_words(qp.T, self.device), delta_pay,
+                                delta_gids)
+        ids, dists, scores = _pad_topk_scores(ids[:m], dists[:m],
+                                              scores[:m], int(k))
+        return TopKResult(ids=ids, dists=dists, tau=tau, overflow=int(ov),
+                          scores=scores)

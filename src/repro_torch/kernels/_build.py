@@ -1,11 +1,13 @@
 """Build and load the CUDA kernels at first use.
 
-``nvcc`` compiles ``csrc/hamming.cu`` for ``sm_90a`` into a shared
-library with a plain C interface, which ``ctypes`` loads.  The library
-lands in ``build/repro_torch_kernels/`` at the root of the checkout,
-named by a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.  Nothing is built when the
-module is imported: the CPU tests import it on machines without nvcc.
+``nvcc`` compiles every source of ``csrc/`` for ``sm_90a`` — one
+process per source, all started together — and links the objects into
+one shared library with a plain C interface, which ``ctypes`` loads.
+The library lands in ``build/repro_torch_kernels/`` at the root of the
+checkout, named by a hash of the sources and the flags, so an edited
+source is rebuilt and a stale library is never loaded.  Nothing is
+built when the module is imported: the CPU tests import it on machines
+without nvcc.
 """
 
 from __future__ import annotations
@@ -20,10 +22,10 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "hamming.cu",)
+SOURCES = (_CSRC / "hamming.cu", _CSRC / "packed.cu", _CSRC / "rerank.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -36,6 +38,11 @@ _SIGNATURES = {
     "hamming_distances_launch": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "sparse_verify_batch_launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
                                    _I, _I, _P],
+    "sparse_verify_arena_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL,
+                                   _I, _I, _I, _I, _I, _P],
+    "sparse_verify_arena_packed_launch": [_P, _P, _P, _P, _P, _P, _P, _LL,
+                                          _I, _LL, _I, _I, _I, _I, _I, _P],
+    "exact_rerank_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -50,16 +57,36 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _run(procs) -> str:
+    """Wait for every nvcc process; raise with the first failure's report."""
+    outs = [(p, *p.communicate()) for p in procs]
+    for p, out, err in outs:
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{err}")
+    return "".join(out + err for _, out, err in outs)
+
+
 def _compile(out: Path) -> str:
+    """One nvcc per source, all at once, then one link into ``out``."""
     out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.parent / f"{tag}.{src.stem}.o" for src in SOURCES]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        report = _run([subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(SOURCES, objs)])
+        report += _run([subprocess.Popen(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)])
+        os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
-    return proc.stdout + proc.stderr
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return report
 
 
 def load_library() -> ctypes.CDLL:
@@ -71,7 +98,7 @@ def load_library() -> ctypes.CDLL:
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         for src in SOURCES:
             digest.update(src.read_bytes())
-        path = BUILD_DIR / f"libhamming_{digest.hexdigest()[:16]}.so"
+        path = BUILD_DIR / f"libkernels_{digest.hexdigest()[:16]}.so"
         t0 = time.perf_counter()
         report = "" if path.exists() else _compile(path)
         lib = ctypes.CDLL(str(path))

@@ -1,8 +1,9 @@
-"""Wrappers around the hand-written CUDA kernels (``csrc/hamming.cu``).
+"""Wrappers around the hand-written CUDA kernels (``csrc/*.cu``).
 
 Each wrapper takes tensors in the kernel layout — (b, W, n) int32
-bit-views of the uint32 bit-plane words, database axis last — and
-dispatches on where they lie:
+bit-views of the uint32 bit-plane words, database axis last; (n,)
+packed suffix words; (Wp, n) payload bitmaps — and dispatches on where
+they lie:
 
   * a CUDA tensor launches the kernel, at every n (``use_kernel=False``
     is the one explicit request for the plain version there);
@@ -22,7 +23,7 @@ import threading
 import torch
 
 from . import ref
-from .ref import BIG
+from .ref import BIG, RERANK_METRICS
 
 DEFAULT_BLOCK_M = 8
 DEFAULT_BLOCK_N = 256
@@ -179,3 +180,165 @@ def sparse_verify_batch(paths_vert: torch.Tensor, q_vert: torch.Tensor,
         return mask.to(torch.int32), dist
     return _launch_verify("sparse_verify_batch", paths_vert, q_vert,
                           base_dist.contiguous(), tau, block_m, block_n)
+
+
+def _check_lanes(name: str, n: int, base_plane: torch.Tensor, m: int,
+                 base_idx: torch.Tensor, live: torch.Tensor,
+                 device: torch.device) -> None:
+    """The arena verifies' shared lanes: an (m, T) int32 plane with
+    T >= 1, an (n,) int32 segment-offset lane and an (n,) bool liveness
+    lane, contiguous, on the columns' device."""
+    if (base_plane.dtype != torch.int32 or base_plane.dim() != 2
+            or base_plane.shape[0] != m or base_plane.shape[1] < 1
+            or not base_plane.is_contiguous() or base_plane.device != device):
+        raise ValueError(f"{name}: base_plane must be a contiguous (m={m}, "
+                         f"T>=1) int32 tensor on {device}, got "
+                         f"{base_plane.dtype} {tuple(base_plane.shape)} on "
+                         f"{base_plane.device}")
+    for what, x, dtype in (("base_idx", base_idx, torch.int32),
+                           ("live", live, torch.bool)):
+        if (x.dtype != dtype or x.shape != (n,) or not x.is_contiguous()
+                or x.device != device):
+            raise ValueError(f"{name}: {what} must be a contiguous ({n},) "
+                             f"{dtype} tensor on {device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+
+
+def sparse_verify_arena(paths_vert: torch.Tensor, q_vert: torch.Tensor,
+                        base_plane: torch.Tensor, base_idx: torch.Tensor,
+                        live: torch.Tensor, *, tau: int,
+                        block_m: int = DEFAULT_BLOCK_M,
+                        block_n: int = DEFAULT_BLOCK_N,
+                        use_kernel: bool | None = None):
+    """Fused multi-segment verify over a column arena.
+
+    paths_vert: (b, W, n) concatenated verify columns (every segment and
+                the delta buffer, one column per physical row);
+    q_vert:     (b, W, m) query planes;
+    base_plane: (m, T) per-(segment, root) base distances (BIG = pruned);
+    base_idx:   (n,) int32 index of each column into the T axis, in
+                [0, T) (the segment-offset lane);
+    live:       (n,) bool per-column liveness;
+    returns ((m, n) int32 masks, (m, n) int32 totals, BIG-clamped)."""
+    if not _on_kernel(paths_vert, use_kernel):
+        _count("sparse_verify_arena", False)
+        mask, dist = ref.sparse_verify_arena_ref(paths_vert, q_vert,
+                                                 base_plane, base_idx, live,
+                                                 tau)
+        return mask.to(torch.int32), dist
+    from . import _build
+    name = "sparse_verify_arena"
+    _check(name, paths_vert, q_vert, None)
+    b, W, n = paths_vert.shape
+    m = q_vert.shape[-1]
+    _check_lanes(name, n, base_plane, m, base_idx, live, paths_vert.device)
+    mask = torch.empty((m, n), dtype=torch.int32, device=paths_vert.device)
+    dist = torch.empty_like(mask)
+    lib = _build.load_library()
+    code = lib.sparse_verify_arena_launch(
+        paths_vert.data_ptr(), q_vert.data_ptr(), base_plane.data_ptr(),
+        base_idx.data_ptr(), live.data_ptr(), mask.data_ptr(),
+        dist.data_ptr(), n, m, base_plane.shape[1], b, W, int(tau),
+        _tile_m(block_m, m), block_n,
+        torch.cuda.current_stream(paths_vert.device).cuda_stream)
+    _build.check(lib, code, name)
+    _count(name, m * n > 0)
+    return mask, dist
+
+
+def sparse_verify_arena_packed(db_words: torch.Tensor, q_words: torch.Tensor,
+                               base_plane: torch.Tensor,
+                               base_idx: torch.Tensor, live: torch.Tensor,
+                               *, b: int, S: int, tau: int,
+                               block_m: int = DEFAULT_BLOCK_M,
+                               block_n: int = DEFAULT_BLOCK_N,
+                               use_kernel: bool | None = None):
+    """Arena verify over single-word packed suffix columns (b·S <= 32).
+
+    db_words:   (n,) int32 — one packed suffix word per column (the b
+                bit planes of the S symbols below the segment's ℓ_s);
+    q_words:    (m,) int32 query suffixes in the same packing;
+    base_plane: (m, T) per-(segment, root) *prefix* distances (BIG =
+                pruned), so that prefix + suffix is the full-length
+                Hamming distance;
+    base_idx:   (n,) int32 segment-offset lane, in [0, T);
+    live:       (n,) bool;
+    returns ((m, n) int32 masks, (m, n) int32 totals, BIG-clamped)."""
+    if not (S >= 0 and b * S <= 32):
+        raise ValueError(f"sparse_verify_arena_packed: b*S = {b * S} "
+                         "does not fit one 32-bit word")
+    if not _on_kernel(db_words, use_kernel):
+        _count("sparse_verify_arena_packed", False)
+        mask, dist = ref.sparse_verify_arena_packed_ref(
+            db_words, q_words, base_plane, base_idx, live, b, S, tau)
+        return mask.to(torch.int32), dist
+    from . import _build
+    name = "sparse_verify_arena_packed"
+    for what, x in (("columns", db_words), ("queries", q_words)):
+        if (x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous()
+                or x.device != db_words.device):
+            raise ValueError(f"{name}: {what} must be a contiguous 1-D "
+                             f"int32 bit-view on {db_words.device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    n, m = db_words.shape[0], q_words.shape[0]
+    _check_lanes(name, n, base_plane, m, base_idx, live, db_words.device)
+    mask = torch.empty((m, n), dtype=torch.int32, device=db_words.device)
+    dist = torch.empty_like(mask)
+    lib = _build.load_library()
+    code = lib.sparse_verify_arena_packed_launch(
+        db_words.data_ptr(), q_words.data_ptr(), base_plane.data_ptr(),
+        base_idx.data_ptr(), live.data_ptr(), mask.data_ptr(),
+        dist.data_ptr(), n, m, base_plane.shape[1], b, S, int(tau),
+        _tile_m(block_m, m), block_n,
+        torch.cuda.current_stream(db_words.device).cuda_stream)
+    _build.check(lib, code, name)
+    _count(name, m * n > 0)
+    return mask, dist
+
+
+def exact_rerank(pay_vert: torch.Tensor, q_vert: torch.Tensor,
+                 surv: torch.Tensor, *, metric: str,
+                 block_m: int = DEFAULT_BLOCK_M,
+                 block_n: int = DEFAULT_BLOCK_N,
+                 use_kernel: bool | None = None) -> torch.Tensor:
+    """Exact re-rank pass over the survivor plane.
+
+    pay_vert: (Wp, n) int32 bit-views of the column-major payload
+              bitmaps; q_vert: (Wp, m) query bitmaps; surv: (m, n)
+              survivor mask (nonzero = the lane survived the trie sweep
+              at the final τ rung; int32 on the card);
+    returns (m, n) float32 exact Jaccard / cosine / containment scores,
+    -1.0 on non-survivor lanes."""
+    if metric not in RERANK_METRICS:
+        raise ValueError(f"unknown rerank metric {metric!r}")
+    if not _on_kernel(pay_vert, use_kernel):
+        _count("exact_rerank", False)
+        return ref.exact_rerank_ref(pay_vert, q_vert, surv, metric)
+    from . import _build
+    name = "exact_rerank"
+    for what, x in (("payloads", pay_vert), ("queries", q_vert)):
+        if (x.dtype != torch.int32 or x.dim() != 2 or not x.is_contiguous()
+                or x.device != pay_vert.device):
+            raise ValueError(f"{name}: {what} must be a contiguous (Wp, ·) "
+                             f"int32 bit-view on {pay_vert.device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    Wp, n = pay_vert.shape
+    m = q_vert.shape[-1]
+    if q_vert.shape[0] != Wp:
+        raise ValueError(f"{name}: query words {q_vert.shape[0]} != "
+                         f"payload words {Wp}")
+    if (surv.dtype != torch.int32 or surv.shape != (m, n)
+            or not surv.is_contiguous() or surv.device != pay_vert.device):
+        raise ValueError(f"{name}: surv must be a contiguous ({m}, {n}) "
+                         f"int32 tensor on {pay_vert.device}, got "
+                         f"{surv.dtype} {tuple(surv.shape)} on {surv.device}")
+    out = torch.empty((m, n), dtype=torch.float32, device=pay_vert.device)
+    lib = _build.load_library()
+    code = lib.exact_rerank_launch(
+        pay_vert.data_ptr(), q_vert.data_ptr(), surv.data_ptr(),
+        out.data_ptr(), n, m, Wp, RERANK_METRICS.index(metric),
+        _tile_m(block_m, m), block_n,
+        torch.cuda.current_stream(pay_vert.device).cuda_stream)
+    _build.check(lib, code, name)
+    _count(name, m * n > 0)
+    return out

@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the hand-written CUDA kernels.
 
-Each function here is the specification of one kernel in
-``csrc/hamming.cu`` and the port of the matching oracle in
-``repro/kernels/ref.py``.  The CPU runs them in place of the kernels, and
-``chip_smoke.py`` holds every kernel against them on the card.
+Each function here is the specification of one kernel in ``csrc/`` and
+the port of the matching oracle in ``repro/kernels/ref.py``.  The CPU
+runs them in place of the kernels, and ``chip_smoke.py`` holds every
+kernel against them on the card.
 
 Words are carried as int32 bit-views of the uint32 bit-plane words:
 torch has no popcount, its uint32 tensors have no ``>>`` and int32
@@ -74,3 +74,123 @@ def sparse_verify_ref(paths_vert: torch.Tensor, q_vert: torch.Tensor,
                                          base_dist.to(torch.int32)[None, :],
                                          tau)
     return mask[0], dist[0]
+
+
+def hamming_threshold_count_ref(db_vert: torch.Tensor, q_vert: torch.Tensor,
+                                tau) -> torch.Tensor:
+    """(m,) int32 — number of database sketches within ``tau`` of each
+    query."""
+    d = hamming_distances_ref(db_vert, q_vert)
+    return (d <= tau).sum(dim=1).to(torch.int32)
+
+
+def _gathered_total(d: torch.Tensor, base_plane: torch.Tensor,
+                    base_idx: torch.Tensor, live: torch.Tensor, tau: int):
+    """Arena epilogue shared by both arena verifies: the base distance is
+    gathered through the segment-offset lane, dead lanes get BIG, and the
+    total is thresholded and clamped."""
+    base = base_plane.to(torch.int32).index_select(1, base_idx.long())
+    base = torch.where(live.bool()[None, :], base, BIG)
+    total = base + d
+    return total <= tau, torch.clamp(total, max=BIG)
+
+
+def sparse_verify_arena_ref(paths_vert: torch.Tensor, q_vert: torch.Tensor,
+                            base_plane: torch.Tensor, base_idx: torch.Tensor,
+                            live: torch.Tensor, tau: int):
+    """Arena verification: the per-column base distance is an indirect
+    lookup through the segment-offset lane instead of a dense (m, n)
+    plane.
+
+    paths_vert: (b, W, n) int32 — concatenated verify columns;
+    q_vert:     (b, W, m) int32 query planes;
+    base_plane: (m, T) int32 — per-(segment, root) base distances (BIG =
+                pruned subtrie);
+    base_idx:   (n,) int32 — per-column index into the T axis;
+    live:       (n,) bool/int — per-column liveness (0 = tombstoned);
+    returns ((m, n) bool, (m, n) int32) — survival masks and totals,
+    clamped to BIG on pruned or dead lanes.
+    """
+    d = hamming_distances_ref(paths_vert, q_vert)
+    return _gathered_total(d, base_plane, base_idx, live, tau)
+
+
+def field_mask(S: int) -> int:
+    """The S-bit field mask of a packed suffix word: 0 at S = 0,
+    0xFFFFFFFF at S = 32."""
+    return (1 << S) - 1
+
+
+def packed_distances_ref(db_words: torch.Tensor, q_words: torch.Tensor,
+                         b: int, S: int) -> torch.Tensor:
+    """(n,) x (m,) int32 bit-views of packed suffix words -> (m, n) int32
+    Hamming distances over the S suffix symbols.  Plane i sits at bit
+    offset i·S of the word; the shift is logical, so the XOR is widened
+    to int64 and masked to 32 bits before it."""
+    x = (db_words.to(torch.int64)[None, :]
+         ^ q_words.to(torch.int64)[:, None]) & _M32
+    field = field_mask(S)
+    acc = x & field
+    for i in range(1, b):
+        acc |= (x >> (i * S)) & field
+    return popcount32(acc)
+
+
+def sparse_verify_arena_packed_ref(db_words: torch.Tensor,
+                                   q_words: torch.Tensor,
+                                   base_plane: torch.Tensor,
+                                   base_idx: torch.Tensor, live: torch.Tensor,
+                                   b: int, S: int, tau: int):
+    """Packed-suffix arena verification (requires b·S <= 32): columns
+    carry ONE word holding all b bit planes of the S-symbol suffix below
+    a segment's ℓ_s (``hamming.pack_suffix_words``).  XOR, OR-fold the b
+    S-bit fields, popcount; the base gather, liveness and threshold are
+    ``sparse_verify_arena_ref``'s.
+
+    db_words: (n,) int32;  q_words: (m,) int32;  base_plane: (m, T);
+    base_idx: (n,) int32;  live: (n,);  returns ((m, n) bool, (m, n)
+    int32 totals clamped to BIG).
+    """
+    d = packed_distances_ref(db_words, q_words, b, S)
+    return _gathered_total(d, base_plane, base_idx, live, tau)
+
+
+RERANK_METRICS = ("jaccard", "cosine", "containment")
+
+
+def exact_rerank_ref(pay_vert: torch.Tensor, q_vert: torch.Tensor,
+                     surv: torch.Tensor, metric: str) -> torch.Tensor:
+    """Exact set-similarity re-rank over survivor lanes.
+
+    pay_vert: (Wp, n) int32 bit-views of the payload bitmaps; q_vert:
+    (Wp, m) query bitmaps; surv: (m, n) survivor mask (nonzero = score
+    this lane).  Returns (m, n) float32 scores — Jaccard ``|A∩B| /
+    |A∪B|`` (denominator ``(|A| + |B|) − |A∩B|``), cosine ``|A∩B| /
+    sqrt(|A|·|B|)``, or containment ``|A∩B| / |A|`` with A the query —
+    0.0 for a survivor with a zero denominator and the sentinel -1.0 off
+    the survivors.  The counts are exact in float32; the division and
+    the square root are IEEE-rounded, so the scores are bit patterns.
+    """
+    if metric not in RERANK_METRICS:
+        raise ValueError(f"unknown rerank metric {metric!r}")
+    Wp, n = pay_vert.shape
+    m = q_vert.shape[-1]
+    inter = torch.zeros((m, n), dtype=torch.int32, device=pay_vert.device)
+    for w in range(Wp):
+        inter += popcount32(q_vert[w][:, None] & pay_vert[w][None, :])
+    inter = inter.to(torch.float32)
+    sa = popcount32(q_vert).sum(dim=0).to(torch.float32)[:, None]    # (m, 1)
+    sb = popcount32(pay_vert).sum(dim=0).to(torch.float32)[None, :]  # (1, n)
+    # torch's vectorised float32 sqrt on the CPU is not always correctly
+    # rounded; float64 square root and division of float32 operands,
+    # rounded once to float32, are (53 >= 2·24 + 2 bits: the double
+    # rounding is innocuous), so the bits do not depend on the backend.
+    if metric == "jaccard":
+        den = (sa + sb) - inter
+    elif metric == "cosine":
+        den = torch.sqrt((sa * sb).to(torch.float64)).to(torch.float32)
+    else:                                                  # containment
+        den = sa.expand(inter.shape)
+    score = (inter.to(torch.float64) / den.to(torch.float64)).to(torch.float32)
+    score = torch.where(den > 0, score, 0.0)
+    return torch.where(surv != 0, score, -1.0)

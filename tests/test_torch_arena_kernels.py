@@ -1,0 +1,300 @@
+"""The port's arena verifies and exact re-rank against the JAX package.
+
+The same seeded numpy inputs go through ``repro.kernels`` — the jnp
+oracles, and the wrappers, which take the Pallas kernels in interpret
+mode from n >= 2048 columns (``DEFAULT_BLOCK_N``) — and through
+``repro_torch.kernels`` on the CPU, where the wrappers run the plain
+PyTorch versions.  Tolerance: bit-exact; masks and distances are int32 or
+bool, and re-rank scores are compared as float32 bit patterns.  The
+``cuda``-marked class holds each CUDA kernel against its plain version
+on the card and skips where there is none.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.hamming import pack_suffix_words, pack_vertical
+from repro_torch.kernels import ops, ref
+
+try:  # the reference; the card's machine has no JAX, and there only the
+    import jax.numpy as jnp          # cuda-marked class runs (-m cuda)
+    from repro.kernels import ops as jops, ref as jref
+except ImportError:
+    jnp = jops = jref = None
+
+BIG = 1 << 20
+PACKED_BS = [(1, 32), (2, 16), (2, 4), (4, 8), (8, 4), (2, 0)]
+PLANE_BL = [(2, 16), (2, 40), (4, 32), (8, 64), (1, 8)]
+METRICS = ("jaccard", "cosine", "containment")
+
+
+def tw(words: np.ndarray, device="cpu") -> torch.Tensor:
+    """uint32 words -> the port's int32 bit-view tensor."""
+    return torch.from_numpy(
+        np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)).to(device)
+
+
+def bits(x) -> np.ndarray:
+    """float32 scores as their int32 bit patterns."""
+    return np.ascontiguousarray(np.asarray(x, dtype=np.float32)).view(np.int32)
+
+
+def lanes(rng, n, m, T, tau):
+    """An (m, T) base plane with BIG lanes, an (n,) index lane into it
+    and an (n,) liveness lane with dead columns."""
+    plane = rng.integers(0, tau + 3, size=(m, T)).astype(np.int32)
+    plane[rng.random((m, T)) < 0.2] = BIG
+    idx = rng.integers(0, T, size=n).astype(np.int32)
+    live = rng.random(n) < 0.8
+    return plane, idx, live
+
+
+def packed_inputs(rng, n, m, b, S):
+    db = pack_suffix_words(rng.integers(0, 1 << b, size=(n, S)), b)
+    q = pack_suffix_words(rng.integers(0, 1 << b, size=(m, S)), b)
+    return db, q
+
+
+def plane_inputs(rng, n, m, b, L):
+    db = rng.integers(0, 1 << b, size=(n, L))
+    q = rng.integers(0, 1 << b, size=(m, L))
+    vert = (lambda x: np.ascontiguousarray(
+        np.transpose(pack_vertical(x, b), (1, 2, 0))))
+    return vert(db), vert(q)
+
+
+def rerank_inputs(rng, n, m, Wp, empty=True):
+    pay = rng.integers(0, 1 << 32, size=(Wp, n), dtype=np.uint32)
+    q = rng.integers(0, 1 << 32, size=(Wp, m), dtype=np.uint32)
+    if empty:
+        pay[:, n // 3] = 0                 # |B| = 0
+        q[:, 0] = 0                        # |A| = 0
+    surv = (rng.random((m, n)) < 0.4).astype(np.int32)
+    return pay, q, surv
+
+
+def assert_pair(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("b,S", PACKED_BS)
+@pytest.mark.parametrize("m,n,T", [(5, 390, 7), (1, 64, 1), (8, 300, 40)])
+def test_packed_verify_ref_matches_jax(b, S, m, n, T):
+    rng = np.random.default_rng(b * 100 + S + n + m)
+    tau = 3
+    db, q = packed_inputs(rng, n, m, b, S)
+    plane, idx, live = lanes(rng, n, m, T, tau)
+    want = jref.sparse_verify_arena_packed_ref(
+        jnp.asarray(db), jnp.asarray(q), jnp.asarray(plane),
+        jnp.asarray(idx), jnp.asarray(live), b, S, tau)
+    got = ref.sparse_verify_arena_packed_ref(
+        tw(db), tw(q), torch.from_numpy(plane), torch.from_numpy(idx),
+        torch.from_numpy(live), b, S, tau)
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int32
+    assert_pair(got, want)
+    wrapped = ops.sparse_verify_arena_packed(
+        tw(db), tw(q), torch.from_numpy(plane), torch.from_numpy(idx),
+        torch.from_numpy(live), b=b, S=S, tau=tau)
+    assert wrapped[0].dtype == torch.int32
+    assert_pair(wrapped, (np.asarray(want[0]).astype(np.int32), want[1]))
+
+
+@pytest.mark.parametrize("b,L", PLANE_BL)
+@pytest.mark.parametrize("m,n,T", [(5, 390, 7), (1, 64, 1), (3, 200, 33)])
+def test_plane_verify_ref_matches_jax(b, L, m, n, T):
+    rng = np.random.default_rng(b * 100 + L + n + m)
+    tau = 4
+    db, q = plane_inputs(rng, n, m, b, L)
+    plane, idx, live = lanes(rng, n, m, T, tau)
+    want = jref.sparse_verify_arena_ref(
+        jnp.asarray(db), jnp.asarray(q), jnp.asarray(plane),
+        jnp.asarray(idx), jnp.asarray(live), tau)
+    got = ref.sparse_verify_arena_ref(
+        tw(db), tw(q), torch.from_numpy(plane), torch.from_numpy(idx),
+        torch.from_numpy(live), tau)
+    assert_pair(got, want)
+    wrapped = ops.sparse_verify_arena(
+        tw(db), tw(q), torch.from_numpy(plane), torch.from_numpy(idx),
+        torch.from_numpy(live), tau=tau)
+    assert_pair(wrapped, (np.asarray(want[0]).astype(np.int32), want[1]))
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("Wp,m,n", [(1, 1, 70), (3, 5, 64), (8, 3, 130),
+                                    (33, 8, 40)])
+def test_rerank_ref_matches_jax(metric, Wp, m, n):
+    rng = np.random.default_rng(Wp * 1000 + m + n)
+    pay, q, surv = rerank_inputs(rng, n, m, Wp)
+    want = np.asarray(jref.exact_rerank_ref(jnp.asarray(pay), jnp.asarray(q),
+                                            jnp.asarray(surv), metric))
+    got = ref.exact_rerank_ref(tw(pay), tw(q), torch.from_numpy(surv), metric)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(bits(got.numpy()), bits(want))
+    wrapped = ops.exact_rerank(tw(pay), tw(q), torch.from_numpy(surv),
+                               metric=metric)
+    np.testing.assert_array_equal(bits(wrapped.numpy()), bits(want))
+    assert (got.numpy()[surv == 0] == -1.0).all()
+    assert np.isfinite(got.numpy()).all()
+
+
+@pytest.mark.parametrize("kernel", ["packed", "plane", "rerank"])
+def test_wrappers_match_jax_pallas_interpret(kernel):
+    """n >= 2048 columns: the JAX wrappers run the Pallas kernels (in
+    interpret mode on the CPU), with their padding of n, m and T."""
+    rng = np.random.default_rng(77)
+    n, m, T, tau = 2100, 3, 9, 5
+    plane, idx, live = lanes(rng, n, m, T, tau)
+    if kernel == "packed":
+        db, q = packed_inputs(rng, n, m, 2, 12)
+        want = jops.sparse_verify_arena_packed(
+            jnp.asarray(db), jnp.asarray(q), jnp.asarray(plane),
+            jnp.asarray(idx), jnp.asarray(live), b=2, S=12, tau=tau)
+        got = ops.sparse_verify_arena_packed(
+            tw(db), tw(q), torch.from_numpy(plane), torch.from_numpy(idx),
+            torch.from_numpy(live), b=2, S=12, tau=tau)
+        assert_pair(got, want)
+    elif kernel == "plane":
+        db, q = plane_inputs(rng, n, m, 2, 40)
+        want = jops.sparse_verify_arena(
+            jnp.asarray(db), jnp.asarray(q), jnp.asarray(plane),
+            jnp.asarray(idx), jnp.asarray(live), tau=tau)
+        got = ops.sparse_verify_arena(
+            tw(db), tw(q), torch.from_numpy(plane), torch.from_numpy(idx),
+            torch.from_numpy(live), tau=tau)
+        assert_pair(got, want)
+    else:
+        pay, qp, surv = rerank_inputs(rng, n, m, 3)
+        for metric in METRICS:
+            want = jops.exact_rerank(jnp.asarray(pay), jnp.asarray(qp),
+                                     jnp.asarray(surv), metric=metric)
+            got = ops.exact_rerank(tw(pay), tw(qp), torch.from_numpy(surv),
+                                   metric=metric)
+            np.testing.assert_array_equal(bits(got.numpy()), bits(want))
+
+
+@pytest.mark.parametrize("tau", [0, 2, 5])
+def test_threshold_count_ref_matches_jax(tau):
+    rng = np.random.default_rng(tau)
+    db, q = plane_inputs(rng, 300, 4, 2, 16)
+    want = jref.hamming_threshold_count_ref(jnp.asarray(db), jnp.asarray(q),
+                                            tau)
+    got = ref.hamming_threshold_count_ref(tw(db), tw(q), tau)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_packed_distances_are_suffix_hamming():
+    """The OR-fold of the b S-bit fields of the XOR is the Hamming
+    distance of the suffixes, at every packable (b, S) — including the
+    word's top bit (S = 32) and the empty suffix (S = 0)."""
+    rng = np.random.default_rng(3)
+    for b, S in PACKED_BS:
+        a = rng.integers(0, 1 << b, size=(40, S))
+        c = rng.integers(0, 1 << b, size=(6, S))
+        d = ref.packed_distances_ref(tw(pack_suffix_words(a, b)),
+                                     tw(pack_suffix_words(c, b)), b, S)
+        np.testing.assert_array_equal(d.numpy(),
+                                      (c[:, None] != a[None]).sum(2))
+    assert ref.field_mask(0) == 0 and ref.field_mask(32) == 0xFFFFFFFF
+
+
+def test_argument_checks():
+    z = torch.zeros((4,), dtype=torch.int32)
+    one = torch.ones((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):               # b*S > 32
+        ops.sparse_verify_arena_packed(z, z[:1], one[:, :1], z, z.bool(), b=2,
+                                       S=17, tau=1)
+    with pytest.raises(ValueError):               # unknown metric
+        ops.exact_rerank(z[None], z[None, :1], one, metric="dice")
+    with pytest.raises(ValueError):
+        ref.exact_rerank_ref(z[None], z[None, :1], torch.ones((1, 4)), "dice")
+    assert ref.RERANK_METRICS == ops.RERANK_METRICS \
+        == tuple(jref.RERANK_METRICS)
+
+
+def test_kernel_stats_count_plain_runs_on_cpu():
+    rng = np.random.default_rng(6)
+    n, m, T = 50, 2, 3
+    plane, idx, live = lanes(rng, n, m, T, 2)
+    plane, idx, live = (torch.from_numpy(x) for x in (plane, idx, live))
+    db, q = packed_inputs(rng, n, m, 2, 5)
+    vdb, vq = plane_inputs(rng, n, m, 2, 16)
+    pay, qp, surv = rerank_inputs(rng, n, m, 2)
+    ops.reset_kernel_stats()
+    ops.sparse_verify_arena_packed(tw(db), tw(q), plane, idx, live, b=2, S=5,
+                                   tau=2)
+    ops.sparse_verify_arena(tw(vdb), tw(vq), plane, idx, live, tau=2)
+    ops.sparse_verify_arena(tw(vdb), tw(vq), plane, idx, live, tau=2,
+                            use_kernel=True)
+    ops.exact_rerank(tw(pay), tw(qp), torch.from_numpy(surv), metric="cosine")
+    assert ops.kernel_stats() == {"sparse_verify_arena_packed:ref": 1,
+                                  "sparse_verify_arena:ref": 2,
+                                  "exact_rerank:ref": 1}
+    ops.reset_kernel_stats()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+class TestArenaKernelsOnCard:
+    """Each new CUDA kernel against its plain version, on the card:
+    bit-exact over ragged n and m, T in {1, 7, 100003}, dead lanes and
+    BIG bases."""
+
+    SHAPES = [(1, 1, 1), (130, 3, 7), (4097, 8, 100_003), (100_003, 33, 7)]
+
+    @pytest.mark.parametrize("b,S", PACKED_BS)
+    @pytest.mark.parametrize("n,m,T", SHAPES)
+    def test_packed(self, cuda_device, b, S, n, m, T):
+        rng = np.random.default_rng(n + m + b + S)
+        db, q = packed_inputs(rng, n, m, b, S)
+        plane, idx, live = (torch.from_numpy(x).to(cuda_device)
+                            for x in lanes(rng, n, m, T, 3))
+        db, q = tw(db, cuda_device), tw(q, cuda_device)
+        ops.reset_kernel_stats()
+        got = ops.sparse_verify_arena_packed(db, q, plane, idx, live, b=b,
+                                             S=S, tau=3)
+        torch.cuda.synchronize()
+        assert ops.kernel_stats() == {"sparse_verify_arena_packed": 1}
+        want = ref.sparse_verify_arena_packed_ref(db, q, plane, idx, live,
+                                                  b, S, 3)
+        assert torch.equal(got[0], want[0].to(torch.int32))
+        assert torch.equal(got[1], want[1])
+
+    @pytest.mark.parametrize("b,L", PLANE_BL)
+    @pytest.mark.parametrize("n,m,T", SHAPES)
+    def test_plane(self, cuda_device, b, L, n, m, T):
+        rng = np.random.default_rng(n + m + b + L)
+        db, q = plane_inputs(rng, n, m, b, L)
+        plane, idx, live = (torch.from_numpy(x).to(cuda_device)
+                            for x in lanes(rng, n, m, T, 4))
+        db, q = tw(db, cuda_device), tw(q, cuda_device)
+        ops.reset_kernel_stats()
+        got = ops.sparse_verify_arena(db, q, plane, idx, live, tau=4)
+        torch.cuda.synchronize()
+        assert ops.kernel_stats() == {"sparse_verify_arena": 1}
+        want = ref.sparse_verify_arena_ref(db, q, plane, idx, live, 4)
+        assert torch.equal(got[0], want[0].to(torch.int32))
+        assert torch.equal(got[1], want[1])
+
+    @pytest.mark.parametrize("metric", METRICS)
+    @pytest.mark.parametrize("Wp", [1, 8, 33])
+    @pytest.mark.parametrize("n,m", [(1, 1), (130, 3), (100_003, 33)])
+    def test_rerank(self, cuda_device, metric, Wp, n, m):
+        rng = np.random.default_rng(n + m + Wp)
+        pay, q, surv = rerank_inputs(rng, n, m, Wp, empty=n > 1)
+        pay, q = tw(pay, cuda_device), tw(q, cuda_device)
+        surv = torch.from_numpy(surv).to(cuda_device)
+        ops.reset_kernel_stats()
+        got = ops.exact_rerank(pay, q, surv, metric=metric)
+        torch.cuda.synchronize()
+        assert ops.kernel_stats() == {"exact_rerank": 1}
+        want = ref.exact_rerank_ref(pay, q, surv, metric)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
