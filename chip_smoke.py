@@ -32,7 +32,17 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
   6. the plane fallback: the CP geometry (L = 32, b = 2) at 2^20 uniform
      rows, where b·S > 32 sends the suffix store through the
      ``sparse_verify_arena`` kernel; suffix and full layouts checked
-     against each other and the brute force.
+     against each other and the brute force;
+  7. serving smollm-135m at full width (30 layers, d_model 576, GQA 9/3,
+     vocabulary 49,152; random weights from ``--seed``, f32 masters,
+     bf16 compute): the flash kernel against its plain version over
+     masks, dtypes, D 64/128 and S up to 2,000 (ragged), and the GQA
+     path; then 8 requests of 2,000 prompt tokens and 48 greedy tokens
+     through ``launch.serve.generate`` with the kernel's 30 launches per
+     prefill counted, its logits and greedy tokens held against the
+     plain ``attn_impl="ref"`` path, prefill and decode times, peak
+     memory, and the kernel timed beside its bound, its plain version
+     and ``scaled_dot_product_attention``.
 
 Each phase prints its seconds.  The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
@@ -87,6 +97,25 @@ GEN_CHUNK = 1 << 19
 DELETE_FRAC = 0.01
 # The CP geometry (configs/registry.py:92) at 2^20 rows: the plane fallback.
 CP_L, CP_B, CP_N, CP_DELTA = 32, 2, 1 << 20, 1 << 19
+
+# The serving cell: smollm-135m at full width (configs/smollm_135m.py), 8
+# requests of 2,000 prompt tokens and 48 greedy tokens (s_max 2,048, its
+# context).  The flash sweep: (causal, window, cap) x f32/bf16 x D 64/128
+# x S, with the Pallas tests' tolerances.  Logits of the kernel path, the
+# plain path and the f32 plain path are held within LOGIT_RTOL of the
+# largest logit: bf16 keeps 8 significant bits (a relative rounding of
+# up to 2^-9), and each of the 30 layers rounds its activations at a
+# dozen places; as a random walk that is sqrt(360) x 2^-9 ≈ 3.7% of the
+# logits' scale, and 2^-5 ≈ 3.1% of the largest logit is the tolerance.
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "smollm-135m", 8, 2000, 48
+FLASH_MASKS = [(True, 0, 0.0), (False, 0, 0.0), (True, 96, 0.0),
+               (True, 0, 30.0)]
+FLASH_S = [128, 384, 1000, 2000]
+LOGIT_RTOL = 2 ** -5
+COMPARE_STEPS = 4
+# bf16 tensor-core peak of the H100 SXM (NVIDIA data sheet, dense): the
+# bound of attention, whose FLOPs are matrix products.
+PEAK_BF16_FLOPS = 989e12
 
 
 def fail(msg: str) -> None:
@@ -667,6 +696,228 @@ def plane_fallback(torch, args, dev, ops, ref, err, maxerr) -> dict:
         "library_ms": None}}
 
 
+def check_flash_kernel(torch, ops, ref, dev, gen, err) -> int:
+    """Phase 7a: the flash kernel against its plain version over
+    FLASH_MASKS x dtypes x D x S (ragged 1000 and 2000 included; B·H = 72
+    at S = 2000, 6 below), and the GQA path of ``models/flash.py``
+    against the port's plain ``blockwise_attention``.  Returns the number
+    of shapes checked."""
+    from repro_torch.models.flash import flash_attention
+    from repro_torch.models.layers import blockwise_attention
+
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    checks = 0
+    for causal, window, cap in FLASH_MASKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = tols[dtype]
+            for D in (64, 128):
+                for S in FLASH_S:
+                    B, H = (8, 9) if S == 2000 else (2, 3)
+                    q, k, v = (torch.randn((B, H, S, D), device=dev,
+                                           generator=gen).to(dtype)
+                               for _ in range(3))
+                    kw = dict(causal=causal, window=window, cap=cap)
+                    got = ops.flash_attention_fwd(q, k, v, **kw)
+                    want = ref.flash_attention_ref(q, k, v, **kw)
+                    e = float((got.float() - want.float()).abs().max())
+                    err["flash_attention_fwd"] = max(
+                        err["flash_attention_fwd"], e)
+                    check(got.dtype == dtype and got.shape == q.shape
+                          and bool(torch.isfinite(got).all())
+                          and torch.allclose(got.float(), want.float(),
+                                             rtol=tol, atol=tol),
+                          f"flash_attention_fwd causal={causal} "
+                          f"window={window} cap={cap} {dtype} D={D} S={S}: "
+                          f"max err {e}")
+                    checks += 1
+    for S, window, cap in ((2000, 0, 0.0), (1000, 96, 30.0)):
+        q = torch.randn((8, S, 9, 64), device=dev, generator=gen).bfloat16()
+        k, v = (torch.randn((8, S, 3, 64), device=dev, generator=gen)
+                .bfloat16() for _ in range(2))
+        got = flash_attention(q, k, v, causal=True, window=window, cap=cap)
+        want = blockwise_attention(q, k, v, causal=True, window=window,
+                                   cap=cap)
+        e = float((got.float() - want.float()).abs().max())
+        err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e)
+        tol = tols[torch.bfloat16]
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"models/flash.py GQA 9/3 S={S} window={window} cap={cap}: "
+              f"max err {e}")
+        checks += 1
+    return checks
+
+
+def serving_smollm(torch, args, dev, ops, ref) -> dict:
+    """Phase 7b: serve smollm-135m at full width — SERVE_BATCH requests of
+    SERVE_PROMPT uniform token ids, SERVE_GEN greedy tokens each, random
+    weights from ``--seed`` (f32 masters, bf16 compute) — through
+    ``launch.serve.generate``, with the flash kernel's launches counted
+    around it; the kernel path's prefill held against the plain
+    ``attn_impl="ref"`` path on the same weights and prompts; then the
+    times.  Returns the flash kernel's JSON fields."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import (cast_for_compute, make_decode_step,
+                                         make_prefill_step)
+
+    cfg = get_config(SERVE_ARCH)
+    B, S, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    s_max = S + G
+    bf16 = torch.bfloat16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    params = M.init_params(torch.Generator(device=dev).manual_seed(args.seed),
+                           cfg, device="cuda")
+    rng = np.random.default_rng(args.seed + 7)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
+                               .astype(np.int32)).to(dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{SERVE_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv} x {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}: {n_params} parameters (f32 "
+          f"masters, bf16 compute); {B} requests x {S} prompt tokens + {G} "
+          f"greedy, s_max {s_max}", flush=True)
+
+    ops.reset_kernel_stats()                       # the main path's window
+    t0 = time.perf_counter()
+    tokens, logits = generate(params, cfg, prompts, G, s_max=s_max,
+                              compute_dtype=bf16)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = ops.kernel_stats()
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    print(f"serving path: {serve_s:.2f} s (first call), launches {launches}, "
+          f"peak {peak / 2**30:.3f} GiB above the {base_mem / 2**30:.3f} "
+          f"GiB held before it", flush=True)
+    check(launches == {"flash_attention_fwd": cfg.num_layers},
+          f"flash launches per prefill {launches}, want "
+          f"{cfg.num_layers} and no plain version")
+    check(tokens.shape == (B, G) and tokens.dtype == torch.int32
+          and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+          f"generated tokens {tuple(tokens.shape)} {tokens.dtype}")
+    check(logits.shape == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          "prefill logits not finite")
+
+    # the kernel path against the plain path, same weights and prompts
+    params_c = cast_for_compute(params, bf16)
+    pre = make_prefill_step(cfg, s_max=s_max, compute_dtype=bf16)
+    pre_ref = make_prefill_step(dataclasses.replace(cfg, attn_impl="ref"),
+                                s_max=s_max, compute_dtype=bf16)
+    dec = make_decode_step(cfg, compute_dtype=bf16)
+    lk, ck, n = pre(params_c, {"tokens": prompts})
+    ops.reset_kernel_stats()
+    lr, cr, _ = pre_ref(params_c, {"tokens": prompts})
+    check(ops.kernel_stats() == {}, f"the ref path launched "
+          f"{ops.kernel_stats()}")
+    # the f32 plain path: how far bf16 compute alone moves the logits
+    l32 = make_prefill_step(dataclasses.replace(cfg, attn_impl="ref"),
+                            s_max=s_max, compute_dtype=torch.float32)(
+        params, {"tokens": prompts})[0]
+    tol = LOGIT_RTOL * float(lr.abs().max())
+    to32_k = float((lk - l32).abs().max())
+    to32_r = float((lr - l32).abs().max())
+    print(f"prefill logits: max|logit| {float(lr.abs().max()):.3f}; max "
+          f"|diff| to the f32 plain path: kernel path {to32_k:.4f}, bf16 "
+          f"plain path {to32_r:.4f}", flush=True)
+    check(to32_k <= max(tol, 1.5 * to32_r),
+          "the kernel path is farther from the f32 plain path than bf16 "
+          "compute explains")
+    del l32
+    for step in range(COMPARE_STEPS):
+        diff = float((lk - lr).abs().max())
+        check(diff <= tol, f"logits step {step}: kernel path vs ref path "
+                           f"max |diff| {diff} > {tol}")
+        top2 = torch.topk(lr, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > tol
+        same = torch.argmax(lk, -1) == torch.argmax(lr, -1)
+        check(bool(same[sure].all()), f"greedy tokens differ at step {step} "
+                                      "where the margin exceeds the tolerance")
+        print(f"step {step}: max |logit diff| kernel vs ref path {diff:.4f} "
+              f"(tolerance {tol:.4f} = {LOGIT_RTOL} x max|logit|), greedy "
+              f"tokens equal {int(same.sum())}/{B}, {int(sure.sum())} with a "
+              "margin above the tolerance", flush=True)
+        tok = torch.argmax(lk, dim=-1).to(torch.int32)[:, None]
+        lk, ck = dec(params_c, tok, ck, n + step)
+        lr, cr = dec(params_c, tok, cr, n + step)
+    check(torch.equal(tokens[:, 0], torch.argmax(logits, -1).to(torch.int32)),
+          "generate's first token is not the prefill's argmax")
+    del ck, cr, lk, lr
+
+    # times
+    def prefill_once():
+        return pre(params_c, {"tokens": prompts})
+
+    prefill_once()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        prefill_once()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms = statistics.median(times)
+    _, cache, n = prefill_once()
+    tok = tokens[:, :1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(G - 1):
+        lg, cache = dec(params_c, tok, cache, n + i)
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (G - 1)
+    profile_window(torch, "decode step", lambda: dec(     # the last slot,
+        params_c, tok, cache, n + G - 1), calls=3)        # rewritten
+    del cache
+    e2e_s = (prefill_ms + decode_ms * (G - 1)) / 1e3
+    print(f"prefill ({B} x {S} tokens): {prefill_ms:.2f} ms median of 5 "
+          f"({sorted(round(x, 2) for x in times)}), "
+          f"{B * S / prefill_ms * 1e3:.0f} prompt tokens/s", flush=True)
+    print(f"decode: {decode_ms:.3f} ms per step (batch {B}, {G - 1} steps), "
+          f"{B / decode_ms * 1e3:.0f} generated tokens/s; a request of {S} + "
+          f"{G} tokens: {e2e_s:.3f} s, {B * G / e2e_s:.0f} generated "
+          f"tokens/s over prefill and decode", flush=True)
+    print(f"max_memory_allocated: serving {peak / 2**30:.3f} GiB (f32 "
+          "masters, bf16 copy, caches, activations)", flush=True)
+    profile_window(torch, "prefill", prefill_once, calls=2)
+
+    # the kernel at the prefill's shape, beside its bound, plain and SDPA
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 8)
+    H, D = cfg.n_heads, cfg.head_dim
+    q, k, v = (torch.randn((B, H, S, D), device=dev, generator=gen).to(bf16)
+               for _ in range(3))
+    ms = time_ms(torch, lambda: ops.flash_attention_fwd(q, k, v, causal=True))
+    plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v,
+                                                             causal=True))
+    sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    check(torch.allclose(sdpa.float(), want.float(), rtol=2e-2, atol=2e-2),
+          "scaled_dot_product_attention disagrees with the plain version")
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    flops = 4 * B * H * D * (S * (S + 1) // 2)
+    nbytes = 4 * B * H * S * D * 2
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    bnd, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                    else "bytes")
+    print(f"flash_attention_fwd (B={B} H={H} S={S} D={D} bf16 causal): "
+          f"{ms:.3f} ms per launch, bound {bnd:.4f} ms ({by}; bytes "
+          f"{t_bytes:.4f} ms), {flops / ms / 1e9:.1f} TFLOP/s; plain "
+          f"{plain_ms:.3f} ms; scaled_dot_product_attention {lib_ms:.3f} ms",
+          flush=True)
+    del q, k, v, sdpa, want, params, params_c
+    torch.cuda.empty_cache()
+    return {"launches": launches["flash_attention_fwd"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib_ms}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -719,6 +970,7 @@ def main() -> int:
     err = dict.fromkeys(("sparse_verify_batch", "hamming_distances",
                          "sparse_verify_arena_packed", "sparse_verify_arena",
                          "exact_rerank"), 0)
+    err["flash_attention_fwd"] = 0.0
     n_checks = 0
 
     def words(*shape):
@@ -958,6 +1210,16 @@ def main() -> int:
     cp = plane_fallback(torch, args, dev, ops, ref, err, maxerr)
     phase_done("6 (plane fallback, CP geometry)")
 
+    # -- 7. serving smollm-135m at full width, the flash kernel -----------
+    t0 = time.perf_counter()
+    flash_checks = check_flash_kernel(torch, ops, ref, dev, gen, err)
+    torch.cuda.synchronize()
+    print(f"flash kernel vs plain: {flash_checks} shapes within 2e-5 (f32) "
+          f"/ 2e-2 (bf16), max abs err {err['flash_attention_fwd']:.3g} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    flash = serving_smollm(torch, args, dev, ops, ref)
+    phase_done("7 (serving smollm-135m, flash kernel)")
+
     kernels = [
         {"name": "sparse_verify_batch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming.cu",
@@ -987,6 +1249,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/rerank.cu",
          "replaces": "src/repro/kernels/hamming_kernel.py:381",
          "max_abs_err": err["exact_rerank"], **seg["exact_rerank"]},
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+         "replaces": "src/repro/kernels/flash_attn_kernel.py:93",
+         "max_abs_err": err["flash_attention_fwd"], **flash},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

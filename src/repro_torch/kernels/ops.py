@@ -14,6 +14,9 @@ a thread loads; rounded up to a power of two, at most 32) and
 ``block_n`` the database columns of one CUDA block (a multiple of 32,
 at most 1024): the same two tile axes as the TPU kernels' grid.  The
 kernels mask the ragged edges themselves, so nothing is padded here.
+
+``flash_attention_fwd`` is the one float kernel: (B, H, S, D) float32 or
+bfloat16 attention, read through strides.
 """
 
 from __future__ import annotations
@@ -341,4 +344,70 @@ def exact_rerank(pay_vert: torch.Tensor, q_vert: torch.Tensor,
         torch.cuda.current_stream(pay_vert.device).cuda_stream)
     _build.check(lib, code, name)
     _count(name, m * n > 0)
+    return out
+
+
+# the registry's dense head dims: SMOKE configs 16, smollm-135m 64, the
+# larger models 128
+FLASH_HEAD_DIMS = (16, 64, 128)
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        cap: float = 0.0, scale: float | None = None,
+                        q_offset: int = 0,
+                        use_kernel: bool | None = None) -> torch.Tensor:
+    """Fused attention forward, (B, H, S, D) layout.
+
+    q: (B, H, Sq, D); k, v: (B, H, Skv, D), the same H (the caller
+    repeats kv heads for GQA), float32 or bfloat16 alike; ``scale=None``
+    is 1/√D; ``q_offset`` is the absolute position of q's first row.
+    Returns (B, H, Sq, D) in q's dtype.  Any Sq and Skv: the kernel masks
+    the ragged kv edge itself.  D must be one of ``FLASH_HEAD_DIMS``.
+    Strided views are read and written in place as long as D is the unit
+    stride: the output is allocated (B, Sq, H, D) and returned as its
+    (B, H, Sq, D) view, so the caller's transpose back is free."""
+    name = "flash_attention_fwd"
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{name}: q, k, v must be (B, H, S, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, Sq, D = q.shape
+    if (k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != D):
+        raise ValueError(f"{name}: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must be (B={B}, H={H}, Skv, "
+                         f"D={D})")
+    if q.dtype not in _FLASH_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"{name}: q, k, v must all be float32 or bfloat16, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"{name}: q on {q.device}, k on {k.device}, v on "
+                         f"{v.device}")
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} not in {FLASH_HEAD_DIMS}")
+    if window < 0 or cap < 0:
+        raise ValueError(f"{name}: window {window} and cap {cap} must be >= 0")
+    if scale is None:
+        scale = 1.0 / float(D) ** 0.5
+    if not _on_kernel(q, use_kernel):
+        _count(name, False)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       cap=cap, scale=scale,
+                                       q_offset=q_offset)
+    from . import _build
+    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    Skv = k.shape[2]
+    strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
+    lib = _build.load_library()
+    code = lib.flash_attention_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq,
+        Skv, D, *strides, int(bool(causal)), int(window), float(cap),
+        float(scale), int(q_offset), _FLASH_DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, code, name)
+    _count(name, B * H * Sq > 0)
     return out

@@ -5,6 +5,9 @@ the port of the matching oracle in ``repro/kernels/ref.py``.  The CPU
 runs them in place of the kernels, and ``chip_smoke.py`` holds every
 kernel against them on the card.
 
+The flash-attention forward is the one float kernel: its plain version
+computes in float32 and is held to a tolerance, not to the bit.
+
 Words are carried as int32 bit-views of the uint32 bit-plane words:
 torch has no popcount, its uint32 tensors have no ``>>`` and int32
 ``>>`` is arithmetic, so ``popcount32`` widens to int64, masks to the
@@ -194,3 +197,42 @@ def exact_rerank_ref(pay_vert: torch.Tensor, q_vert: torch.Tensor,
     score = (inter.to(torch.float64) / den.to(torch.float64)).to(torch.float32)
     score = torch.where(den > 0, score, 0.0)
     return torch.where(surv != 0, score, -1.0)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool, window: int = 0, cap: float = 0.0,
+                        scale: float | None = None,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Attention forward, the specification of the flash kernel.
+
+    q: (B, H, Sq, D); k, v: (B, H, Skv, D) (the caller repeats kv heads
+    for GQA).  ``s = (q·scale)·kᵀ`` in float32 (``scale=None``: 1/√D),
+    ``tanh(s/cap)·cap`` when ``cap`` > 0, then the causal and
+    sliding-window masks from absolute positions (query i at
+    ``q_offset + i``, key j at j), softmax over the keys and the sum
+    over v.  A row with no visible key gives 0, as the kernel's
+    ``acc / max(l, 1e-30)`` does.  Returns (B, H, Sq, D) in q's dtype —
+    the port of the oracle of the JAX package's flash-kernel tests.
+    """
+    D = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / float(D) ** 0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32) * scale,
+                     k.to(torch.float32))
+    if cap:
+        s = torch.tanh(s / cap) * cap
+    q_pos = q_offset + torch.arange(q.shape[2], device=q.device)[:, None]
+    k_pos = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = torch.ones((q.shape[2], k.shape[2]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window:
+        mask &= (q_pos - k_pos) < window
+    s = torch.where(mask, s, -torch.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(torch.float32))
+    return (out / torch.clamp(l, min=1e-30)).to(q.dtype)

@@ -16,7 +16,10 @@ import torch
 
 import repro_torch
 from repro_torch.core import LinearScan, build_bst, build_fst_style, build_louds
+from repro_torch.configs.registry import get_config
 from repro_torch.core.bst import index_from_numpy
+from repro_torch.launch import serve
+from repro_torch.models.model import init_cache, init_params, params_from_jax
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -26,6 +29,10 @@ def test_import_pulls_in_no_jax_and_no_repro():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
     assert "repro_torch.core.search" in names and "repro_torch.kernels.ops" in names
+    for name in ("repro_torch.models.model", "repro_torch.models.flash",
+                 "repro_torch.configs.registry", "repro_torch.train.steps",
+                 "repro_torch.launch.serve"):
+        assert name in names, name
     code = ("import importlib, sys\n"
             f"for name in ['repro_torch'] + {names!r}:\n"
             "    importlib.import_module(name)\n"
@@ -63,6 +70,15 @@ def test_default_device_raises_without_cuda(monkeypatch):
         index.to("cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         index_from_numpy({}, [])
+    cfg = get_config("smollm-135m", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_jax({}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--smoke"])
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
