@@ -34,7 +34,8 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .hamming import as_words, n_words, pack_suffix_words, pack_vertical
+from .hamming import (as_words, n_words, pack_suffix_words, pack_vertical,
+                      resolve_device)
 
 WORD_BYTES = 4
 TIER_HOT = "hot"
@@ -136,7 +137,7 @@ class ColumnStore:
     """
 
     def __init__(self, L: int, b: int, hot_bytes: Optional[int] = None,
-                 payload_words: Optional[int] = None, device="cpu"):
+                 payload_words: Optional[int] = None, device="cuda"):
         if hot_bytes is not None:
             raise NotImplementedError(
                 "hot_bytes: the cold tier of the column store is not "
@@ -144,7 +145,7 @@ class ColumnStore:
         self.L, self.b = int(L), int(b)
         self.hot_bytes = hot_bytes
         self.payload_words = payload_words
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.serials: Tuple[int, ...] = ()
         self.blocks: List[_Block] = []
         self.live = torch.zeros((0,), dtype=torch.bool, device=self.device)

@@ -42,8 +42,8 @@ _SIGNATURES = {
                                    _I, _I, _P],
     "sparse_verify_arena_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL,
                                    _I, _I, _I, _I, _I, _P],
-    "sparse_verify_arena_packed_launch": [_P, _P, _P, _P, _P, _P, _P, _LL,
-                                          _I, _LL, _I, _I, _I, _I, _I, _P],
+    "sparse_verify_arena_packed_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                          _LL, _I, _LL, _I, _I, _I, _P],
     "exact_rerank_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "flash_attention_fwd_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    *[_LL] * 12, _I, _I, _F, _F, _I, _I, _P],

@@ -6,7 +6,7 @@
 //   -> flash_attention_fwd_launch.
 // For batch b, head h, query row i and key j (same H for q, k and v: the
 // caller repeats the kv heads for GQA):
-//   s[i, j] = (scale * q[i]) . k[j]             (float32)
+//   s[i, j] = scale * (q[i] . k[j])              (float32)
 //   s       = tanh(s / cap) * cap                (when cap > 0)
 //   masked  : k_pos >= Skv (the ragged edge), k_pos > q_pos (causal),
 //             q_pos - k_pos >= window (window > 0), with
@@ -18,69 +18,95 @@
 // Inputs float32 or bfloat16 (all three alike); the output has q's dtype.
 // Every operand is addressed through (b, h, s) element strides with a
 // unit stride along D, so the model's (B, S, H, D) tensors are read and
-// written as (B, H, S, D) views without a transpose copy.
+// written as (B, H, S, D) views without a transpose copy.  Both kernels
+// skip the kv tiles that no row of their q tile can see (causal and
+// window limits), which halves the causal work, and mask the ragged
+// edges of Sq and Skv themselves.
 //
 // Bound on this card: operations.  At the serving shape (B 8, H 9,
 // S 2000, D 64, causal, bf16) the work is 4·B·H·(S(S+1)/2)·D ≈ 3.7e10
 // flops, 0.037 ms at the 989 TFLOP/s of the bf16 tensor cores, while q,
-// k, v in and out move 74 MB (0.022 ms at 3.35 TB/s).  This first kernel
-// is the simple, exact one: scalar float32 FMAs on the CUDA cores (67
-// TFLOP/s peak), so it is bound by its own FMA and shuffle instruction rate,
-// far above the tensor-core bound.  What the design does about the
-// bound it has:
-//   * one CTA per (b·h, 64-row q tile) walks the kv tiles in a loop (the
-//     TPU grid's sequential kv axis and its VMEM scratch become a loop
-//     and registers); causal and window limits skip the kv tiles that
-//     no row of the q tile can see, halving the causal work;
-//   * 4 threads per query row split D: each holds D/4 of q (pre-scaled)
-//     and D/4 of acc in registers (at D = 128, 32 + 32 floats: a whole
-//     row of each would not fit 255 registers), reads its part of a K
-//     or V row from shared memory as float4 (the 8 rows of a warp read
-//     the same addresses: a broadcast) and sums the dot product with
-//     two xor shuffles;
-//   * the 32-key K and V tiles are staged in shared memory as float32
-//     (bf16 converted once at the load), 32 KB at D = 128;
-//   * expf and tanhf, not the fast approximations: the plain version is
-//     held to 2e-5 in float32.
-// The tensor-core version (mma.sync or wgmma on bf16 tiles, a TMA ring)
-// is later work.
+// k, v in and out move 74 MB (0.022 ms at 3.35 TB/s).
+//
+// bfloat16: flash_fwd_tc_kernel, the FA-2 structure on the tensor cores.
+//   * One CTA per (b·h, q tile) of 4 warps, each warp owning 16 or 32
+//     q rows (1 or 2 m16 tiles, which share every K and V fragment the
+//     warp loads from shared memory), chosen by head dim as measured
+//     fastest (PERF.md): at D = 64, the serving shape, 32 rows a warp
+//     (128 a CTA; 248 registers, no spill); at D = 128, where 32-row
+//     warps spill, and at D = 16, where the two measured alike, 16 (64
+//     a CTA).  The grid is (b·h, q tiles) with the q tile on the slow
+//     axis and reversed when causal, so the CTAs with the most kv tiles
+//     are issued first and the short ones fill the tail.
+//   * Q (its rows x D) and a 2-stage ring of 64-key K and V tiles come into
+//     shared memory by cp.async (16 bytes a thread, rows past Skv
+//     zero-filled, so a masked key's V row is 0, never garbage); tile
+//     t + 1 loads while tile t computes.  Rows are padded by 16 bytes, so
+//     the 8 row addresses of every ldmatrix phase fall in 8 distinct
+//     bank groups: no bank conflicts.
+//   * Each warp loads its Q fragments once with ldmatrix and keeps them
+//     in registers.  S = Q·Kᵀ is mma.sync m16n8k16 (bf16 in, float32
+//     sums) with K fragments from ldmatrix; scale, the tanh cap and the
+//     masks are applied to the float32 S tile, the masks only on the
+//     tiles that the diagonal, the window edge or the ragged Skv cut.
+//   * Online softmax per row: the 4 threads of an mma quad hold a row's
+//     columns and reduce its max with two xor shuffles; exponentials in
+//     base 2 (ex2.approx) on s·log2(e).  The running sum l stays a
+//     per-thread partial until the end.
+//   * P is rounded to bf16 in registers and fed straight back as the A
+//     operand of P·V (the S accumulator layout of two n8 tiles is the A
+//     layout of one k16 tile), with V fragments from ldmatrix.trans: no
+//     shared-memory round trip.  This rounding is the one numeric
+//     difference from the TPU kernel, which keeps P in float32
+//     (flash_attn_kernel.py:72-74): a relative error of at most 2^-9 per
+//     weight, inside the bf16 tolerance of 2e-2 (the CPU test
+//     test_torch_flash.py::test_tc_numerics_match_pallas emulates it).
+//   * The output is divided by max(l, 1e-30), staged through the warp's
+//     own Q rows in shared memory and stored as 16-byte rows through the
+//     (b, h, s) strides.  The wrapper checks that q, k and v have
+//     16-byte aligned base pointers and row strides (cp.async needs it).
+//
+// float32: flash_fwd_f32_kernel, scalar FMAs on the CUDA cores, exact to
+// the plain version's 2e-5 (bf16 or TF32 products keep ~3 digits and
+// could not meet it).  4 threads per query row split D (a whole row of q
+// and acc would not fit 255 registers at D = 128) and sum the dot
+// product with two xor shuffles; 32-key K and V tiles in shared memory;
+// expf and tanhf.  It is chosen by dtype, not as a fallback: both
+// kernels count under flash_attention_fwd.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
-
-constexpr int kBQ = 64;              // query rows of one CTA
-constexpr int kBK = 32;              // keys of one shared-memory tile
-constexpr int kLanes = 4;            // threads sharing one query row
-constexpr int kThreads = kBQ * kLanes;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 struct Strides {
   long long b, h, s;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int H, int Sq,
-                 int Skv, Strides sq, Strides sk, Strides sv, Strides so,
-                 int causal, int window, float cap, float scale,
-                 int q_offset) {
+// ---------------------------------------------------------------------------
+// float32: scalar kernel on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kF32BQ = 64;           // query rows of one CTA
+constexpr int kF32BK = 32;           // keys of one shared-memory tile
+constexpr int kF32Lanes = 4;         // threads sharing one query row
+constexpr int kF32Threads = kF32BQ * kF32Lanes;
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     int H, int Sq, int Skv, Strides sq, Strides sk,
+                     Strides sv, Strides so, int causal, int window,
+                     float cap, float scale, int q_offset) {
   static_assert(D % 16 == 0 && D <= 128, "D: a multiple of 16, at most 128");
   constexpr int kV4 = D / 16;        // float4s of a row each thread holds
-  __shared__ __align__(16) float k_tile[kBK][D];
-  __shared__ __align__(16) float v_tile[kBK][D];
+  __shared__ __align__(16) float k_tile[kF32BK][D];
+  __shared__ __align__(16) float v_tile[kF32BK][D];
 
   // the longest causal q tiles first: they set the tail of the grid
   const int n_qt = gridDim.x;
@@ -88,15 +114,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int row = threadIdx.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  const int q0 = qt * kBQ;
+  const int row = threadIdx.x / kF32Lanes;
+  const int lane = threadIdx.x % kF32Lanes;
+  const int q0 = qt * kF32BQ;
   const int qi = q0 + row;
   const int q_pos = q_offset + qi;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
 
   // this thread's D/4 of the query row: float4 c holds d = 16c + 4·lane ..
   float qr[kV4][4];
@@ -106,7 +132,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = 16 * c + 4 * lane + e;
-      qr[c][e] = qi < Sq ? to_f32(qb[(long long)qi * sq.s + d]) * scale : 0.f;
+      qr[c][e] = qi < Sq ? qb[(long long)qi * sq.s + d] * scale : 0.f;
       acc[c][e] = 0.f;
     }
   }
@@ -117,29 +143,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int k_lo = 0;
   int k_hi = Skv;
   if (window > 0) k_lo = max(0, q_offset + q0 - window + 1);
-  if (causal) k_hi = min(Skv, max(0, q_offset + q0 + kBQ));
-  k_lo = (k_lo / kBK) * kBK;
+  if (causal) k_hi = min(Skv, max(0, q_offset + q0 + kF32BQ));
+  k_lo = (k_lo / kF32BK) * kF32BK;
 
-  for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
+  for (int k0 = k_lo; k0 < k_hi; k0 += kF32BK) {
     __syncthreads();                 // the previous tile is consumed
-    for (int t = threadIdx.x; t < kBK * D; t += kThreads) {
+    for (int t = threadIdx.x; t < kF32BK * D; t += kF32Threads) {
       const int j = t / D;
       const int d = t - j * D;
       const int kp = k0 + j;
       float kx = 0.f, vx = 0.f;
       if (kp < Skv) {
-        kx = to_f32(kb[(long long)kp * sk.s + d]);
-        vx = to_f32(vb[(long long)kp * sv.s + d]);
+        kx = kb[(long long)kp * sk.s + d];
+        vx = vb[(long long)kp * sv.s + d];
       }
       k_tile[j][d] = kx;
       v_tile[j][d] = vx;
     }
     __syncthreads();
 
-    float s[kBK];
+    float s[kF32BK];
     float tile_max = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
+    for (int j = 0; j < kF32BK; ++j) {
       float part = 0.f;
 #pragma unroll
       for (int c = 0; c < kV4; ++c) {
@@ -172,7 +198,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) acc[c][e] *= corr;
     }
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
+    for (int j = 0; j < kF32BK; ++j) {
       const float p = expf(s[j] - m_new);      // 0 on a masked key
       l += p;
 #pragma unroll
@@ -189,38 +215,443 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qi >= Sq) return;
   const float den = fmaxf(l, 1e-30f);
-  T* ob = out + b * so.b + h * so.h + (long long)qi * so.s;
+  float* ob = out + b * so.b + h * so.h + (long long)qi * so.s;
 #pragma unroll
   for (int c = 0; c < kV4; ++c) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) store(&ob[16 * c + 4 * lane + e], acc[c][e] / den);
+    for (int e = 0; e < 4; ++e) ob[16 * c + 4 * lane + e] = acc[c][e] / den;
   }
 }
 
-template <typename T>
-int launch(const T* q, const T* k, const T* v, T* out, int B, int H, int Sq,
-           int Skv, int D, Strides sq, Strides sk, Strides sv, Strides so,
-           int causal, int window, float cap, float scale, int q_offset,
-           cudaStream_t s) {
+int launch_f32(const float* q, const float* k, const float* v, float* out,
+               int B, int H, int Sq, int Skv, int D, Strides sq, Strides sk,
+               Strides sv, Strides so, int causal, int window, float cap,
+               float scale, int q_offset, cudaStream_t s) {
   const long long bh = (long long)B * H;
   if (bh > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)bh);
-  const dim3 block(kThreads);
+  const dim3 grid((unsigned)((Sq + kF32BQ - 1) / kF32BQ), (unsigned)bh);
+  const dim3 block(kF32Threads);
   switch (D) {
-#define FLASH_CASE(DD)                                                        \
+#define FLASH_F32_CASE(DD)                                                    \
   case DD:                                                                    \
-    flash_fwd_kernel<T, DD><<<grid, block, 0, s>>>(                           \
+    flash_fwd_f32_kernel<DD><<<grid, block, 0, s>>>(                          \
         q, k, v, out, H, Sq, Skv, sq, sk, sv, so, causal, window, cap, scale, \
         q_offset);                                                            \
     break;
-    FLASH_CASE(16)
-    FLASH_CASE(64)
-    FLASH_CASE(128)
-#undef FLASH_CASE
+    FLASH_F32_CASE(16)
+    FLASH_F32_CASE(64)
+    FLASH_F32_CASE(128)
+#undef FLASH_F32_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor-core kernel (mma.sync m16n8k16, ldmatrix, cp.async)
+// ---------------------------------------------------------------------------
+
+constexpr int kBK = 64;              // keys of one K / V tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+constexpr int kTcWarps = 4;          // warps of one CTA
+
+// One CTA: kTcWarps warps of 16·MT q rows each (MT m16 tiles a warp,
+// which share every K and V fragment they load).  Shared-memory rows of
+// D bf16 are padded by 8 elements (16 bytes).
+template <int D, int MT>
+struct TcCfg {
+  static constexpr int kWarpRows = 16 * MT;        // q rows of one warp
+  static constexpr int kBQ = kWarpRows * kTcWarps; // q rows of one CTA
+  static constexpr int kThreads = 32 * kTcWarps;
+  static constexpr int kPitch = D + 8;
+  static constexpr int kTile = kBK * kPitch;     // elements of one K or V tile
+  static constexpr int kQ = kBQ * kPitch;
+  static constexpr int kBytes = (kQ + 4 * kTile) * 2;  // Q, 2 x K, 2 x V
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes 16 zero bytes
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) · b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float ex2(float x) {   // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats -> one register of two bf16 (round to nearest even), the
+// first in the low half: the element order of an mma fragment
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// rows [row0, row0 + ROWS) of a (·, D) bf16 operand with row stride
+// `stride` -> shared memory of pitch D + 8, by THREADS threads; rows at or
+// past `limit` are zero-filled (their source address is clamped to row0,
+// which is valid)
+template <int D, int THREADS, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          long long stride, int row0,
+                                          int limit, int tid) {
+  constexpr int kChunks = D / 8;     // 16-byte chunks of a row
+#pragma unroll
+  for (int c = tid; c < ROWS * kChunks; c += THREADS) {
+    const int r = c / kChunks;
+    const int ch = c - r * kChunks;
+    const bool ok = row0 + r < limit;
+    const __nv_bfloat16* g = src + (long long)(ok ? row0 + r : row0) * stride
+                             + ch * 8;
+    cp_async16(dst + (uint32_t)((r * (D + 8) + ch * 8) * 2), g, ok ? 16 : 0);
+  }
+}
+
+template <int D, int MT>
+__global__ void __launch_bounds__(32 * kTcWarps, 1)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ out, int H, int Sq, int Skv,
+                    Strides sq, Strides sk, Strides sv, Strides so,
+                    int causal, int window, float cap, float scale,
+                    int q_offset) {
+  static_assert(D % 16 == 0 && D <= 128, "D: a multiple of 16, at most 128");
+  using Smem = TcCfg<D, MT>;
+  constexpr int P = Smem::kPitch;
+  constexpr int kBQ = Smem::kBQ;
+  constexpr int kWR = Smem::kWarpRows;
+  constexpr int kThreads = Smem::kThreads;
+  constexpr int kKB = D / 16;        // k16 steps of Q·Kᵀ
+  constexpr int kNB = kBK / 8;       // n8 tiles of S
+  constexpr int kDB = D / 8;         // n8 tiles of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sK = sQ + Smem::kQ;               // 2 stages
+  __nv_bfloat16* sV = sK + 2 * Smem::kTile;        // 2 stages
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int n_qt = gridDim.y;
+  const int qt = causal ? (n_qt - 1 - (int)blockIdx.y) : (int)blockIdx.y;
+  const int q0 = qt * kBQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;           // row of the quad within 8
+  const int t = lane & 3;            // thread of the quad
+
+  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
+  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
+
+  // the kv range any row of this tile can see
+  int k_lo = 0;
+  int k_hi = Skv;
+  if (window > 0) k_lo = max(0, q_offset + q0 - window + 1);
+  if (causal) k_hi = min(Skv, max(0, q_offset + q0 + kBQ));
+  k_lo = (k_lo / kBK) * kBK;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
+
+  const uint32_t sQa = smem_addr(sQ);
+  const uint32_t sKa = smem_addr(sK);
+  const uint32_t sVa = smem_addr(sV);
+  constexpr uint32_t kTileBytes = Smem::kTile * 2;
+
+  load_tile<D, kThreads, kBQ>(sQa, qb, sq.s, q0, Sq, tid);
+  if (n_tiles > 0) {
+    load_tile<D, kThreads, kBK>(sKa, kb, sk.s, k_lo, Skv, tid);
+    load_tile<D, kThreads, kBK>(sVa, vb, sv.s, k_lo, Skv, tid);
+  }
+  cp_async_commit();
+
+  // this thread's rows: in m-tile mt, row g (r = 0) and row g + 8 (r = 1)
+  // of the warp's 16·mt .. 16·mt + 15
+  const int w_row = q0 + warp * kWR;               // first q row of the warp
+  const int qp_base = q_offset + w_row + g;        // + 16·mt + 8·r
+  const float cap_inv = cap > 0.f ? 1.f / cap : 0.f;
+  const float s_mul = scale * kLog2e;              // when cap == 0
+
+  uint32_t qf[MT][kKB][4];
+  float o[MT][kDB][4];
+  float m_run[MT][2], l_run[MT][2];  // running max (log2 units), partial sums
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int i = 0; i < kDB; ++i)
+      o[mt][i][0] = o[mt][i][1] = o[mt][i][2] = o[mt][i][3] = 0.f;
+    m_run[mt][0] = m_run[mt][1] = -INFINITY;
+    l_run[mt][0] = l_run[mt][1] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_lo + it * kBK;
+    if (it + 1 < n_tiles) {          // the next tile into the other stage
+      const uint32_t off = ((it + 1) & 1) * kTileBytes;
+      load_tile<D, kThreads, kBK>(sKa + off, kb, sk.s, k0 + kBK, Skv, tid);
+      load_tile<D, kThreads, kBK>(sVa + off, vb, sv.s, k0 + kBK, Skv, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();              // all but the newest group: tile it
+    __syncthreads();
+
+    if (it == 0) {                   // Q fragments, once
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < kKB; ++kk)
+          ldmatrix_x4(qf[mt][kk],
+                      sQa + (uint32_t)(((warp * kWR + mt * 16 + (lane & 15)) * P
+                                        + kk * 16 + (lane >> 4) * 8) * 2));
+    }
+    const uint32_t stage = (it & 1) * kTileBytes;
+
+    // S = Q·Kᵀ: 16·MT rows x 64 keys per warp, each K fragment used MT times
+    float s[MT][kNB][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < kNB; ++i)
+        s[mt][i][0] = s[mt][i][1] = s[mt][i][2] = s[mt][i][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKB; ++kk) {
+#pragma unroll
+      for (int nb2 = 0; nb2 < kNB / 2; ++nb2) {
+        uint32_t kf[4];
+        const int key = nb2 * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int d = kk * 16 + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4(kf, sKa + stage + (uint32_t)((key * P + d) * 2));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][2 * nb2], qf[mt][kk], kf[0], kf[1]);
+          mma_bf16(s[mt][2 * nb2 + 1], qf[mt][kk], kf[2], kf[3]);
+        }
+      }
+    }
+
+    // scale and cap in float32, then log2 units for ex2
+    if (cap > 0.f) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < kNB; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[mt][i][e] = tanhf(s[mt][i][e] * scale * cap_inv) * cap * kLog2e;
+    } else {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < kNB; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][i][e] *= s_mul;
+    }
+    // masks, only where the tile is cut for this warp's rows
+    const bool cut = (k0 + kBK > Skv)
+        || (causal && k0 + kBK - 1 > q_offset + w_row)
+        || (window > 0 && q_offset + w_row + kWR - 1 - k0 >= window);
+    if (cut) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int i = 0; i < kNB; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kp = k0 + i * 8 + 2 * t + (e & 1);
+            const int qp = qp_base + 16 * mt + (e < 2 ? 0 : 8);
+            bool ok = kp < Skv;
+            if (causal) ok = ok && qp >= kp;
+            if (window > 0) ok = ok && (qp - kp) < window;
+            if (!ok) s[mt][i][e] = -INFINITY;
+          }
+        }
+      }
+    }
+
+    // online softmax per row: the max over the quad, the rescale, P
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m_run[mt][r];
+#pragma unroll
+        for (int i = 0; i < kNB; ++i)
+          mx = fmaxf(mx, fmaxf(s[mt][i][2 * r], s[mt][i][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // a row with nothing visible yet subtracts 0: exp of -inf is 0
+        const float ref = mx == -INFINITY ? 0.f : mx;
+        const float corr = ex2(m_run[mt][r] - ref);  // 0 while m is -inf
+        m_run[mt][r] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < kNB; ++i) {
+          s[mt][i][2 * r] = ex2(s[mt][i][2 * r] - ref);
+          s[mt][i][2 * r + 1] = ex2(s[mt][i][2 * r + 1] - ref);
+          sum += s[mt][i][2 * r] + s[mt][i][2 * r + 1];
+        }
+        l_run[mt][r] = l_run[mt][r] * corr + sum;
+#pragma unroll
+        for (int i = 0; i < kDB; ++i) {
+          o[mt][i][2 * r] *= corr;
+          o[mt][i][2 * r + 1] *= corr;
+        }
+      }
+    }
+
+    // O += P·V: P from registers (bf16), V fragments by ldmatrix.trans,
+    // each V fragment used MT times
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        pa[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+        pa[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+        pa[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+        pa[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int dn2 = 0; dn2 < kDB / 2; ++dn2) {
+        uint32_t vf[4];
+        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int d = dn2 * 16 + (lane >> 4) * 8;
+        ldmatrix_x4_trans(vf, sVa + stage + (uint32_t)((key * P + d) * 2));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(o[mt][2 * dn2], pa[mt], vf[0], vf[1]);
+          mma_bf16(o[mt][2 * dn2 + 1], pa[mt], vf[2], vf[3]);
+        }
+      }
+    }
+    __syncthreads();                 // this stage is free for tile it + 2
+  }
+
+  // stage the warp's output rows in its own Q rows, then 16-byte stores
+  cp_async_wait<0>();                // no copy into sQ still in flight
+  __syncthreads();
+  __nv_bfloat16* sO = sQ + warp * kWR * P;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // the row sum over the quad, then acc / max(l, 1e-30)
+      float l = l_run[mt][r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      const int row = 16 * mt + 8 * r + g;
+#pragma unroll
+      for (int i = 0; i < kDB; ++i)
+        *reinterpret_cast<uint32_t*>(&sO[row * P + i * 8 + 2 * t]) =
+            pack_bf16(o[mt][i][2 * r] * inv, o[mt][i][2 * r + 1] * inv);
+    }
+  }
+  __syncwarp();
+  __nv_bfloat16* ob = out + b * so.b + h * so.h;
+#pragma unroll
+  for (int c = lane; c < kWR * kDB; c += 32) {
+    const int r = c / kDB;
+    const int ch = c - r * kDB;
+    const int qi = w_row + r;
+    if (qi < Sq)
+      *reinterpret_cast<uint4*>(&ob[(long long)qi * so.s + ch * 8]) =
+          *reinterpret_cast<const uint4*>(&sO[r * P + ch * 8]);
+  }
+}
+
+template <int D, int MT>
+int launch_tc_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                const __nv_bfloat16* v, __nv_bfloat16* out, int B, int H,
+                int Sq, int Skv, Strides sq, Strides sk, Strides sv,
+                Strides so, int causal, int window, float cap, float scale,
+                int q_offset, cudaStream_t s) {
+  using Cfg = TcCfg<D, MT>;
+  const long long n_qt = (Sq + Cfg::kBQ - 1) / Cfg::kBQ;
+  if (n_qt > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((long long)B * H), (unsigned)n_qt);
+  // the shared-memory limit, raised once per device (a bit each)
+  static std::atomic<unsigned long long> raised{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(raised.load(std::memory_order_relaxed) & bit)) {
+    e = cudaFuncSetAttribute(flash_fwd_tc_kernel<D, MT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Cfg::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    raised.fetch_or(bit, std::memory_order_relaxed);
+  }
+  flash_fwd_tc_kernel<D, MT><<<grid, Cfg::kThreads, Cfg::kBytes, s>>>(
+      q, k, v, out, H, Sq, Skv, sq, sk, sv, so, causal, window, cap, scale,
+      q_offset);
+  return (int)cudaGetLastError();
+}
+
+// the CTA shape by head dim: warps of 32 rows at D = 64, of 16 rows at
+// D = 16 and 128
+int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
+              const __nv_bfloat16* v, __nv_bfloat16* out, int B, int H,
+              int Sq, int Skv, int D, Strides sq, Strides sk, Strides sv,
+              Strides so, int causal, int window, float cap, float scale,
+              int q_offset, cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch_tc_d<16, 1>(q, k, v, out, B, H, Sq, Skv, sq, sk, sv, so,
+                                causal, window, cap, scale, q_offset, s);
+    case 64:
+      return launch_tc_d<64, 2>(q, k, v, out, B, H, Sq, Skv, sq, sk, sv, so,
+                                causal, window, cap, scale, q_offset, s);
+    case 128:
+      return launch_tc_d<128, 1>(q, k, v, out, B, H, Sq, Skv, sq, sk, sv, so,
+                                 causal, window, cap, scale, q_offset, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -229,7 +660,9 @@ extern "C" {
 
 // q (B, H, Sq, D), k and v (B, H, Skv, D), out (B, H, Sq, D), each given
 // by its (b, h, s) element strides with a unit stride along D.
-// dtype: 0 float32, 1 bfloat16.  D in {16, 64, 128}.
+// dtype: 0 float32 (scalar kernel), 1 bfloat16 (tensor-core kernel; q, k,
+// v and out with 16-byte aligned base pointers and strides).  D in
+// {16, 64, 128}.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* out, int B, int H, int Sq, int Skv,
                                int D, long long qsb, long long qsh,
@@ -245,14 +678,14 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
       so{osb, osh, oss};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>((const float*)q, (const float*)k, (const float*)v,
-                         (float*)out, B, H, Sq, Skv, D, sq, sk, sv, so,
-                         causal, window, cap, scale, q_offset, s);
+    return launch_f32((const float*)q, (const float*)k, (const float*)v,
+                      (float*)out, B, H, Sq, Skv, D, sq, sk, sv, so, causal,
+                      window, cap, scale, q_offset, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, B, H, Sq, Skv, D, sq,
-        sk, sv, so, causal, window, cap, scale, q_offset, s);
+    return launch_tc((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                     (const __nv_bfloat16*)v, (__nv_bfloat16*)out, B, H, Sq,
+                     Skv, D, sq, sk, sv, so, causal, window, cap, scale,
+                     q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,7 +13,8 @@ they lie:
 a thread loads; rounded up to a power of two, at most 32) and
 ``block_n`` the database columns of one CUDA block (a multiple of 32,
 at most 1024): the same two tile axes as the TPU kernels' grid.  The
-kernels mask the ragged edges themselves, so nothing is padded here.
+packed verify and the flash kernel take their own.  The kernels mask the
+ragged edges themselves, so nothing is padded here.
 
 ``flash_attention_fwd`` is the one float kernel: (B, H, S, D) float32 or
 bfloat16 attention, read through strides.
@@ -34,20 +35,26 @@ _MAX_TILE_M = 32
 
 # Process-wide launch ledger keyed by wrapper name: ``<name>`` counts
 # kernel launches (bumped after the launch succeeded, and only there),
-# ``<name>:ref`` calls that ran the plain version instead.
+# ``<name>:ref`` calls that ran the plain version instead, and, for the
+# flash kernel, ``<name>:bf16`` / ``<name>:f32`` the same launches by the
+# route their dtype chose (tensor cores / scalar).
 _KSTATS_LOCK = threading.Lock()
 _KERNEL_STATS: dict = {}
 
 
-def _count(name: str, launched: bool) -> None:
-    key = name if launched else name + ":ref"
+def _count(name: str, launched: bool, route: str | None = None) -> None:
+    keys = [name] if launched else [name + ":ref"]
+    if launched and route:
+        keys.append(f"{name}:{route}")
     with _KSTATS_LOCK:
-        _KERNEL_STATS[key] = _KERNEL_STATS.get(key, 0) + 1
+        for key in keys:
+            _KERNEL_STATS[key] = _KERNEL_STATS.get(key, 0) + 1
 
 
 def kernel_stats() -> dict:
     """Per-wrapper call counts (``<name>`` kernel launched, ``<name>:ref``
-    plain version ran)."""
+    plain version ran, ``<name>:bf16``/``<name>:f32`` the flash kernel's
+    launches by route)."""
     with _KSTATS_LOCK:
         return dict(_KERNEL_STATS)
 
@@ -266,7 +273,12 @@ def sparse_verify_arena_packed(db_words: torch.Tensor, q_words: torch.Tensor,
                 Hamming distance;
     base_idx:   (n,) int32 segment-offset lane, in [0, T);
     live:       (n,) bool;
-    returns ((m, n) int32 masks, (m, n) int32 totals, BIG-clamped)."""
+    returns ((m, n) int32 masks, (m, n) int32 totals, BIG-clamped).
+
+    The kernel walks the queries in order, 4 at a time through a (T,)
+    uint16 slab of their codes, so that what it gathers from stays in L2;
+    its tiles are its own, and ``block_m``/``block_n`` are accepted for
+    the common signature of the verifies only."""
     if not (S >= 0 and b * S <= 32):
         raise ValueError(f"sparse_verify_arena_packed: b*S = {b * S} "
                          "does not fit one 32-bit word")
@@ -285,15 +297,17 @@ def sparse_verify_arena_packed(db_words: torch.Tensor, q_words: torch.Tensor,
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
     n, m = db_words.shape[0], q_words.shape[0]
     _check_lanes(name, n, base_plane, m, base_idx, live, db_words.device)
-    mask = torch.empty((m, n), dtype=torch.int32, device=db_words.device)
+    T = base_plane.shape[1]
+    dev = db_words.device
+    mask = torch.empty((m, n), dtype=torch.int32, device=dev)
     dist = torch.empty_like(mask)
+    slab = torch.empty((T,), dtype=torch.int16, device=dev)
     lib = _build.load_library()
     code = lib.sparse_verify_arena_packed_launch(
         db_words.data_ptr(), q_words.data_ptr(), base_plane.data_ptr(),
         base_idx.data_ptr(), live.data_ptr(), mask.data_ptr(),
-        dist.data_ptr(), n, m, base_plane.shape[1], b, S, int(tau),
-        _tile_m(block_m, m), block_n,
-        torch.cuda.current_stream(db_words.device).cuda_stream)
+        dist.data_ptr(), slab.data_ptr(), n, m, T, b, S, int(tau),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, name)
     _count(name, m * n > 0)
     return mask, dist
@@ -351,6 +365,7 @@ def exact_rerank(pay_vert: torch.Tensor, q_vert: torch.Tensor,
 # larger models 128
 FLASH_HEAD_DIMS = (16, 64, 128)
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_FLASH_ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -367,7 +382,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the ragged kv edge itself.  D must be one of ``FLASH_HEAD_DIMS``.
     Strided views are read and written in place as long as D is the unit
     stride: the output is allocated (B, Sq, H, D) and returned as its
-    (B, H, Sq, D) view, so the caller's transpose back is free."""
+    (B, H, Sq, D) view, so the caller's transpose back is free.
+
+    On the card, bfloat16 runs the tensor-core kernel (P rounded to bf16
+    for P·V; q, k and v need 16-byte aligned base pointers and (b, h, s)
+    strides) and float32 the scalar kernel, exact to 2e-5."""
     name = "flash_attention_fwd"
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name}: q, k, v must be (B, H, S, D), got "
@@ -396,18 +415,24 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        cap=cap, scale=scale,
                                        q_offset=q_offset)
-    from . import _build
     q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    if q.dtype == torch.bfloat16:      # the tensor-core kernel's cp.async
+        for what, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
+                raise ValueError(
+                    f"{name}: bfloat16 {what} needs a 16-byte aligned base "
+                    f"pointer and (b, h, s) strides (multiples of 8 "
+                    f"elements), got strides {tuple(x.stride())}")
+    from . import _build
     out = torch.empty((B, Sq, H, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
-    Skv = k.shape[2]
     strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
     lib = _build.load_library()
     code = lib.flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq,
-        Skv, D, *strides, int(bool(causal)), int(window), float(cap),
+        k.shape[2], D, *strides, int(bool(causal)), int(window), float(cap),
         float(scale), int(q_offset), _FLASH_DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, name)
-    _count(name, B * H * Sq > 0)
+    _count(name, B * H * Sq > 0, _FLASH_ROUTES[q.dtype])
     return out

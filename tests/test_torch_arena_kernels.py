@@ -268,6 +268,59 @@ class TestArenaKernelsOnCard:
         assert torch.equal(got[0], want[0].to(torch.int32))
         assert torch.equal(got[1], want[1])
 
+    @pytest.mark.parametrize("n", [100_003, 1 << 17])
+    @pytest.mark.parametrize("m", [1, 2, 63, 64, 65])
+    def test_packed_query_pass_edges(self, cuda_device, m, n):
+        """The query-major passes at their edges: m of one query, of a
+        ragged pass, one short of, at and past a multiple of the 4 or 8
+        queries of a slab pass; ragged n (one column a thread) and
+        n % 4 = 0 (four); a T past 2^22 with base_idx at T - 1 and at 0."""
+        T = (1 << 22) + 3
+        b, S = 2, 4
+        rng = np.random.default_rng(m + n)
+        db, q = packed_inputs(rng, n, m, b, S)
+        plane, idx, live = lanes(rng, n, m, T, 3)
+        idx[::7] = T - 1
+        idx[3::7] = 0
+        plane[:, T - 1] = rng.integers(0, 3, size=m)
+        plane, idx, live = (torch.from_numpy(x).to(cuda_device)
+                            for x in (plane, idx, live))
+        db, q = tw(db, cuda_device), tw(q, cuda_device)
+        ops.reset_kernel_stats()
+        got = ops.sparse_verify_arena_packed(db, q, plane, idx, live, b=b,
+                                             S=S, tau=3)
+        torch.cuda.synchronize()
+        assert ops.kernel_stats() == {"sparse_verify_arena_packed": 1}
+        want = ref.sparse_verify_arena_packed_ref(db, q, plane, idx, live,
+                                                  b, S, 3)
+        assert torch.equal(got[0], want[0].to(torch.int32))
+        assert torch.equal(got[1], want[1])
+        assert bool(got[0][:, ::7].any())        # the T - 1 lanes verify
+
+    @pytest.mark.parametrize("n", [4097, 1 << 16])
+    def test_packed_escape_values(self, cuda_device, n):
+        """Base values the kernel's slab codes as escapes (negative,
+        13..BIG-1, past BIG) are read back from the int32 plane: still
+        bit-exact against the plain version, on the one-column and the
+        four-column path."""
+        m, T, b, S = 5, 100_003, 4, 8
+        rng = np.random.default_rng(n)
+        db, q = packed_inputs(rng, n, m, b, S)
+        plane, idx, live = lanes(rng, n, m, T, 3)
+        odd = rng.random((m, T)) < 0.05
+        plane[odd] = rng.choice([-3, 13, 14, 15, 253, 254, 300, BIG - 1,
+                                 BIG + 1, 2 ** 31 - 1], size=int(odd.sum()))
+        plane, idx, live = (torch.from_numpy(x).to(cuda_device)
+                            for x in (plane, idx, live))
+        db, q = tw(db, cuda_device), tw(q, cuda_device)
+        got = ops.sparse_verify_arena_packed(db, q, plane, idx, live, b=b,
+                                             S=S, tau=3)
+        torch.cuda.synchronize()
+        want = ref.sparse_verify_arena_packed_ref(db, q, plane, idx, live,
+                                                  b, S, 3)
+        assert torch.equal(got[0], want[0].to(torch.int32))
+        assert torch.equal(got[1], want[1])
+
     @pytest.mark.parametrize("b,L", PLANE_BL)
     @pytest.mark.parametrize("n,m,T", SHAPES)
     def test_plane(self, cuda_device, b, L, n, m, T):

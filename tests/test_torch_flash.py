@@ -112,6 +112,120 @@ def test_model_flash_matches_jax(Sq, Skv, Hq, Hkv, causal, window, cap, dtype):
                                rtol=t, atol=t)
 
 
+def tc_emulate(q, k, v, *, causal, window=0, cap=0.0, scale=None,
+               q_offset=0, round_p, block=64):
+    """The card's numerics in plain torch, float32 on the CPU: products of
+    the input values summed in float32 (a bf16·bf16 product is exact in
+    float32), scale and cap on the float32 scores, an online softmax over
+    ``block``-key tiles with a float32 running max and sum, and — where
+    ``round_p``, as on the tensor-core (bf16) route — P rounded to bf16
+    before P·V, while the sum l adds the unrounded P."""
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    scale = 1.0 / D ** 0.5 if scale is None else scale
+    qf, kf, vf = (x.to(torch.float32) for x in (q, k, v))
+    m = torch.full((B, H, Sq, 1), -torch.inf)
+    l = torch.zeros((B, H, Sq, 1))
+    acc = torch.zeros((B, H, Sq, D))
+    q_pos = q_offset + torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, block):
+        kk, vv = kf[:, :, k0:k0 + block], vf[:, :, k0:k0 + block]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale
+        if cap:
+            s = torch.tanh(s / cap) * cap
+        k_pos = k0 + torch.arange(kk.shape[2])[None, :]
+        mask = torch.ones((Sq, kk.shape[2]), dtype=torch.bool)
+        if causal:
+            mask &= q_pos >= k_pos
+        if window:
+            mask &= (q_pos - k_pos) < window
+        s = torch.where(mask, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        ref_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        corr = torch.exp(m - ref_m)
+        p = torch.exp(s - ref_m)
+        l = l * corr + p.sum(-1, keepdim=True)
+        if round_p:
+            p = p.to(torch.bfloat16).to(torch.float32)
+        acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, vv)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_tc_numerics_match_pallas(case):
+    """The card's numerics, route by dtype (bf16: tensor cores, P rounded
+    to bf16; float32: the scalar kernel, no rounding), against the Pallas
+    kernel in interpret mode at its own tests' tolerances."""
+    B, H, S, D = 2, 3, case["S"], case["D"]
+    q, k, v = qkv(np.random.default_rng(0), B, H, S, D)
+    jd = getattr(jnp, case["dtype"])
+    kw = dict(causal=case["causal"], window=case["window"], cap=case["cap"])
+    want = flash_attention_fwd_pallas(
+        jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd),
+        bq=128, bk=128, interpret=True, **kw)
+    got = tc_emulate(as_torch(q, case["dtype"]), as_torch(k, case["dtype"]),
+                     as_torch(v, case["dtype"]),
+                     round_p=case["dtype"] == "bfloat16", **kw)
+    t = tol(case["dtype"])
+    np.testing.assert_allclose(to_np(got), np.asarray(want, np.float32),
+                               rtol=t, atol=t)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_tc_numerics_in_bf16_match_pallas(case):
+    """Every mask of the Pallas tests (causal, window, cap, non-causal)
+    through the tensor-core route: bf16 inputs, P rounded to bf16 for
+    P·V, held against the Pallas kernel on the same bf16 inputs at the
+    bf16 tolerance 2e-2 — the rounding's budget, shown before the card."""
+    B, H, S, D = 2, 3, case["S"], case["D"]
+    q, k, v = qkv(np.random.default_rng(1), B, H, S, D)
+    kw = dict(causal=case["causal"], window=case["window"], cap=case["cap"])
+    want = flash_attention_fwd_pallas(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), bq=128, bk=128,
+        interpret=True, **kw)
+    got = tc_emulate(*(as_torch(x, "bfloat16") for x in (q, k, v)),
+                     round_p=True, **kw)
+    unrounded = tc_emulate(*(as_torch(x, "bfloat16") for x in (q, k, v)),
+                           round_p=False, **kw)
+    np.testing.assert_allclose(to_np(got), np.asarray(want, np.float32),
+                               rtol=2e-2, atol=2e-2)
+    # the rounding of P moves the output by a few bf16 ulps at most
+    assert float((got.float() - unrounded.float()).abs().max()) < 2e-2
+
+
+def row_errors(got, want) -> torch.Tensor:
+    """Per row: max |got - want| over D, over the row's largest |want|
+    (the largest of these is ``chip_smoke.py``'s bf16 row error)."""
+    d = (got.float() - want.float()).abs().amax(-1)
+    return d / want.float().abs().amax(-1).clamp_min(1e-6)
+
+
+def test_row_error_sees_a_dropped_tile():
+    """``chip_smoke.py`` holds bf16 attention row by row, within 1.5e-2
+    of each row's largest output.  At the serving length (S 2000,
+    causal) the tensor-core route's numerics stay about one bf16 ulp
+    (2^-7) from the plain version, while a kernel that dropped one 64-key
+    tile for the late rows — the first, a middle or the last one they
+    see — fails the limit on every such row."""
+    B, H, S, D = 1, 2, 2000, 64
+    q, k, v = (as_torch(x, "bfloat16")
+               for x in qkv(np.random.default_rng(3), B, H, S, D))
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    good = tc_emulate(q, k, v, causal=True, round_p=True)
+    assert float(row_errors(good, want).max()) <= 1e-2
+    i = torch.arange(S)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * D ** -0.5
+    seen = i[:, None] >= i[None, :]
+    for t0, r0 in ((0, 1900), (640, 1000), (1920, 1984)):
+        drop = ((i[:, None] >= r0) & (i[None, :] >= t0)
+                & (i[None, :] < t0 + 64))
+        p = torch.softmax(torch.where(seen & ~drop, s, -torch.inf), -1)
+        bad = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).bfloat16()
+        late = row_errors(bad, want)[:, :, r0:]
+        assert float(late.min()) > 1.5e-2, (t0, r0, float(late.min()))
+
+
 def test_q_offset_matches_jax():
     """A query block at absolute positions [offset, offset + Sq) — the
     JAX function's ``q_offset`` — goes to the kernel's query positions."""
@@ -210,6 +324,118 @@ class TestCudaKernel:
             torch.testing.assert_close(got.float(), want.float(), rtol=t,
                                        atol=t)
 
+    @pytest.mark.parametrize("D", [16, 64, 128])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_bf16_head_dims(self, cuda_device, D, causal):
+        """The tensor-core route at every head dim, ragged S (not a
+        multiple of the 64-row tiles), at the bf16 tolerance."""
+        rng = np.random.default_rng(D + causal)
+        q, k, v = (as_torch(a, "bfloat16", cuda_device)
+                   for a in qkv(rng, 2, 3, 257, D))
+        ops.reset_kernel_stats()
+        got = ops.flash_attention_fwd(q, k, v, causal=causal)
+        assert ops.kernel_stats() == {"flash_attention_fwd": 1,
+                                      "flash_attention_fwd:bf16": 1}
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+    @pytest.mark.parametrize("Sq,Skv,q_offset", [
+        (64, 300, 236), (17, 129, 112), (100, 40, 0), (130, 200, -30)])
+    def test_bf16_q_offset(self, cuda_device, Sq, Skv, q_offset):
+        """Sq != Skv with the query block at absolute position q_offset:
+        a decode-style chunk at the end of the keys, a short one, keys
+        fewer than queries and an offset that hides some rows entirely."""
+        rng = np.random.default_rng(Sq + Skv)
+        q, k, v = (as_torch(a, "bfloat16", cuda_device)
+                   for a in qkv(rng, 2, 3, Sq, 64, Skv))
+        for kw in (dict(causal=True), dict(causal=True, window=50)):
+            got = ops.flash_attention_fwd(q, k, v, q_offset=q_offset, **kw)
+            want = ref.flash_attention_ref(q, k, v, q_offset=q_offset, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2)
+
+    @pytest.mark.parametrize("D", [64, 128])
+    def test_bf16_window_and_cap(self, cuda_device, D):
+        rng = np.random.default_rng(D)
+        q, k, v = (as_torch(a, "bfloat16", cuda_device)
+                   for a in qkv(rng, 2, 3, 500, D))
+        for kw in (dict(causal=True, window=96, cap=30.0),
+                   dict(causal=False, window=70, cap=20.0),
+                   dict(causal=True, window=1)):
+            got = ops.flash_attention_fwd(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2)
+
+    def test_bf16_strided_views(self, cuda_device):
+        """The model's (B, S, H, D) bf16 tensors read as (B, H, S, D)
+        views by the tensor-core kernel, no copy; the output is written
+        through its strides."""
+        rng = np.random.default_rng(6)
+        x = [as_torch(a, "bfloat16", cuda_device).transpose(1, 2)
+             for a in qkv(rng, 2, 300, 9, 64)]
+        assert not x[0].is_contiguous()
+        got = ops.flash_attention_fwd(*x, causal=True)
+        want = ref.flash_attention_ref(*x, causal=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+    @pytest.mark.parametrize("D", [16, 64, 128])
+    def test_bf16_every_head_dim(self, cuda_device, D):
+        """The tensor-core kernel at each head dim (each with its own CTA
+        shape) over the masks, a ragged S and a query block at an
+        offset."""
+        rng = np.random.default_rng(D + 5)
+        q, k, v = (as_torch(a, "bfloat16", cuda_device)
+                   for a in qkv(rng, 2, 3, 333, D, 400))
+        for kw in (dict(causal=True, q_offset=67), dict(causal=False),
+                   dict(causal=True, window=40, cap=30.0, q_offset=67)):
+            got = ops.flash_attention_fwd(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2)
+
+    def test_bf16_misaligned_raises(self, cuda_device):
+        """cp.async moves 16 bytes: a row stride or base pointer that is
+        not 16-byte aligned is refused, not read wrong."""
+        wide = torch.zeros((1, 8, 2, 68), dtype=torch.bfloat16,
+                           device=cuda_device)
+        odd_stride = wide[..., :64].transpose(1, 2)   # h stride 68
+        ok = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16,
+                         device=cuda_device)
+        with pytest.raises(ValueError, match="16-byte"):
+            ops.flash_attention_fwd(odd_stride, ok, ok)
+        flat = torch.zeros(1 + 2 * 8 * 64, dtype=torch.bfloat16,
+                           device=cuda_device)
+        odd_base = flat[1:].view(1, 2, 8, 64)         # 2 bytes off
+        with pytest.raises(ValueError, match="16-byte"):
+            ops.flash_attention_fwd(ok, odd_base, ok)
+
+    @pytest.mark.parametrize("D", [16, 64, 128])
+    def test_f32_route_exact(self, cuda_device, D):
+        """float32 keeps the scalar kernel, at 2e-5, and counts under the
+        same name as the bf16 route."""
+        rng = np.random.default_rng(7 + D)
+        q, k, v = (as_torch(a, "float32", cuda_device)
+                   for a in qkv(rng, 2, 3, 200, D, 230))
+        ops.reset_kernel_stats()
+        for kw in (dict(causal=True, q_offset=30),
+                   dict(causal=True, window=33, cap=25.0, q_offset=30),
+                   dict(causal=False)):
+            got = ops.flash_attention_fwd(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        assert ops.kernel_stats() == {"flash_attention_fwd": 3,
+                                      "flash_attention_fwd:f32": 3}
+
     def test_strided_views_and_count(self, cuda_device):
         """(B, S, H, D) tensors read as (B, H, S, D) views, no copy."""
         rng = np.random.default_rng(4)
@@ -217,7 +443,8 @@ class TestCudaKernel:
              for a in qkv(rng, 2, 100, 5, 64)]
         ops.reset_kernel_stats()
         got = ops.flash_attention_fwd(*x, causal=True)
-        assert ops.kernel_stats() == {"flash_attention_fwd": 1}
+        assert ops.kernel_stats() == {"flash_attention_fwd": 1,
+                                      "flash_attention_fwd:f32": 1}
         want = ref.flash_attention_ref(*x, causal=True)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)

@@ -257,7 +257,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tseg.SegmentedIndex(16, 2, hot_bytes=1 << 20, device="cpu")
     with pytest.raises(NotImplementedError):
-        tcs.ColumnStore(16, 2, hot_bytes=1)
+        tcs.ColumnStore(16, 2, hot_bytes=1, device="cpu")
     idx = tseg.SegmentedIndex(16, 2, device="cpu")
     q = np.zeros((1, 16), np.uint8)
     for call in (lambda: idx.topk_batch(q, 1, explain=True),
@@ -276,6 +276,15 @@ def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tseg.SegmentedIndex(16, 2)
+
+
+def test_column_store_default_device_raises_without_cuda(monkeypatch):
+    """A bare ColumnStore asks for the card, like SegmentedIndex and
+    LinearScan.build, and never quietly runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tcs.ColumnStore(16, 2)
+    assert tcs.ColumnStore(16, 2, device="cpu").device.type == "cpu"
 
 
 def test_tombstone_bits_and_event_hook():
