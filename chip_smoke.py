@@ -127,11 +127,14 @@ COMPARE_STEPS = 4
 # bf16 tensor-core peak of the H100 SXM (NVIDIA data sheet, dense): the
 # bound of attention, whose FLOPs are matrix products.
 PEAK_BF16_FLOPS = 989e12
-# The designs the query-major packed verify and the tensor-core flash
-# kernel replaced, at the shapes of phases 5 and 7 (NVIDIA H100 80GB
-# HBM3, 700 W; PERF.md's kernel table): printed beside the new times.
+# The designs the query-major packed verify, the tensor-core flash
+# kernel, the strip re-rank and the slab-pass plane verify replaced, at
+# the shapes of phases 5, 7, 5 and 6 (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md's kernel table): printed beside the new times.
 PACKED_COLUMN_MAJOR_MS = 21.637
 FLASH_SCALAR_MS = 3.540
+RERANK_TILED_MS = 4.732
+PLANE_TILED_MS = 0.756
 
 
 def fail(msg: str) -> None:
@@ -190,13 +193,31 @@ def arena_bound(groups, m: int, T: int):
     return bound_ms(nbytes, ops)
 
 
-def rerank_bound(Wp: int, n: int, m: int):
-    """Bound of one re-rank pass: the (Wp, n) payloads and (Wp, m) query
-    words read once, the (m, n) survivor plane in and the scores out;
-    per (query, column) Wp·(and + popc + add) plus ~8 float ops, and
-    Wp·(popc + add) per column for |B|."""
-    return bound_ms(4 * (Wp * n + Wp * m + 2 * m * n),
-                    m * n * (3 * Wp + 8) + 2 * Wp * n)
+def rerank_bound(Wp: int, n: int, m: int, cols: int, lanes: int):
+    """Bound of one re-rank pass, from its compulsory bytes: the (m, n)
+    survivor plane in and the scores out, the (Wp, m) query words, and
+    the payload words of only the ``cols`` columns where a lane survives
+    (a column with no survivor needs no payload); per surviving lane
+    (``lanes``) Wp·(and + popc + add) plus ~8 float ops, Wp·(popc + add)
+    per such column for |B|, and a select per (query, column)."""
+    return bound_ms(4 * (2 * m * n + Wp * m + Wp * cols),
+                    lanes * (3 * Wp + 8) + 2 * Wp * cols + m * n)
+
+
+def queued_ms(torch, fn, calls: int = 20) -> float:
+    """Mean device time of ``calls`` calls of ``fn`` queued back to back
+    (the host works ahead of the card: the kernel's own time whenever
+    the host's share of a call is the shorter)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def perturb(rng, s, vocab: int, frac: float = 0.25) -> np.ndarray:
@@ -590,15 +611,23 @@ def segmented_review(torch, args, dev, ops, ref, err, maxerr) -> dict:
         err["exact_rerank"] = max(err["exact_rerank"], e)
         check(e == 0, "exact_rerank at the segmented path's shape")
     del got, want
-    rk_ms = time_ms(torch, lambda: ops.exact_rerank(pays, q_pay, surv,
-                                                    metric="jaccard"))
+    def rerank():
+        return ops.exact_rerank(pays, q_pay, surv, metric="jaccard")
+
+    rk_ms = time_ms(torch, rerank)
+    rk_queued = queued_ms(torch, rerank)
     rk_plain = time_ms(torch, lambda: [ref.exact_rerank_ref(
         pays, q_pay[:, r0:r0 + 8], surv[r0:r0 + 8], "jaccard")
         for r0 in slices], iters=3)
-    rk_bound, rk_by = rerank_bound(Wp, R, M_QUERIES)
-    print(f"exact_rerank (Wp={Wp}, n={R}, m={M_QUERIES}, "
-          f"{int(surv.sum())} survivors): {rk_ms:.3f} ms, bound "
-          f"{rk_bound:.3f} ms ({rk_by}), plain {rk_plain:.3f} ms", flush=True)
+    lanes = int(surv.sum())
+    cols = int(surv.any(dim=0).sum())
+    rk_bound, rk_by = rerank_bound(Wp, R, M_QUERIES, cols, lanes)
+    print(f"exact_rerank (Wp={Wp}, n={R}, m={M_QUERIES}, {lanes} "
+          f"survivors in {cols} columns): {rk_ms:.3f} ms, queued "
+          f"{rk_queued:.3f} ms (the tiled kernel before it: "
+          f"{RERANK_TILED_MS} ms), bound {rk_bound:.3f} ms ({rk_by}: the "
+          f"flags, the scores and the survivors' payloads), plain "
+          f"{rk_plain:.3f} ms", flush=True)
     print(f"max_memory_allocated: segmented path {peak / 2**30:.2f} GiB",
           flush=True)
     del pays, surv, q_pay, d, scan, idx, store, plan
@@ -701,12 +730,15 @@ def plane_fallback(torch, args, dev, ops, ref, err, maxerr) -> dict:
         check(e == 0, "sparse_verify_arena at the CP path's shape")
     bw, W_s, n_g = g.cols_hot.shape
     ms = time_ms(torch, kernel)
+    queued = queued_ms(torch, kernel)
     plain_ms = time_ms(torch, plain, iters=3)
     bnd, by = arena_bound([(n_g, bw * W_s, W_s * (2 * bw + 1) + 4)],
                           M_QUERIES, base_plane.shape[1])
     print(f"sparse_verify_arena (b={bw} W={W_s} S={S} n={n_g} m={M_QUERIES} "
-          f"T={base_plane.shape[1]}): {ms:.3f} ms, bound {bnd:.3f} ms ({by}), "
-          f"plain {plain_ms:.3f} ms", flush=True)
+          f"T={base_plane.shape[1]}, {ops._slab_queries(base_plane.shape[1])}"
+          f" queries a slab pass): {ms:.3f} ms, queued {queued:.3f} ms (the "
+          f"tiled kernel before it: {PLANE_TILED_MS} ms), bound {bnd:.3f} "
+          f"ms ({by}), plain {plain_ms:.3f} ms", flush=True)
     return {"sparse_verify_arena": {
         "launches": l_sfx["sparse_verify_arena"]
         + l_full.get("sparse_verify_arena", 0),
@@ -1326,12 +1358,12 @@ def main() -> int:
          "plain_ms": scan_plain, "bound_ms": scan_bound, "bound_by": scan_by,
          "library_ms": scan_lib},
         {"name": "sparse_verify_arena_packed", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/packed.cu",
+         "source": "src/repro_torch/kernels/csrc/arena.cu",
          "replaces": "src/repro/kernels/hamming_kernel.py:203",
          "max_abs_err": err["sparse_verify_arena_packed"],
          **seg["sparse_verify_arena_packed"]},
         {"name": "sparse_verify_arena", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/hamming.cu",
+         "source": "src/repro_torch/kernels/csrc/arena.cu",
          "replaces": "src/repro/kernels/hamming_kernel.py:278",
          "max_abs_err": err["sparse_verify_arena"],
          **cp["sparse_verify_arena"]},

@@ -22,7 +22,7 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "hamming.cu", _CSRC / "packed.cu", _CSRC / "rerank.cu",
+SOURCES = (_CSRC / "hamming.cu", _CSRC / "arena.cu", _CSRC / "rerank.cu",
            _CSRC / "flash_attn.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,11 +40,11 @@ _SIGNATURES = {
     "hamming_distances_launch": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "sparse_verify_batch_launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
                                    _I, _I, _P],
-    "sparse_verify_arena_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL,
-                                   _I, _I, _I, _I, _I, _P],
+    "sparse_verify_arena_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
+                                   _LL, _I, _I, _I, _I, _P],
     "sparse_verify_arena_packed_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                          _LL, _I, _LL, _I, _I, _I, _P],
-    "exact_rerank_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
+                                          _LL, _I, _LL, _I, _I, _I, _I, _P],
+    "exact_rerank_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
     "flash_attention_fwd_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    *[_LL] * 12, _I, _I, _F, _F, _I, _I, _P],
 }

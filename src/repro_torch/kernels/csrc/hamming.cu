@@ -1,20 +1,18 @@
 // Vertical-format Hamming scans for Hopper (sm_90a), with a plain C
 // interface loaded through ctypes (see ../_build.py and ../ops.py).
 //
-// Replaces three Pallas TPU kernels of repro/kernels/hamming_kernel.py:
+// Replaces two Pallas TPU kernels of repro/kernels/hamming_kernel.py:
 //   * hamming_distances_pallas   (:70, body _hamming_kernel :64)
 //       -> hamming_distances_launch
 //   * sparse_verify_batch_pallas (:114, body _verify_batch_kernel :100;
 //     its m=1 case sparse_verify_pallas :156)
 //       -> sparse_verify_batch_launch
-//   * sparse_verify_arena_pallas (:278, body _verify_arena_kernel :259)
-//       -> sparse_verify_arena_launch
-// All three share the tile _tile_distances (:49):
+// Both share the tile _tile_distances (:49):
 //   d[j, i] = sum_w popc( OR_p db[p, w, i] ^ q[p, w, j] ).
 //
 // Bound on this card: bytes.  The work is a few integer ops per output
 // element, while every (query j, column i) pair writes one int32 (the
-// distance scan) or reads one int32 base and writes two (the verifies).
+// distance scan) or reads one int32 base and writes two (the verify).
 // At the main path's shapes the (m, n) planes are ~30x the (b, W, n)
 // database stream, so the design keeps the output stores coalesced and
 // reads each database word once per query tile:
@@ -26,15 +24,8 @@
 //     masked here, so the caller pads nothing;
 //   * b, W and tau are runtime arguments; output offsets are int64
 //     (m * n passes 2^31 at the shapes the search serves).
-// The arena verify gathers its base distance from an (m, T) plane
-// through the column's segment-offset lane (base_plane[j, base_idx[i]],
-// BIG on a dead lane) instead of reading a dense (m, n) plane.  The TPU
-// kernel holds a (block_m, T) slab of that plane in VMEM; at the sizes
-// the segmented index serves T is ~10^7, far past shared memory, so each
-// thread loads its lane's index and liveness once and gathers its TM
-// bases straight from device memory (a random access: the plane's rows
-// are far larger than L2, and that gather is this kernel's gap to its
-// bound).  The TPU version's (8, 2048) VMEM tiling does not carry over.
+// The arena verify, which gathers its base through a segment-offset
+// lane, is the slab pass of arena.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,18 +35,15 @@ namespace {
 constexpr int kBig = 1 << 20;  // distance sentinel of pruned lanes
 
 // What the tile does with its distances.
-enum Mode { kDistances = 0, kVerify = 1, kArena = 2 };
+enum Mode { kDistances = 0, kVerify = 1 };
 
 template <int TM, int MODE>
 __global__ void hamming_tile_kernel(const uint32_t* __restrict__ db,
                                     const uint32_t* __restrict__ q,
                                     const int32_t* __restrict__ base,
-                                    const int32_t* __restrict__ base_idx,
-                                    const uint8_t* __restrict__ live,
                                     int32_t* __restrict__ out0,
                                     int32_t* __restrict__ out1,
-                                    int64_t n, int m, int64_t T, int b, int W,
-                                    int tau) {
+                                    int64_t n, int m, int b, int W, int tau) {
   extern __shared__ uint32_t q_tile[];  // [b * W][TM]
   const int j0 = blockIdx.y * TM;
   const int words = b * W;
@@ -69,13 +57,6 @@ __global__ void hamming_tile_kernel(const uint32_t* __restrict__ db,
 
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-
-  int64_t lane = 0;   // kArena: this column's row in the (m, T) plane
-  bool alive = true;
-  if (MODE == kArena) {
-    lane = __ldg(&base_idx[i]);
-    alive = __ldg(&live[i]) != 0;
-  }
 
   int d[TM];
 #pragma unroll
@@ -102,9 +83,7 @@ __global__ void hamming_tile_kernel(const uint32_t* __restrict__ db,
     if (MODE == kDistances) {
       out0[off] = d[jj];
     } else {
-      const int bj = MODE == kVerify
-                         ? __ldg(&base[off])
-                         : (alive ? __ldg(&base[(int64_t)j * T + lane]) : kBig);
+      const int bj = __ldg(&base[off]);
       // wrapping add, as the int32 sum of the reference
       const int total = (int)((uint32_t)d[jj] + (uint32_t)bj);
       out0[off] = total <= tau ? 1 : 0;
@@ -114,13 +93,11 @@ __global__ void hamming_tile_kernel(const uint32_t* __restrict__ db,
 }
 
 template <int MODE>
-int launch(const void* db, const void* q, const void* base,
-           const void* base_idx, const void* live, void* out0, void* out1,
-           long long n, int m, long long T, int b, int W, int tau, int tile_m,
+int launch(const void* db, const void* q, const void* base, void* out0,
+           void* out1, long long n, int m, int b, int W, int tau, int tile_m,
            int block_n, void* stream) {
   if (n <= 0 || m <= 0) return (int)cudaSuccess;
-  if (b <= 0 || W <= 0 || block_n <= 0 || block_n > 1024 || block_n % 32 ||
-      (MODE == kArena && T <= 0))
+  if (b <= 0 || W <= 0 || block_n <= 0 || block_n > 1024 || block_n % 32)
     return (int)cudaErrorInvalidValue;
   const dim3 block(block_n);
   const dim3 grid((unsigned)((n + block_n - 1) / block_n),
@@ -131,15 +108,13 @@ int launch(const void* db, const void* q, const void* base,
   const uint32_t* dbp = (const uint32_t*)db;
   const uint32_t* qp = (const uint32_t*)q;
   const int32_t* bp = (const int32_t*)base;
-  const int32_t* ip = (const int32_t*)base_idx;
-  const uint8_t* lp = (const uint8_t*)live;
   int32_t* o0 = (int32_t*)out0;
   int32_t* o1 = (int32_t*)out1;
   switch (tile_m) {
 #define HAMMING_CASE(TM)                                                      \
   case TM:                                                                    \
     hamming_tile_kernel<TM, MODE><<<grid, block, smem, s>>>(                  \
-        dbp, qp, bp, ip, lp, o0, o1, (int64_t)n, m, (int64_t)T, b, W, tau);   \
+        dbp, qp, bp, o0, o1, (int64_t)n, m, b, W, tau);                       \
     break;
     HAMMING_CASE(1)
     HAMMING_CASE(2)
@@ -162,8 +137,8 @@ extern "C" {
 int hamming_distances_launch(const void* db, const void* q, void* out,
                              long long n, int m, int b, int W, int tile_m,
                              int block_n, void* stream) {
-  return launch<kDistances>(db, q, nullptr, nullptr, nullptr, out, nullptr,
-                            n, m, 0, b, W, 0, tile_m, block_n, stream);
+  return launch<kDistances>(db, q, nullptr, out, nullptr, n, m, b, W, 0,
+                            tile_m, block_n, stream);
 }
 
 // (b, W, n) x (b, W, m) uint32 + (m, n) int32 base -> (m, n) int32 mask
@@ -172,22 +147,8 @@ int sparse_verify_batch_launch(const void* db, const void* q,
                                const void* base, void* mask, void* dist,
                                long long n, int m, int b, int W, int tau,
                                int tile_m, int block_n, void* stream) {
-  return launch<kVerify>(db, q, base, nullptr, nullptr, mask, dist, n, m, 0,
-                         b, W, tau, tile_m, block_n, stream);
-}
-
-// (b, W, n) x (b, W, m) uint32 + (m, T) int32 base plane + (n,) int32
-// segment-offset lane + (n,) uint8 liveness -> (m, n) int32 mask and
-// (m, n) int32 min(base_plane[j, base_idx[i]] + d, BIG); a dead lane's
-// base is BIG.  base_idx must lie in [0, T).
-int sparse_verify_arena_launch(const void* db, const void* q,
-                               const void* base_plane, const void* base_idx,
-                               const void* live, void* mask, void* dist,
-                               long long n, int m, long long T, int b, int W,
-                               int tau, int tile_m, int block_n,
-                               void* stream) {
-  return launch<kArena>(db, q, base_plane, base_idx, live, mask, dist, n, m,
-                        T, b, W, tau, tile_m, block_n, stream);
+  return launch<kVerify>(db, q, base, mask, dist, n, m, b, W, tau, tile_m,
+                         block_n, stream);
 }
 
 const char* hamming_error_string(int code) {

@@ -12,9 +12,11 @@ they lie:
 ``block_m`` is the query tile (queries played against each database word
 a thread loads; rounded up to a power of two, at most 32) and
 ``block_n`` the database columns of one CUDA block (a multiple of 32,
-at most 1024): the same two tile axes as the TPU kernels' grid.  The
-packed verify and the flash kernel take their own.  The kernels mask the
-ragged edges themselves, so nothing is padded here.
+at most 1024) of the scan and the static verify: the same two tile axes
+as the TPU kernels' grid.  The arena verifies, the re-rank and the flash
+kernel take their own tiles, and accept the two for the common
+signature only.  The kernels mask the ragged edges themselves, so
+nothing is padded here.
 
 ``flash_attention_fwd`` is the one float kernel: (B, H, S, D) float32 or
 bfloat16 attention, read through strides.
@@ -76,6 +78,29 @@ def _on_kernel(x: torch.Tensor, use_kernel: bool | None) -> bool:
 def _tile_m(block_m: int, m: int) -> int:
     t = max(1, min(block_m, m, _MAX_TILE_M))
     return 1 << (t - 1).bit_length()
+
+
+# The arena verifies walk the queries in passes of Q, through a (T,) slab
+# of 4-bit codes of the pass's Q rows of the base plane (csrc/arena.cu):
+# the most queries whose slab stays within SLAB_BYTES, well inside the
+# card's 50 MB L2.
+SLAB_BYTES = 16 << 20
+_SLAB_DTYPES = {4: torch.int16, 8: torch.int32, 16: torch.int64}
+
+
+def _slab_queries(T: int) -> int:
+    """Queries per pass of the arena verifies at T roots: 16, 8 or 4."""
+    for q in (16, 8):
+        if T * q // 2 <= SLAB_BYTES:
+            return q
+    return 4
+
+
+def _slab(T: int, device: torch.device):
+    """(slab, Q): the (T,) scratch of an arena verify and its queries per
+    pass."""
+    q = _slab_queries(T)
+    return torch.empty((T,), dtype=_SLAB_DTYPES[q], device=device), q
 
 
 def _check(name: str, db: torch.Tensor, q: torch.Tensor,
@@ -229,7 +254,11 @@ def sparse_verify_arena(paths_vert: torch.Tensor, q_vert: torch.Tensor,
     base_idx:   (n,) int32 index of each column into the T axis, in
                 [0, T) (the segment-offset lane);
     live:       (n,) bool per-column liveness;
-    returns ((m, n) int32 masks, (m, n) int32 totals, BIG-clamped)."""
+    returns ((m, n) int32 masks, (m, n) int32 totals, BIG-clamped).
+
+    The kernel is the packed verify's query-major slab pass over plane
+    columns; ``block_m``/``block_n`` are accepted for the common
+    signature of the verifies only."""
     if not _on_kernel(paths_vert, use_kernel):
         _count("sparse_verify_arena", False)
         mask, dist = ref.sparse_verify_arena_ref(paths_vert, q_vert,
@@ -241,16 +270,18 @@ def sparse_verify_arena(paths_vert: torch.Tensor, q_vert: torch.Tensor,
     _check(name, paths_vert, q_vert, None)
     b, W, n = paths_vert.shape
     m = q_vert.shape[-1]
-    _check_lanes(name, n, base_plane, m, base_idx, live, paths_vert.device)
-    mask = torch.empty((m, n), dtype=torch.int32, device=paths_vert.device)
+    dev = paths_vert.device
+    _check_lanes(name, n, base_plane, m, base_idx, live, dev)
+    T = base_plane.shape[1]
+    mask = torch.empty((m, n), dtype=torch.int32, device=dev)
     dist = torch.empty_like(mask)
+    slab, slab_q = _slab(T, dev)
     lib = _build.load_library()
     code = lib.sparse_verify_arena_launch(
         paths_vert.data_ptr(), q_vert.data_ptr(), base_plane.data_ptr(),
         base_idx.data_ptr(), live.data_ptr(), mask.data_ptr(),
-        dist.data_ptr(), n, m, base_plane.shape[1], b, W, int(tau),
-        _tile_m(block_m, m), block_n,
-        torch.cuda.current_stream(paths_vert.device).cuda_stream)
+        dist.data_ptr(), slab.data_ptr(), n, m, T, b, W, int(tau), slab_q,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, name)
     _count(name, m * n > 0)
     return mask, dist
@@ -275,10 +306,10 @@ def sparse_verify_arena_packed(db_words: torch.Tensor, q_words: torch.Tensor,
     live:       (n,) bool;
     returns ((m, n) int32 masks, (m, n) int32 totals, BIG-clamped).
 
-    The kernel walks the queries in order, 4 at a time through a (T,)
-    uint16 slab of their codes, so that what it gathers from stays in L2;
-    its tiles are its own, and ``block_m``/``block_n`` are accepted for
-    the common signature of the verifies only."""
+    The kernel walks the queries in order, Q at a time (16, 8 or 4, by
+    T) through a (T,) slab of their codes, so that what it gathers from
+    stays in L2; its tiles are its own, and ``block_m``/``block_n`` are
+    accepted for the common signature of the verifies only."""
     if not (S >= 0 and b * S <= 32):
         raise ValueError(f"sparse_verify_arena_packed: b*S = {b * S} "
                          "does not fit one 32-bit word")
@@ -301,12 +332,12 @@ def sparse_verify_arena_packed(db_words: torch.Tensor, q_words: torch.Tensor,
     dev = db_words.device
     mask = torch.empty((m, n), dtype=torch.int32, device=dev)
     dist = torch.empty_like(mask)
-    slab = torch.empty((T,), dtype=torch.int16, device=dev)
+    slab, slab_q = _slab(T, dev)
     lib = _build.load_library()
     code = lib.sparse_verify_arena_packed_launch(
         db_words.data_ptr(), q_words.data_ptr(), base_plane.data_ptr(),
         base_idx.data_ptr(), live.data_ptr(), mask.data_ptr(),
-        dist.data_ptr(), slab.data_ptr(), n, m, T, b, S, int(tau),
+        dist.data_ptr(), slab.data_ptr(), n, m, T, b, S, int(tau), slab_q,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, name)
     _count(name, m * n > 0)
@@ -325,7 +356,12 @@ def exact_rerank(pay_vert: torch.Tensor, q_vert: torch.Tensor,
               survivor mask (nonzero = the lane survived the trie sweep
               at the final τ rung; int32 on the card);
     returns (m, n) float32 exact Jaccard / cosine / containment scores,
-    -1.0 on non-survivor lanes."""
+    -1.0 on non-survivor lanes.
+
+    The kernel scores a strip of columns for every query and loads a
+    column's payload only where one of its lanes survives; its tiles
+    are its own, and ``block_m``/``block_n`` are accepted for the
+    common signature only."""
     if metric not in RERANK_METRICS:
         raise ValueError(f"unknown rerank metric {metric!r}")
     if not _on_kernel(pay_vert, use_kernel):
@@ -354,7 +390,6 @@ def exact_rerank(pay_vert: torch.Tensor, q_vert: torch.Tensor,
     code = lib.exact_rerank_launch(
         pay_vert.data_ptr(), q_vert.data_ptr(), surv.data_ptr(),
         out.data_ptr(), n, m, Wp, RERANK_METRICS.index(metric),
-        _tile_m(block_m, m), block_n,
         torch.cuda.current_stream(pay_vert.device).cuda_stream)
     _build.check(lib, code, name)
     _count(name, m * n > 0)

@@ -139,6 +139,96 @@ def test_rerank_ref_matches_jax(metric, Wp, m, n):
     assert np.isfinite(got.numpy()).all()
 
 
+def survivor_plane(pattern: str, m: int, n: int) -> np.ndarray:
+    """(m, n) int32 survivor flags in the patterns the re-rank kernel
+    treats specially: none at all, one lane per row, or only the last
+    three (ragged) columns."""
+    surv = np.zeros((m, n), np.int32)
+    if pattern == "one_per_row":
+        surv[np.arange(m), (np.arange(m) * 37 + 5) % n] = 1
+    elif pattern == "ragged_tail":
+        surv[:, -3:] = 1
+    return surv
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("pattern", ["none", "one_per_row", "ragged_tail"])
+@pytest.mark.parametrize("Wp", [3, 9])
+def test_rerank_ref_survivor_patterns_match_jax(metric, pattern, Wp):
+    """The survivor patterns of the kernel's lazy payload loads, and
+    Wp > 8 (words past those it keeps in registers), on n = 131 (ragged
+    for 4 columns a thread)."""
+    rng = np.random.default_rng(Wp * 10 + len(pattern))
+    m, n = 5, 131
+    pay, q, _ = rerank_inputs(rng, n, m, Wp)
+    surv = survivor_plane(pattern, m, n)
+    want = np.asarray(jref.exact_rerank_ref(jnp.asarray(pay), jnp.asarray(q),
+                                            jnp.asarray(surv), metric))
+    got = ref.exact_rerank_ref(tw(pay), tw(q), torch.from_numpy(surv), metric)
+    np.testing.assert_array_equal(bits(got.numpy()), bits(want))
+    wrapped = ops.exact_rerank(tw(pay), tw(q), torch.from_numpy(surv),
+                               metric=metric)
+    np.testing.assert_array_equal(bits(wrapped.numpy()), bits(want))
+    assert (got.numpy()[surv == 0] == -1.0).all()
+    assert int((got.numpy() != -1.0).sum()) <= int(surv.sum())
+
+
+def edge_lanes(rng, n, m, T, case):
+    """Base planes and lanes at the plane verify's slab codes: bases 0..13
+    (a code of their own), 14 and up and negatives (read back from the
+    row), BIG mixed in; or every lane dead."""
+    plane = rng.integers(0, 14, size=(m, T)).astype(np.int32)
+    plane[rng.random((m, T)) < 0.25] = BIG
+    odd = rng.random((m, T)) < 0.25
+    plane[odd] = rng.choice([14, 15, 16, 40, -1, BIG - 1, BIG + 1],
+                            size=int(odd.sum()))
+    idx = rng.integers(0, T, size=n).astype(np.int32)
+    live = (np.zeros(n, bool) if case == "all_dead"
+            else rng.random(n) < 0.8)
+    return plane, idx, live
+
+
+@pytest.mark.parametrize("case,T", [("escape", 19), ("all_dead", 19),
+                                    ("escape", 1)])
+@pytest.mark.parametrize("m", [1, 17])
+@pytest.mark.parametrize("b,L", [(2, 22), (2, 40)])
+def test_plane_verify_ref_edge_bases_match_jax(case, T, m, b, L):
+    """The plane verify at its slab's codes (bases 0..13, 14 and up,
+    negatives and BIG), with every lane dead, at T = 1, for one query and
+    for 17 (one more than a 16-query pass), W of 1 and 2; τ = 16 so that
+    bases past 13 can still verify."""
+    rng = np.random.default_rng(m * 7 + T + L)
+    n, tau = 131, 16
+    db, q = plane_inputs(rng, n, m, b, L)
+    plane, idx, live = edge_lanes(rng, n, m, T, case)
+    want = jref.sparse_verify_arena_ref(
+        jnp.asarray(db), jnp.asarray(q), jnp.asarray(plane),
+        jnp.asarray(idx), jnp.asarray(live), tau)
+    args = (tw(db), tw(q), torch.from_numpy(plane), torch.from_numpy(idx),
+            torch.from_numpy(live))
+    assert_pair(ref.sparse_verify_arena_ref(*args, tau), want)
+    wrapped = ops.sparse_verify_arena(*args, tau=tau)
+    assert_pair(wrapped, (np.asarray(want[0]).astype(np.int32), want[1]))
+    if case == "all_dead":
+        assert (np.asarray(want[1]) == BIG).all()
+
+
+def test_slab_queries_by_roots():
+    """The arena verifies' queries per pass: 16 while a 64-bit slab stays
+    within SLAB_BYTES, then 8, then 4 (the packed verify's 4-query slab
+    at the segmented Review shape's T)."""
+    cap = ops.SLAB_BYTES
+    assert ops._slab_queries(1) == 16
+    assert ops._slab_queries(662_938) == 16
+    assert ops._slab_queries(cap // 8) == 16
+    assert ops._slab_queries(cap // 8 + 1) == 8
+    assert ops._slab_queries(cap // 4) == 8
+    assert ops._slab_queries(cap // 4 + 1) == 4
+    assert ops._slab_queries(6_818_030) == 4
+    slab, q = ops._slab(100, torch.device("cpu"))
+    assert q == 16 and slab.shape == (100,) and slab.element_size() == 8
+
+
 @pytest.mark.parametrize("kernel", ["packed", "plane", "rerank"])
 def test_wrappers_match_jax_pallas_interpret(kernel):
     """n >= 2048 columns: the JAX wrappers run the Pallas kernels (in
@@ -244,9 +334,10 @@ def cuda_device():
 
 @pytest.mark.cuda
 class TestArenaKernelsOnCard:
-    """Each new CUDA kernel against its plain version, on the card:
-    bit-exact over ragged n and m, T in {1, 7, 100003}, dead lanes and
-    BIG bases."""
+    """Each CUDA kernel of this file against its plain version, on the
+    card: bit-exact over ragged n and m, T from 1 past 2^22 (every slab
+    width), dead lanes, BIG and escape-coded bases, survivor densities
+    from none to all, and misaligned views."""
 
     SHAPES = [(1, 1, 1), (130, 3, 7), (4097, 8, 100_003), (100_003, 33, 7)]
 
@@ -336,6 +427,99 @@ class TestArenaKernelsOnCard:
         want = ref.sparse_verify_arena_ref(db, q, plane, idx, live, 4)
         assert torch.equal(got[0], want[0].to(torch.int32))
         assert torch.equal(got[1], want[1])
+
+    @pytest.mark.parametrize("kind", ["packed", "plane"])
+    @pytest.mark.parametrize("T", [7, 3_000_000, (1 << 22) + 3])
+    @pytest.mark.parametrize("m", [1, 63, 64, 65])
+    def test_slab_passes(self, cuda_device, kind, T, m):
+        """Both arena verifies at each slab width the launch picks from T
+        (16, 8 and 4 queries a pass: 5, 9 and 17 passes at m = 65), m
+        one short of, at and past 64, escape-coded bases, dead lanes and
+        base_idx at 0 and T - 1; four columns a thread (n % 4 = 0) and
+        one (n odd); the plane columns with W = 2."""
+        gen = torch.Generator(device=cuda_device).manual_seed(T + m)
+        dev = cuda_device
+        plane = torch.randint(0, 14, (m, T), dtype=torch.int32, device=dev,
+                              generator=gen)
+        plane[torch.rand((m, T), device=dev, generator=gen) < 0.3] = BIG
+        odd = torch.rand((m, T), device=dev, generator=gen) < 0.05
+        vals = torch.tensor([-3, 14, 15, 40, BIG - 1, BIG + 1, 2 ** 31 - 1],
+                            dtype=torch.int32, device=dev)
+        plane[odd] = vals[torch.randint(0, len(vals), (int(odd.sum()),),
+                                        device=dev, generator=gen)]
+        plane[:, T - 1] = 2
+        for n in (1 << 17, 100_003):
+            idx = torch.randint(0, T, (n,), dtype=torch.int32, device=dev,
+                                generator=gen)
+            idx[::7] = T - 1
+            idx[3::7] = 0
+            live = torch.rand(n, device=dev, generator=gen) >= 0.1
+            words = (lambda *shape: torch.randint(
+                -2 ** 31, 2 ** 31, shape, dtype=torch.int32, device=dev,
+                generator=gen))
+            ops.reset_kernel_stats()
+            if kind == "packed":
+                db, q = words(n), words(m)
+                got = ops.sparse_verify_arena_packed(db, q, plane, idx, live,
+                                                     b=2, S=4, tau=16)
+                want = ref.sparse_verify_arena_packed_ref(
+                    db, q, plane, idx, live, 2, 4, 16)
+            else:
+                db, q = words(2, 2, n), words(2, 2, m)
+                db[..., ::5] = q[..., :1]
+                got = ops.sparse_verify_arena(db, q, plane, idx, live,
+                                              tau=16)
+                want = ref.sparse_verify_arena_ref(db, q, plane, idx, live,
+                                                   16)
+            torch.cuda.synchronize()
+            assert ops.kernel_stats() == {
+                "sparse_verify_arena_packed" if kind == "packed"
+                else "sparse_verify_arena": 1}
+            assert torch.equal(got[0], want[0].to(torch.int32))
+            assert torch.equal(got[1], want[1])
+        assert ops._slab_queries(T) == {7: 16, 3_000_000: 8}.get(T, 4)
+
+    @pytest.mark.parametrize("density", [0.0, "one", 0.01, 1.0])
+    @pytest.mark.parametrize("Wp", [1, 8, 33])
+    @pytest.mark.parametrize("n", [1 << 17, 100_003])
+    def test_rerank_densities(self, cuda_device, density, Wp, n):
+        """The re-rank's lazy payloads at survivor densities of 0, one
+        lane, 1% and 100%, with payload words in registers (Wp 1, 8) and
+        past them (33), four columns a thread and one (n odd)."""
+        rng = np.random.default_rng(Wp + n)
+        m = 64
+        pay, q, _ = rerank_inputs(rng, n, m, Wp)
+        pay, q = tw(pay, cuda_device), tw(q, cuda_device)
+        if density == "one":
+            surv = torch.zeros((m, n), dtype=torch.int32, device=cuda_device)
+            surv[m // 2, n - 1] = 1
+        else:
+            surv = (torch.rand((m, n), device=cuda_device) < density).to(
+                torch.int32)
+        for metric in METRICS:
+            ops.reset_kernel_stats()
+            got = ops.exact_rerank(pay, q, surv, metric=metric)
+            torch.cuda.synchronize()
+            assert ops.kernel_stats() == {"exact_rerank": 1}
+            want = ref.exact_rerank_ref(pay, q, surv, metric)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+    @pytest.mark.parametrize("m", [1, 63, 64, 65])
+    @pytest.mark.parametrize("n", [4096, 4097])
+    def test_rerank_misaligned_view(self, cuda_device, m, n):
+        """A contiguous view whose pointer is 4 bytes past a 16-byte
+        boundary (pay[:, 1:] with Wp = 1) takes one column a thread, for
+        n % 4 of 0 and 1, at m one short of, at and past 64."""
+        rng = np.random.default_rng(m + n)
+        pay, q, surv = rerank_inputs(rng, n + 1, m, 1)
+        pay = tw(pay, cuda_device)[:, 1:]
+        q = tw(q, cuda_device)
+        surv = torch.from_numpy(surv[:, 1:].copy()).to(cuda_device)
+        assert pay.is_contiguous() and pay.data_ptr() % 16 == 4
+        for metric in METRICS:
+            got = ops.exact_rerank(pay, q, surv, metric=metric)
+            want = ref.exact_rerank_ref(pay, q, surv, metric)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
     @pytest.mark.parametrize("metric", METRICS)
     @pytest.mark.parametrize("Wp", [1, 8, 33])

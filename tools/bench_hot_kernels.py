@@ -1,19 +1,23 @@
-"""Time the packed arena verify and the flash-attention forward of the
-port on one GPU, at the shapes of ``chip_smoke.py``'s main paths.
+"""Time the arena verifies, the exact re-rank and the flash-attention
+forward of the port on one GPU, at the shapes of ``chip_smoke.py``'s
+main paths.
 
     python3 tools/bench_hot_kernels.py [--src DIR] [--seed 0] [--iters 10]
-                                       [--only packed,flash]
+                                       [--only packed,plane,rerank,flash]
+                                       [--slab-q 4|8|16]
 
 ``--src`` is the ``src/`` directory whose ``repro_torch`` is imported
 (default: this checkout's), so that two trees — say a parent commit
 unpacked with ``git archive`` — are timed by the same script on the same
 card, in turns.  Each kernel is first checked against its plain version
-on the same inputs (bit-exact for the verify, 2e-2 for bf16 attention).
-Every time is of the wrapper, two ways: one call between two events
-(``wrapper``: its host work included, as a caller that waits on each
-call sees it) and the mean of 20 calls queued back to back (``queued``:
-the host works ahead of the card, so this is the kernel's own time
-whenever the host's share of a call is the shorter).
+on the same inputs (bit-exact for the verifies and the re-rank's float32
+bit patterns, 2e-2 for bf16 attention).  Every time is of the wrapper,
+two ways: one call between two events (``wrapper``: its host work
+included, as a caller that waits on each call sees it) and the mean of
+20 calls queued back to back (``queued``: the host works ahead of the
+card, so this is the kernel's own time whenever the host's share of a
+call is the shorter).  ``--slab-q`` forces the arena verifies' queries
+per slab pass (a variant; by default the wrapper picks it from T).
 
   * packed: the segmented Review shape — one packed group, b = 2, S = 4,
     n = 12,582,912 columns, T = 6,818,030 roots, m = 64 queries — with
@@ -23,6 +27,19 @@ whenever the host's share of a call is the shorter).
     plane once, both outputs), a write-only floor (``fill_`` of the two
     (m, n) outputs) and the same call with base_idx sorted (coalesced
     gathers: what the random gathers still cost).
+  * plane: the plane verify (b = 2, W = 1) at phase 6's CP shape (n =
+    1,048,576, T = 662,938) and at the full layout's Review shape (n =
+    12,582,912, T = 6,818,030), m = 64, with the packed bench's synthetic
+    lanes; prints the bound, the write-only floor and the call with
+    base_idx sorted (queued).
+  * rerank: the Jaccard re-rank at phase 5's shape (Wp = 8, n =
+    13,107,200, m = 64) at phase 5's survivor density (19,203 lanes), 1%
+    and 100%, random payloads and queries; prints the bound (compulsory
+    bytes: both (m, n) planes and the payloads of the columns with a
+    survivor), the write-only floor (``fill_`` of the scores) and a
+    stream floor (``copy_`` of the int32 flags into the float32 scores:
+    both planes once); at phase 5's density also n - 1 columns (one
+    column a thread).
   * flash: the prefill's shape (B 8, H 9, S 2,000, D 64, bf16, causal),
     contiguous (B, H, S, D) and the model's strided (B, S, H, D) views,
     beside ``scaled_dot_product_attention``; the other head dims of
@@ -90,12 +107,7 @@ def bench_packed(ops, ref, gen, iters: int) -> dict:
                           device=dev, generator=gen)
     q = torch.randint(-2 ** 31, 2 ** 31, (m,), dtype=torch.int32, device=dev,
                       generator=gen)
-    plane = torch.randint(0, 6, (m, T), dtype=torch.int32, device=dev,
-                          generator=gen)
-    plane[torch.rand((m, T), device=dev, generator=gen) < 0.6] = BIG
-    idx = torch.randint(0, T, (n,), dtype=torch.int32, device=dev,
-                        generator=gen)
-    live = torch.rand(n, device=dev, generator=gen) >= 0.01
+    plane, idx, live = synthetic_lanes(gen, m, T, n)
     kw = dict(b=b, S=S, tau=3)
 
     def check(idx_):
@@ -128,6 +140,120 @@ def bench_packed(ops, ref, gen, iters: int) -> dict:
           f"{bound:.3f} ms (bytes, {nbytes / 1e9:.2f} GB); write-only floor "
           f"of the two outputs {out['write_floor']:.3f} ms; base_idx sorted "
           f"(coalesced gathers) {out['sorted_idx']:.3f} ms", flush=True)
+    return out
+
+
+def synthetic_lanes(gen, m: int, T: int, n: int):
+    """The packed bench's lanes: a base plane of 0..5 with 60% BIG,
+    base_idx uniform over [0, T), 1% dead columns."""
+    dev = torch.device("cuda")
+    plane = torch.randint(0, 6, (m, T), dtype=torch.int32, device=dev,
+                          generator=gen)
+    plane[torch.rand((m, T), device=dev, generator=gen) < 0.6] = BIG
+    idx = torch.randint(0, T, (n,), dtype=torch.int32, device=dev,
+                        generator=gen)
+    live = torch.rand(n, device=dev, generator=gen) >= 0.01
+    return plane, idx, live
+
+
+def bench_plane(ops, ref, gen, iters: int) -> dict:
+    m, b, W = 64, 2, 1
+    dev = torch.device("cuda")
+    out = {}
+    for key, n, T in (("cp", 1_048_576, 662_938),
+                      ("full_review", 12_582_912, 6_818_030)):
+        cols = torch.randint(-2 ** 31, 2 ** 31, (b, W, n), dtype=torch.int32,
+                             device=dev, generator=gen)
+        q = torch.randint(-2 ** 31, 2 ** 31, (b, W, m), dtype=torch.int32,
+                          device=dev, generator=gen)
+        cols[..., ::5] = q[..., :1]              # some columns verify
+        plane, idx, live = synthetic_lanes(gen, m, T, n)
+        got = ops.sparse_verify_arena(cols, q, plane, idx, live, tau=3)
+        for r0 in range(0, m, 8):
+            w_mask, w_dist = ref.sparse_verify_arena_ref(
+                cols, q[..., r0:r0 + 8], plane[r0:r0 + 8], idx, live, 3)
+            if not (torch.equal(got[0][r0:r0 + 8], w_mask.to(torch.int32))
+                    and torch.equal(got[1][r0:r0 + 8], w_dist)):
+                raise SystemExit(f"plane verify ({key}) differs from the "
+                                 f"plain version, rows {r0}+")
+        del got, w_mask, w_dist
+        nbytes = 4 * m * T + n * (4 * b * W + 5) + 4 * b * W * m + 8 * m * n
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        r = both(lambda: ops.sparse_verify_arena(cols, q, plane, idx, live,
+                                                 tau=3), iters)
+        mask = torch.empty((m, n), dtype=torch.int32, device=dev)
+        dist = torch.empty_like(mask)
+        r["write_floor"] = time_ms(lambda: (mask.fill_(1), dist.fill_(2)),
+                                   iters)
+        r["bound"] = bound
+        del mask, dist
+        srt = torch.sort(idx).values
+        r["sorted_idx"] = queued_ms(lambda: ops.sparse_verify_arena(
+            cols, q, plane, srt, live, tau=3))
+        del cols, plane, idx, live, srt
+        print(f"plane verify {key} (n={n} T={T} m={m} b={b} W={W}): wrapper "
+              f"{r['wrapper']:.4f} ms, queued {r['queued']:.4f} ms; bound "
+              f"{bound:.4f} ms (bytes, {nbytes / 1e9:.3f} GB); write-only "
+              f"floor of the two outputs {r['write_floor']:.4f} ms; "
+              f"base_idx sorted (coalesced gathers) {r['sorted_idx']:.4f} ms "
+              f"queued", flush=True)
+        out[key] = r
+        torch.cuda.empty_cache()
+    return out
+
+
+def bench_rerank(ops, ref, gen, iters: int) -> dict:
+    Wp, n, m = 8, 13_107_200, 64
+    dev = torch.device("cuda")
+    pay = torch.randint(-2 ** 31, 2 ** 31, (Wp, n), dtype=torch.int32,
+                        device=dev, generator=gen)
+    q = torch.randint(-2 ** 31, 2 ** 31, (Wp, m), dtype=torch.int32,
+                      device=dev, generator=gen)
+    out = {}
+
+    def check(pay_, surv_):
+        got = ops.exact_rerank(pay_, q, surv_, metric="jaccard")
+        for r0 in range(0, m, 8):
+            want = ref.exact_rerank_ref(pay_, q[:, r0:r0 + 8],
+                                        surv_[r0:r0 + 8], "jaccard")
+            if not torch.equal(got[r0:r0 + 8].view(torch.int32),
+                               want.view(torch.int32)):
+                raise SystemExit(f"re-rank differs from the plain version, "
+                                 f"rows {r0}+")
+
+    for key, p in (("phase5", 19_203 / (m * n)), ("1pct", 0.01),
+                   ("dense", 1.0)):
+        surv = (torch.rand((m, n), device=dev, generator=gen) < p).to(
+            torch.int32)
+        check(pay, surv)
+        lanes = int(surv.sum())
+        cols = int(surv.any(dim=0).sum())
+        nbytes = 4 * (2 * m * n + Wp * m + Wp * cols)
+        r = both(lambda: ops.exact_rerank(pay, q, surv, metric="jaccard"),
+                 iters)
+        scores = torch.empty((m, n), dtype=torch.float32, device=dev)
+        r["write_floor"] = time_ms(lambda: scores.fill_(1.0), iters)
+        r["stream_floor"] = time_ms(lambda: scores.copy_(surv), iters)
+        r["bound"] = nbytes / PEAK_BYTES_PER_S * 1e3
+        del scores
+        extra = ""
+        if key == "phase5":
+            pay1, surv1 = pay[:, :-1].contiguous(), surv[:, :-1].contiguous()
+            check(pay1, surv1)
+            r["one_column_a_thread"] = time_ms(lambda: ops.exact_rerank(
+                pay1, q, surv1, metric="jaccard"), iters)
+            extra = (f"; n - 1 columns (one a thread) "
+                     f"{r['one_column_a_thread']:.3f} ms")
+            del pay1, surv1
+        del surv
+        print(f"re-rank {key} (Wp={Wp} n={n} m={m}, {lanes} survivors in "
+              f"{cols} columns): wrapper {r['wrapper']:.3f} ms, queued "
+              f"{r['queued']:.3f} ms; bound {r['bound']:.3f} ms (bytes, "
+              f"{nbytes / 1e9:.3f} GB); write-only floor "
+              f"{r['write_floor']:.3f} ms, stream floor "
+              f"{r['stream_floor']:.3f} ms{extra}", flush=True)
+        out[key] = r
+        torch.cuda.empty_cache()
     return out
 
 
@@ -188,7 +314,8 @@ def main() -> int:
                                          / "src"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--only", default="packed,flash")
+    ap.add_argument("--only", default="packed,plane,rerank,flash")
+    ap.add_argument("--slab-q", type=int, choices=(4, 8, 16))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs CUDA: this script times kernels on a GPU")
@@ -202,17 +329,22 @@ def main() -> int:
     _build.load_library()
     print(f"src {args.src}: kernels built in "
           f"{_build.BUILD_INFO['seconds']:.2f} s", flush=True)
+    if args.slab_q:
+        if not hasattr(ops, "_slab_queries"):
+            raise SystemExit(f"src {args.src}: no slab width to force")
+        ops._slab_queries = lambda T: args.slab_q
+        print(f"slab pass forced to {args.slab_q} queries", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     out = {}
-    only = set(args.only.split(","))
-    if "packed" in only:
-        out["packed"] = bench_packed(ops, ref, gen, args.iters)
+    only = args.only.split(",")
+    benches = {"packed": bench_packed, "plane": bench_plane,
+               "rerank": bench_rerank, "flash": bench_flash}
+    for key in only:
+        out[key] = benches[key](ops, ref, gen, args.iters)
         torch.cuda.empty_cache()
-    if "flash" in only:
-        out["flash"] = bench_flash(ops, ref, gen, args.iters)
-    print(json.dumps({"src": args.src, **{k: {str(kk): vv for kk, vv in
-                                               v.items()}
-                                           for k, v in out.items()}}))
+    print(json.dumps({"src": args.src, "slab_q": args.slab_q,
+                      **{k: {str(kk): vv for kk, vv in v.items()}
+                         for k, v in out.items()}}))
     return 0
 
 
