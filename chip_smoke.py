@@ -45,7 +45,23 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      prefill and decode times, peak memory, and the kernel timed on
      contiguous and on the model's strided views beside its bound, its
      plain version, the float32 route and
-     ``scaled_dot_product_attention``.
+     ``scaled_dot_product_attention``;
+  8. hubert-xlarge at full width and depth (48 layers, 16 heads of 80,
+     bidirectional; random weights from ``--seed``): one ``forward`` of
+     2 x 1,000 frame embeddings with the bf16 flash kernel's 48 launches
+     counted, its logits no farther from the f32 plain path than the bf16
+     plain path's, and the float32 route's within 2^-5 of it; the kernel
+     at that shape timed beside its bound, plain version and SDPA;
+  9. ``zbit_cws`` at the SIFT (2^22 rows, dim 128, L 32, b 4) and GIST
+     (2^18 rows, dim 960, L 64, b 8) shapes, rows/s, the first 4,096
+     rows held against the CPU run under a 4-ulp rule.
+
+Phase 2 also sweeps the flash kernel at head dim 80 on both routes.
+Phase 5 also puts half of its index's block bytes in the cold tier
+(pinned host memory, staged per query) and holds top-k, range and the
+re-rank against the all-hot bits at equal launches, with the staging
+time; runs one ``explain=True`` re-rank and traced calls (the Chrome
+trace goes to ``build/chip_smoke_trace.json``); phase 6 one cold call.
 
 Each phase prints its seconds.  The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
@@ -135,6 +151,21 @@ PACKED_COLUMN_MAJOR_MS = 21.637
 FLASH_SCALAR_MS = 3.540
 RERANK_TILED_MS = 4.732
 PLANE_TILED_MS = 0.756
+# hubert-xlarge (configs/hubert_xlarge.py: 48 layers, head dim 80,
+# bidirectional) on 2 clips of 1,000 frames, 20 s of audio at 50 Hz each:
+# up to 1,024 frames the model's non-causal flash path takes any length
+# (a longer one must be a multiple of its 1,024-key block, in the JAX
+# package as here).
+HUBERT_BATCH, HUBERT_FRAMES = 2, 1000
+# 0-bit CWS at the paper's SIFT and GIST geometries (configs/registry.py
+# in the JAX package: dim 128 / L 32 / b 4 and dim 960 / L 64 / b 8), the
+# rows cut to 2^22 and 2^18; the first CWS_CHECK_ROWS held against the
+# CPU.
+CWS_SHAPES = [("SIFT", 1 << 22, 128, 32, 4), ("GIST", 1 << 18, 960, 64, 8)]
+CWS_CHECK_ROWS = 4096
+# popcounts an SM issues a clock on Hopper (the integer pipe's rate for
+# POPC); times the SMs and the SM clock, the re-rank's popcount bound
+POPC_PER_SM_CLOCK = 16
 
 
 def fail(msg: str) -> None:
@@ -193,15 +224,23 @@ def arena_bound(groups, m: int, T: int):
     return bound_ms(nbytes, ops)
 
 
-def rerank_bound(Wp: int, n: int, m: int, cols: int, lanes: int):
+def rerank_bound(Wp: int, n: int, m: int, cols: int, lanes: int,
+                 popc_per_s: float):
     """Bound of one re-rank pass, from its compulsory bytes: the (m, n)
     survivor plane in and the scores out, the (Wp, m) query words, and
     the payload words of only the ``cols`` columns where a lane survives
     (a column with no survivor needs no payload); per surviving lane
     (``lanes``) Wp·(and + popc + add) plus ~8 float ops, Wp·(popc + add)
-    per such column for |B|, and a select per (query, column)."""
-    return bound_ms(4 * (2 * m * n + Wp * m + Wp * cols),
-                    lanes * (3 * Wp + 8) + 2 * Wp * cols + m * n)
+    per such column for |B|, and a select per (query, column).  The
+    operations take the longer of the 32-bit rate and the popcounts
+    alone at the card's popcount issue rate (``popc_per_s``: 16 a clock
+    an SM), which binds when most lanes survive."""
+    nbytes = 4 * (2 * m * n + Wp * m + Wp * cols)
+    ops = lanes * (3 * Wp + 8) + 2 * Wp * cols + m * n
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(ops / PEAK_OPS_PER_S, Wp * (lanes + cols) / popc_per_s) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def queued_ms(torch, fn, calls: int = 20) -> float:
@@ -331,7 +370,8 @@ def check_arena_kernels(torch, ops, ref, dev, gen, words, maxerr,
 def profile_window(torch, name: str, fn, calls: int = 3) -> None:
     """Where the time goes: ``torch.profiler`` over ``calls`` calls of
     ``fn``; prints the device's busy share of the window (kernel time
-    over wall time) and the kernels by device time."""
+    over wall time), the kernels by device time and the host ops by
+    self CPU time (a host that waits shows as a sync op there)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -354,6 +394,11 @@ def profile_window(torch, name: str, fn, calls: int = 3) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3 / calls:9.3f}  "
               f"x{e.count // calls:<4d} {e.key[:90]}", flush=True)
+    host = [e for e in prof.key_averages() if e.device_type != DeviceType.CUDA]
+    print("  host ops by self CPU time (ms per call):", ", ".join(
+        f"{e.key[:40]} {e.self_cpu_time_total / 1e3 / calls:.2f} "
+        f"x{e.count // calls}" for e in sorted(
+            host, key=lambda e: -e.self_cpu_time_total)[:6]), flush=True)
 
 
 def review_cell(torch, seed: int, dev):
@@ -621,7 +666,8 @@ def segmented_review(torch, args, dev, ops, ref, err, maxerr) -> dict:
         for r0 in slices], iters=3)
     lanes = int(surv.sum())
     cols = int(surv.any(dim=0).sum())
-    rk_bound, rk_by = rerank_bound(Wp, R, M_QUERIES, cols, lanes)
+    rk_bound, rk_by = rerank_bound(Wp, R, M_QUERIES, cols, lanes,
+                                   args.popc_per_s)
     print(f"exact_rerank (Wp={Wp}, n={R}, m={M_QUERIES}, {lanes} "
           f"survivors in {cols} columns): {rk_ms:.3f} ms, queued "
           f"{rk_queued:.3f} ms (the tiled kernel before it: "
@@ -630,7 +676,10 @@ def segmented_review(torch, args, dev, ops, ref, err, maxerr) -> dict:
           f"{rk_plain:.3f} ms", flush=True)
     print(f"max_memory_allocated: segmented path {peak / 2**30:.2f} GiB",
           flush=True)
-    del pays, surv, q_pay, d, scan, idx, store, plan
+    del pays, surv, q_pay, d, scan, store, plan
+    torch.cuda.empty_cache()
+    cold_tier(torch, idx, qs, qp, ops)
+    del idx
     torch.cuda.empty_cache()
     return {
         "sparse_verify_arena_packed": {
@@ -644,11 +693,188 @@ def segmented_review(torch, args, dev, ops, ref, err, maxerr) -> dict:
     }
 
 
+def same_answers(torch, a, b) -> bool:
+    """Two (top-k, range columns, re-rank) triples of the segmented path,
+    bit for bit: ids, dists, τ*, overflow, the column planes and the
+    scores' float32 bit patterns."""
+    (t0, c0, r0), (t1, c1, r1) = a, b
+    return (t0.tau == t1.tau and t0.overflow == t1.overflow == 0
+            and torch.equal(t0.ids, t1.ids) and torch.equal(t0.dists, t1.dists)
+            and c0.overflow == c1.overflow and np.array_equal(c0.ids, c1.ids)
+            and torch.equal(c0.mask, c1.mask) and torch.equal(c0.dist, c1.dist)
+            and r0.tau == r1.tau and torch.equal(r0.ids, r1.ids)
+            and torch.equal(r0.dists, r1.dists)
+            and torch.equal(r0.scores.view(torch.int32),
+                            r1.scores.view(torch.int32)))
+
+
+def cold_tier(torch, idx, qs, qp, ops) -> None:
+    """Phase 5b: the cold tier on phase 5's own index.  A budget of half
+    the block bytes demotes the least recently used block to pinned host
+    memory; top-k, range and the Jaccard re-rank must give the all-hot
+    bits at the same fused dispatches and kernel launches, staging the
+    cold block's bytes per fused query.  Then one explained re-rank and
+    traced calls (bit-identical, no extra dispatch; the Chrome trace to
+    build/), and a budget that promotes every block back."""
+    from repro_torch.core import (dispatch_stats, reset_dispatch_stats,
+                                  reset_tier_stats, tier_stats)
+    from repro_torch.obs import Span, attach, write_chrome
+
+    store = idx._refresh_store()
+
+    def window():
+        """The three calls with every count set to 0 before and read
+        after."""
+        torch.cuda.synchronize()
+        ops.reset_kernel_stats()
+        reset_dispatch_stats()
+        reset_tier_stats()
+        top = idx.topk_batch(qs, TOPK)
+        out = (top, idx.search_columns_batch(qs, top.tau),
+               idx.topk_batch(qs, TOPK, rerank="jaccard", q_payloads=qp))
+        torch.cuda.synchronize()
+        return out, ops.kernel_stats(), dispatch_stats(), tier_stats()
+
+    def median_ms(extra, n=5):
+        idx.topk_batch(qs, TOPK, **extra)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            idx.topk_batch(qs, TOPK, **extra)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), sorted(round(t, 2) for t in times)
+
+    rr_kw = dict(rerank="jaccard", q_payloads=qp)
+    hot, l_hot, d_hot, t_hot = window()
+    check(not any(t_hot.values()), f"the all-hot window staged {t_hot}")
+    hot_ms = {k: median_ms(kw) for k, kw in (("topk", {}), ("rerank", rr_kw))}
+    block_bytes = sum(blk.block_bytes for blk in store.blocks)
+    store.hot_bytes = block_bytes // 2
+    t0 = time.perf_counter()
+    store._enforce_budget()
+    demote_s = time.perf_counter() - t0
+    summary = store.tier_summary()
+    cold_blks = [blk for blk in store.blocks if blk.tier == "cold"]
+    print(f"cold tier: hot_bytes {store.hot_bytes} (half of {block_bytes} "
+          f"block bytes), demoted in {demote_s:.2f} s: {summary}; "
+          f"array_bytes {store.array_bytes()}, host_bytes "
+          f"{store.host_bytes()} (pinned: "
+          f"{all(b.cols_cold.is_pinned() for b in cold_blks)})", flush=True)
+    check(summary["cold_blocks"] >= 1, f"nothing went cold: {summary}")
+    torch.cuda.reset_peak_memory_stats()
+    cold, l_cold, d_cold, t_cold = window()
+    peak = torch.cuda.max_memory_allocated()
+    check(same_answers(torch, hot, cold),
+          "the cold tier's answers differ from the all-hot ones")
+    check(l_cold == l_hot and d_cold == d_hot,
+          f"cold launches {l_cold} / dispatches {d_cold} differ from hot "
+          f"{l_hot} / {d_hot}")
+    col_b = sum(b.col_bytes for b in cold_blks)
+    pay_b = sum(b.pay_bytes for b in cold_blks)
+    stagings = t_cold["prefetches"] // len(cold_blks)
+    check(stagings >= 1
+          and t_cold["prefetches"] == stagings * len(cold_blks)
+          and t_cold["staged_bytes"] == stagings * col_b + pay_b
+          and t_cold["staged_payload_bytes"] == pay_b,
+          f"tier_stats {t_cold}: want {stagings} x {col_b} column bytes and "
+          f"{pay_b} payload bytes")
+    print(f"cold tier exact: top-{TOPK} (tau*={cold[0].tau}), range columns "
+          f"and the Jaccard re-rank equal the all-hot bits; launches "
+          f"{l_cold} and dispatches {d_cold} equal; tier_stats {t_cold} "
+          f"({stagings} stagings of {col_b} column bytes, {pay_b} payload "
+          f"bytes); peak {peak / 2**30:.2f} GiB", flush=True)
+
+    for what, fn, nbytes in (("columns", store.stage, col_b),
+                             ("payloads", store.stage_payloads, pay_b)):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for slab in fn():
+                if slab is not None:
+                    slab.wait()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = statistics.median(times)
+        print(f"staging the cold {what}: {nbytes} bytes in {ms:.3f} ms "
+              f"median of 5 (CUDA events, host issue included), "
+              f"{nbytes / ms / 1e6:.2f} GB/s = {nbytes / ms / 64e6:.3f} of "
+              f"PCIe Gen5 x16's 64 GB/s", flush=True)
+    for k, kw in (("topk", {}), ("rerank", rr_kw)):
+        ms, times = median_ms(kw)
+        print(f"segmented topk_batch (rerank={kw.get('rerank')}), cold: "
+              f"{ms:.2f} ms median of 5 ({times}) against all-hot "
+              f"{hot_ms[k][0]:.2f} ({hot_ms[k][1]})", flush=True)
+    profile_window(torch, "segmented topk_batch, cold block staged",
+                   lambda: idx.topk_batch(qs, TOPK))
+    profile_window(torch, "segmented topk_batch + Jaccard re-rank, cold "
+                   "block staged", lambda: idx.topk_batch(qs, TOPK, **rr_kw))
+
+    # explain and tracing, on the cold index
+    plain = idx.topk_batch(qs, TOPK, **rr_kw)
+    res, ex = idx.topk_batch(qs, TOPK, explain=True, **rr_kw)
+    check(torch.equal(res.ids, plain.ids) and torch.equal(res.dists, plain.dists)
+          and torch.equal(res.scores.view(torch.int32),
+                          plain.scores.view(torch.int32))
+          and res.tau == plain.tau,
+          "explain=True re-rank differs from the plain call")
+    print(f"explain=True re-rank: bit-identical; {ex.summary().splitlines()[0]}"
+          f"; {len(ex.rungs)} rungs, dispatch {ex.dispatch}, tier {ex.tier}",
+          flush=True)
+    root = Span("request")
+    traced = []
+    for extra in ({}, rr_kw):
+        reset_dispatch_stats()
+        p = idx.topk_batch(qs, TOPK, **extra)
+        d_plain = dispatch_stats()
+        reset_dispatch_stats()
+        with attach(root):
+            t = idx.topk_batch(qs, TOPK, **extra)
+        check(dispatch_stats() == d_plain and torch.equal(t.ids, p.ids)
+              and torch.equal(t.dists, p.dists),
+              f"a traced call differs: dispatches {dispatch_stats()} against "
+              f"{d_plain}")
+        traced.append(t)
+    idx.use_arena = False
+    with attach(root):
+        idx.search_columns_batch(qs, hot[0].tau)
+    idx.use_arena = True
+    names = ("rung_dispatch", "tier_stage", "tier_stage_payloads",
+             "topk_readback", "rerank", "segment_fanout", "delta_scan")
+    missing = [n for n in names if root.find(n) is None]
+    check(not missing, f"spans missing from the trace: {missing}")
+    out = ROOT / "build" / "chip_smoke_trace.json"
+    out.parent.mkdir(exist_ok=True)
+    write_chrome([root], str(out))
+    print(f"traced calls: bit-identical, no extra dispatch; spans "
+          f"{list(names)} -> {out.relative_to(ROOT)}", flush=True)
+
+    store.hot_bytes = 10 ** 12
+    store._enforce_budget()
+    check(store.tier_summary()["cold_blocks"] == 0,
+          f"promotion left {store.tier_summary()}")
+    again, l_again, d_again, t_again = window()
+    check(same_answers(torch, hot, again) and l_again == l_hot
+          and not any(t_again.values()),
+          "answers after promotion differ from the all-hot ones")
+    print(f"promoted back: {store.tier_summary()}; answers equal", flush=True)
+    for k, kw in (("topk", {}), ("rerank", rr_kw)):   # hot, cold, hot
+        ms, times = median_ms(kw)
+        print(f"segmented topk_batch (rerank={kw.get('rerank')}), all-hot "
+              f"again: {ms:.2f} ms median of 5 ({times})", flush=True)
+
+
 def plane_fallback(torch, args, dev, ops, ref, err, maxerr) -> dict:
     """Phase 6: the CP geometry at 2^20 uniform rows, where b·S > 32 sends
     the suffix store through the plane-packed ``sparse_verify_arena``
     kernel.  Returns that kernel's JSON fields."""
-    from repro_torch.core import LinearScan, SegmentedIndex
+    from repro_torch.core import (LinearScan, SegmentedIndex,
+                                  reset_tier_stats, tier_stats)
     from repro_torch.core.hamming import pack_vertical_torch
     from repro_torch.core.segments import _root_plane
 
@@ -739,6 +965,24 @@ def plane_fallback(torch, args, dev, ops, ref, err, maxerr) -> dict:
           f" queries a slab pass): {ms:.3f} ms, queued {queued:.3f} ms (the "
           f"tiled kernel before it: {PLANE_TILED_MS} ms), bound {bnd:.3f} "
           f"ms ({by}), plain {plain_ms:.3f} ms", flush=True)
+
+    # one cold call: every block of the suffix stack (the plane group
+    # too) in pinned host memory, staged per query
+    store.hot_bytes = 0
+    store._enforce_budget()
+    ops.reset_kernel_stats()
+    reset_tier_stats()
+    rc = sfx.topk_batch(qs, TOPK)
+    torch.cuda.synchronize()
+    l_cold, t_cold = ops.kernel_stats(), tier_stats()
+    check(store.tier_summary()["hot_blocks"] == 0 and t_cold["prefetches"] > 0
+          and l_cold == l_sfx and rc.tau == rs.tau and rc.overflow == 0
+          and torch.equal(rc.ids, rs.ids) and torch.equal(rc.dists, rs.dists),
+          f"the CP cold call differs: launches {l_cold} against {l_sfx}, "
+          f"tier {t_cold}")
+    print(f"CP cold call: every block cold {store.tier_summary()}, staged "
+          f"{t_cold}; top-{TOPK} bit-identical at the same launches",
+          flush=True)
     return {"sparse_verify_arena": {
         "launches": l_sfx["sparse_verify_arena"]
         + l_full.get("sparse_verify_arena", 0),
@@ -838,6 +1082,248 @@ def check_flash_kernel(torch, ops, ref, dev, gen, err) -> tuple:
                               f"window={window} cap={cap}")
         checks += 1
     return checks, row_err
+
+
+def check_flash_d80(torch, ops, ref, dev, gen, err) -> int:
+    """Phase 2, flash at hubert-xlarge's head dim 80 against its plain
+    version: both routes (float32 scalar, bf16 tensor cores), causal and
+    bidirectional, ragged S up to 1,500 at hubert's 16 heads, and a
+    windowed, capped query block at an offset; bf16 also row by row.
+    Returns the number of shapes checked."""
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    checks = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [((2, 16, S, S), dict(causal=causal))
+                 for causal in (True, False) for S in (1, 130, 1000, 1500)]
+        cases.append(((2, 16, 300, 700), dict(causal=True, window=200,
+                                             cap=30.0, q_offset=400)))
+        for (B, H, Sq, Skv), kw in cases:
+            q = torch.randn((B, H, Sq, 80), device=dev, generator=gen).to(dtype)
+            k, v = (torch.randn((B, H, Skv, 80), device=dev, generator=gen)
+                    .to(dtype) for _ in range(2))
+            got = ops.flash_attention_fwd(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            e = float((got.float() - want.float()).abs().max())
+            err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e)
+            tol = tols[dtype]
+            what = f"flash_attention_fwd D=80 {dtype} Sq={Sq} Skv={Skv} {kw}"
+            check(got.shape == q.shape and bool(torch.isfinite(got).all())
+                  and torch.allclose(got.float(), want.float(), rtol=tol,
+                                     atol=tol), f"{what}: max err {e}")
+            if dtype == torch.bfloat16:
+                r = row_rel_err(got, want)
+                check(r <= FLASH_BF16_ROW_RTOL, f"{what}: row error {r:.4g}")
+            checks += 1
+    return checks
+
+
+def hubert_forward(torch, args, dev, ops, ref) -> dict:
+    """Phase 8: hubert-xlarge at full width and depth (48 layers, d_model
+    1280, 16 heads of 80, d_ff 5120; random weights from ``--seed``, f32
+    masters, bf16 compute): one ``forward`` of HUBERT_BATCH x
+    HUBERT_FRAMES frame embeddings with the flash kernel's launches
+    counted around it, its logits held against the plain
+    ``attn_impl="ref"`` paths as below; then the kernel
+    at hubert's attention shape beside its bound, plain version and
+    ``scaled_dot_product_attention``.  Returns the kernel's fields.
+
+    The logits are held two ways.  In float32 compute (the scalar kernel,
+    48 launches) against the f32 plain path within 2^-5 of the largest
+    logit.  In bf16 compute, the main path, the kernel path must lie no
+    farther from the f32 plain path than the bf16 plain path does (x
+    1.5), phase 7's second rule; the bf16 paths' distance from each
+    other is printed, not held to 2^-5: each rounds its activations at a
+    dozen places in each of 48 layers (sqrt(576) x 2^-9 ≈ 4.7% of the
+    logits' scale as a random walk, past 2^-5 ≈ 3.1%)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import cast_for_compute
+
+    cfg = get_config("hubert-xlarge")
+    B, S = HUBERT_BATCH, HUBERT_FRAMES
+    bf16 = torch.bfloat16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    params = M.init_params(gen, cfg, device="cuda")
+    params_c = cast_for_compute(params, bf16)
+    batch = {"embeds": torch.randn((B, S, cfg.d_model), device=dev,
+                                   generator=gen)}
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"hubert-xlarge: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads} x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}: {n_params} parameters (f32 masters, bf16 compute); "
+          f"{B} x {S} frame embeddings ({S / 50:.0f} s of audio at 50 Hz), "
+          "bidirectional", flush=True)
+    ops.reset_kernel_stats()                       # the path's window
+    t0 = time.perf_counter()
+    logits = M.forward(params_c, cfg, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = ops.kernel_stats()
+    check(launches == {"flash_attention_fwd": cfg.num_layers,
+                       "flash_attention_fwd:bf16": cfg.num_layers},
+          f"hubert flash launches {launches}, want {cfg.num_layers} of the "
+          "bf16 tensor-core kernel and no plain version")
+    check(logits.shape == (B, S, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "hubert logits")
+    cfg_ref = dataclasses.replace(cfg, attn_impl="ref")
+    lr = M.forward(params_c, cfg_ref, batch)
+    check(ops.kernel_stats() == launches, "the ref path launched the kernel")
+    l32 = M.forward(params, cfg_ref, batch)
+    # the float32 route through all 48 layers, against the f32 plain path
+    ops.reset_kernel_stats()
+    lk32 = M.forward(params, cfg, batch)
+    f32_launches = ops.kernel_stats()
+    check(f32_launches == {"flash_attention_fwd": cfg.num_layers,
+                           "flash_attention_fwd:f32": cfg.num_layers},
+          f"hubert f32 flash launches {f32_launches}")
+    tol32 = LOGIT_RTOL * float(l32.abs().max())
+    d32 = float((lk32 - l32).abs().max())
+    tol = LOGIT_RTOL * float(lr.abs().max())
+    diff = float((logits - lr).abs().max())
+    to32_k = float((logits - l32).abs().max())
+    to32_r = float((lr - l32).abs().max())
+    print(f"hubert forward: {first_s:.2f} s (first call), launches "
+          f"{launches}; f32 compute: kernel path vs plain path max |diff| "
+          f"{d32:.3g} (tolerance {tol32:.4f} = {LOGIT_RTOL} x max|logit|); "
+          f"bf16 compute: max|logit| {float(lr.abs().max()):.3f}, kernel vs "
+          f"plain path max |diff| {diff:.4f} = {diff / tol * LOGIT_RTOL:.4f} "
+          f"x max|logit| (reported: at 48 layers the two bf16 paths' own "
+          f"roundings part by more than {LOGIT_RTOL}), to the f32 plain "
+          f"path: kernel path {to32_k:.4f}, bf16 plain path {to32_r:.4f}",
+          flush=True)
+    check(d32 <= tol32, f"hubert f32 logits: kernel vs plain path {d32} > "
+                        f"{tol32}")
+    check(to32_k <= max(tol, 1.5 * to32_r),
+          "the hubert kernel path is farther from the f32 plain path than "
+          "bf16 compute explains")
+    del lr, l32, lk32
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        M.forward(params_c, cfg, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    fwd_ms = statistics.median(times)
+    print(f"hubert forward ({B} x {S} frames): {fwd_ms:.2f} ms median of 5 "
+          f"({sorted(round(t, 2) for t in times)}), "
+          f"{B * S / fwd_ms * 1e3:.0f} frames/s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    profile_window(torch, "hubert forward", lambda: M.forward(
+        params_c, cfg, batch), calls=2)
+
+    H, D = cfg.n_heads, cfg.head_dim
+    q, k, v = (torch.randn((B, H, S, D), device=dev, generator=gen).to(bf16)
+               for _ in range(3))
+    got = ops.flash_attention_fwd(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    r = row_rel_err(got, want)
+    check(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+          and r <= FLASH_BF16_ROW_RTOL, f"flash at hubert's shape: row "
+                                        f"error {r:.4g}")
+    ms = time_ms(torch, lambda: ops.flash_attention_fwd(q, k, v,
+                                                        causal=False))
+    queued = queued_ms(torch, lambda: ops.flash_attention_fwd(q, k, v,
+                                                              causal=False))
+    plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v,
+                                                             causal=False))
+    sdpa = F.scaled_dot_product_attention(q, k, v)
+    check(torch.allclose(sdpa.float(), want.float(), rtol=2e-2, atol=2e-2),
+          "scaled_dot_product_attention disagrees at hubert's shape")
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+    flops = 4 * B * H * S * S * D
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = 4 * B * H * S * D * 2 / PEAK_BYTES_PER_S * 1e3
+    bnd, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                    else "bytes")
+    print(f"flash_attention_fwd at hubert's shape (B={B} H={H} S={S} D={D} "
+          f"bf16 bidirectional): {ms:.4f} ms, queued {queued:.4f} ms "
+          f"({flops / queued / 1e9:.1f} TFLOP/s), bound {bnd:.4f} ms ({by}), "
+          f"plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+          f"{lib_ms:.4f} ms; max abs err "
+          f"{float((got.float() - want.float()).abs().max()):.4g}, row "
+          f"error {r:.4g}", flush=True)
+    del q, k, v, got, want, sdpa, params, params_c, logits, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches["flash_attention_fwd"], "ms": ms,
+            "queued_ms": queued, "plain_ms": plain_ms, "bound_ms": bnd,
+            "bound_by": by, "library_ms": lib_ms}
+
+
+def cws_unsure(torch, weights, params, ulps: int = 4):
+    """(batch, L) bool, on the CPU: the lanes where a ``floor`` argument
+    of ``zbit_cws`` lies within ``ulps`` float32 ulps of an integer, or
+    the two smallest ln a lie within ``ulps`` ulps of each other — where
+    one ulp of ``log`` between two devices may flip the symbol."""
+    r, c, beta = params
+    out = []
+    for lo in range(0, weights.shape[0], 256):
+        w = weights[lo:lo + 256]
+        logw = torch.where(w > 0, torch.log(torch.clamp(w, min=1e-30)),
+                           -torch.inf)
+        x = logw[:, None, :] / r + beta
+        fin = torch.isfinite(x)
+        xs = torch.where(fin, x, 0.0)
+        ulp = torch.nextafter(xs.abs(), torch.tensor(torch.inf)) - xs.abs()
+        near = (fin & ((xs - torch.round(xs)).abs() <= ulps * ulp)).any(-1)
+        lna = torch.log(c) - r * (torch.floor(x) - beta) - r
+        lna = torch.where(torch.isfinite(logw)[:, None, :], lna, torch.inf)
+        top2 = torch.topk(lna, 2, dim=-1, largest=False).values
+        fin2 = torch.isfinite(top2[..., 1])
+        top2 = torch.where(torch.isfinite(top2), top2, 0.0)
+        big = top2.abs().amax(-1)
+        gap = torch.nextafter(big, torch.tensor(torch.inf)) - big
+        out.append(near | (fin2 & (top2[..., 1] - top2[..., 0] <= ulps * gap)))
+    return torch.cat(out)
+
+
+def cws_sketching(torch, args, dev) -> None:
+    """Phase 9: ``zbit_cws`` at the paper's SIFT and GIST shapes
+    (CWS_SHAPES), weights and draws made on the card from ``--seed``:
+    rows/s by CUDA events, and the first CWS_CHECK_ROWS rows held against
+    the port's CPU run, equal except at the lanes ``cws_unsure`` names."""
+    from repro_torch.core import cws_params, zbit_cws
+
+    for name, n, dim, L, b in CWS_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(args.seed + dim)
+        if name == "SIFT":       # uint8-valued descriptors, a third zero
+            w = torch.randint(0, 256, (n, dim), generator=gen,
+                              device=dev).float()
+            w[torch.rand((n, dim), generator=gen, device=dev) < 1 / 3] = 0
+        else:                    # non-negative real-valued descriptors
+            w = torch.rand((n, dim), generator=gen, device=dev)
+        params = cws_params(L, dim, gen, device=dev)
+        zbit_cws(params, w[:CWS_CHECK_ROWS], L=L, b=b)      # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sk = zbit_cws(params, w, L=L, b=b)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        check(sk.shape == (n, L) and sk.dtype == torch.uint8
+              and int(sk.max()) < (1 << b), f"zbit_cws {name} output")
+        w_cpu = w[:CWS_CHECK_ROWS].cpu()
+        p_cpu = tuple(p.cpu() for p in params)
+        want = zbit_cws(p_cpu, w_cpu, L=L, b=b)
+        unsure = cws_unsure(torch, w_cpu, p_cpu)
+        differ = sk[:CWS_CHECK_ROWS].cpu() != want
+        check(not bool((differ & ~unsure).any()),
+              f"zbit_cws {name}: {int((differ & ~unsure).sum())} symbols "
+              "differ from the CPU run outside the ulp rule")
+        print(f"zbit_cws {name} (n={n} dim={dim} L={L} b={b}): {ms:.1f} ms, "
+              f"{n / ms * 1e3:.0f} rows/s; first {CWS_CHECK_ROWS} rows "
+              f"against the CPU: {int(differ.sum())} symbols differ, "
+              f"{int(unsure.sum())} of {unsure.numel()} lanes within 4 "
+              f"ulps", flush=True)
+        del w, sk, params
+        torch.cuda.empty_cache()
 
 
 def serving_smollm(torch, args, dev, ops, ref) -> dict:
@@ -1075,6 +1561,15 @@ def main() -> int:
                          text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     print(smi.stdout.strip().splitlines()[0], flush=True)   # name, power limit
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr}")
+    sm_mhz = float(clk.stdout.strip().splitlines()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    args.popc_per_s = POPC_PER_SM_CLOCK * n_sm * sm_mhz * 1e6
+    print(f"{n_sm} SMs, max SM clock {sm_mhz:.0f} MHz: popcount issue "
+          f"{args.popc_per_s / 1e12:.2f} T/s", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     _build.load_library()
@@ -1141,6 +1636,13 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"arena and re-rank kernels vs plain: {arena_checks} bit-exact "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    d80_checks = check_flash_d80(torch, ops, ref, dev, gen, err)
+    torch.cuda.synchronize()
+    print(f"flash kernel at head dim 80 vs plain: {d80_checks} shapes within "
+          f"2e-5 (f32) / 2e-2 (bf16), bf16 rows within "
+          f"{FLASH_BF16_ROW_RTOL} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     phase_done("2 (kernels against their plain versions)")
 
     # -- 3. main path at the Review size -------------------------------------
@@ -1341,6 +1843,10 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     flash = serving_smollm(torch, args, dev, ops, ref)
     phase_done("7 (serving smollm-135m, flash kernel)")
+    hubert = hubert_forward(torch, args, dev, ops, ref)
+    phase_done("8 (hubert-xlarge forward, flash at head dim 80)")
+    cws_sketching(torch, args, dev)
+    phase_done("9 (zbit_cws at the SIFT and GIST shapes)")
 
     kernels = [
         {"name": "sparse_verify_batch", "route": "cuda",
@@ -1374,7 +1880,8 @@ def main() -> int:
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn_kernel.py:93",
-         "max_abs_err": err["flash_attention_fwd"], **flash},
+         "max_abs_err": err["flash_attention_fwd"], **flash,
+         "head_dims": list(ops.FLASH_HEAD_DIMS), "d80_hubert": hubert},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """The paper's contribution on PyTorch: b-bit sketch trie similarity
-search, the segmented index on the suffix column store and b-bit
-minhash, with the verify, scan and re-rank kernels written in CUDA for
-Hopper."""
+search, the segmented index on the tiered suffix column store, b-bit
+minhash and 0-bit CWS, with the verify, scan and re-rank kernels written
+in CUDA for Hopper."""
 
 from .baselines import LinearScan
 from .bitvector import BitVector
@@ -9,7 +9,9 @@ from .bst import SketchIndex, build_bst, build_fst_style, build_louds, index_fro
 from .column_store import (ColumnStore, SuffixGeometry, geometry_for,
                            reset_tier_stats, tier_stats)
 from .cost_model import cost_multi, cost_single, frontier_capacities, sigs
-from .hamming import (pack_sets, pack_suffix_words, pack_suffix_words_torch,
+from .hamming import (hamming_naive, hamming_pairwise_naive,
+                      hamming_vertical, hamming_vertical_many, pack_sets,
+                      pack_suffix_words, pack_suffix_words_torch,
                       pack_vertical, pack_vertical_torch, unpack_vertical)
 from .search import (SearchResult, TopKResult, bucket_m, clear_searcher_cache,
                      get_searcher, make_batch_searcher, make_searcher, search,
@@ -17,7 +19,8 @@ from .search import (SearchResult, TopKResult, bucket_m, clear_searcher_cache,
 from .segments import (ColumnSearchResult, Segment, SegmentedIndex,
                        SegmentedSearchResult, clear_fused_cache,
                        dispatch_stats, reset_dispatch_stats, tombstone_bits)
-from .sketch import bbit_minhash, hash_params, jaccard, sketch_tokens
+from .sketch import (bbit_minhash, cws_params, hash_params, jaccard,
+                     minmax_kernel, sketch_tokens, zbit_cws)
 
 __all__ = [
     "BitVector", "SketchIndex", "build_bst", "build_louds", "build_fst_style",
@@ -32,5 +35,8 @@ __all__ = [
     "reset_dispatch_stats", "clear_fused_cache",
     "ColumnStore", "SuffixGeometry", "geometry_for", "tier_stats",
     "reset_tier_stats", "pack_suffix_words", "pack_suffix_words_torch",
-    "pack_sets", "bbit_minhash", "hash_params", "jaccard", "sketch_tokens",
+    "pack_sets", "hamming_naive", "hamming_pairwise_naive",
+    "hamming_vertical", "hamming_vertical_many",
+    "bbit_minhash", "hash_params", "jaccard", "sketch_tokens",
+    "zbit_cws", "cws_params", "minmax_kernel",
 ]

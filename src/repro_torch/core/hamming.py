@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.ref import popcount32
+
 WORD_BITS = 32
 
 
@@ -154,6 +156,43 @@ def pack_suffix_words_torch(sketches: torch.Tensor, b: int) -> torch.Tensor:
         shifts = torch.arange(S, dtype=torch.int64, device=s.device) + i * S
         out += (((s >> i) & 1) << shifts[None, :]).sum(dim=1)
     return _to_int32_view(out)
+
+
+def hamming_vertical(db_planes: torch.Tensor,
+                     q_planes: torch.Tensor) -> torch.Tensor:
+    """Hamming distances between every database sketch and one query
+    over vertical bit planes: db_planes (n, b, W), q_planes (b, W), the
+    uint32 words as int32 bit-views (``as_words``) -> (n,) int32.  The
+    OR over the b planes of the XOR marks the differing symbols; their
+    popcount is the distance."""
+    diff = db_planes ^ q_planes[None, :, :]                  # (n, b, W)
+    acc = diff[:, 0, :]
+    for i in range(1, diff.shape[1]):
+        acc = acc | diff[:, i, :]
+    return popcount32(acc).sum(dim=-1, dtype=torch.int32)
+
+
+def hamming_vertical_many(db_planes: torch.Tensor,
+                          q_planes: torch.Tensor) -> torch.Tensor:
+    """(n, b, W) x (m, b, W) -> (m, n) int32 distances, query by query."""
+    if q_planes.shape[0] == 0:
+        return torch.zeros((0, db_planes.shape[0]), dtype=torch.int32,
+                           device=db_planes.device)
+    return torch.stack([hamming_vertical(db_planes, q) for q in q_planes])
+
+
+def hamming_naive(db: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Symbol-by-symbol O(L) reference (the paper's naive approach):
+    db (n, L), q (L,) -> (n,) int32."""
+    db, q = torch.as_tensor(db), torch.as_tensor(q)
+    return (db != q[None, :]).sum(dim=-1, dtype=torch.int32)
+
+
+def hamming_pairwise_naive(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(m, L) x (n, L) -> (m, n) int32 distances, the brute-force
+    oracle."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return (a[:, None, :] != b[None, :, :]).sum(dim=-1, dtype=torch.int32)
 
 
 def pack_sets(sets, vocab: int) -> np.ndarray:

@@ -119,11 +119,14 @@ def _leaf_live(index: SketchIndex, id_live: torch.Tensor) -> torch.Tensor:
 
 
 def _traverse_frontier_batch(index: SketchIndex, qs: torch.Tensor, *,
-                             tau: int, caps: Tuple[int, ...]):
+                             tau: int, caps: Tuple[int, ...],
+                             level_widths: list | None = None):
     """The shared 2D-frontier descent (levels 1..depth): ``qs`` is (m, L)
     int32 and the level-ℓ frontier a (m, cap_ℓ) tensor compacted per
     query.  Returns the final frontier ``(ids, dists, valid)`` (each (m,
-    cap_depth)) plus per-query ``overflow``/``traversed`` (m,) int32."""
+    cap_depth)) plus per-query ``overflow``/``traversed`` (m,) int32.
+    ``level_widths``: optional list that each level's live frontier width
+    ((m,) int32) is appended to — the explain path's per-level report."""
     m = qs.shape[0]
     dev = qs.device
     ids = torch.zeros((m, 1), dtype=torch.int32, device=dev)
@@ -146,7 +149,10 @@ def _traverse_frontier_batch(index: SketchIndex, qs: torch.Tensor, *,
             c_ids.reshape(m, -1), c_dists.reshape(m, -1),
             c_valid.reshape(m, -1), caps[lev])
         overflow += ov
-        traversed += valid.sum(dim=1, dtype=torch.int32)
+        width = valid.sum(dim=1, dtype=torch.int32)
+        if level_widths is not None:
+            level_widths.append(width)
+        traversed += width
     return ids, dists, valid, overflow, traversed
 
 
@@ -285,20 +291,30 @@ def _search_trace(index: SketchIndex, q: torch.Tensor, *, tau: int,
 # combinations cannot grow it without limit.
 _SEARCHER_CACHE: Dict[tuple, tuple] = {}
 _SEARCHER_CACHE_CAP = 128
-_CACHE_STATS = {"hits": 0, "misses": 0}
+_CACHE_STATS = {"hits": 0, "misses": 0, "traces": 0}
+
+
+def _note_trace() -> None:
+    """Count one program build.  Torch runs eagerly and traces nothing:
+    the segmented index calls this where it builds a fused closure (a
+    rung, re-rank or frontier-width program), the events the JAX
+    package's ``traces`` counts as jit traces of those programs."""
+    _CACHE_STATS["traces"] += 1
 
 
 def searcher_cache_info() -> Dict[str, int]:
     """Process-level cache counters: ``misses`` counts new (index, τ,
-    caps, block_m, with_live) keys, ``hits`` reuses of a cached one."""
+    caps, block_m, with_live) keys and new fused-program keys, ``hits``
+    reuses of a cached one, and ``traces`` the fused closures built
+    (``_note_trace``)."""
     return {"hits": _CACHE_STATS["hits"], "misses": _CACHE_STATS["misses"],
-            "size": len(_SEARCHER_CACHE)}
+            "traces": _CACHE_STATS["traces"], "size": len(_SEARCHER_CACHE)}
 
 
 def clear_searcher_cache() -> None:
     _SEARCHER_CACHE.clear()
-    _CACHE_STATS["hits"] = 0
-    _CACHE_STATS["misses"] = 0
+    for key in _CACHE_STATS:
+        _CACHE_STATS[key] = 0
 
 
 def _as_queries(index: SketchIndex, q) -> torch.Tensor:

@@ -33,10 +33,11 @@ column-compressed — (m, R) over the *physical* rows currently held
 by global id.  Planes and top-k results are torch tensors on the index's
 device; column labels (``ColumnSearchResult.ids``) are host int64.
 
-This slice ports the bst backend with every column block hot.  The
-multi-index and sharded backends, ``ShardedSegmentedIndex``, the cold
-tier (``hot_bytes``), ``explain=True`` and its spans, ``cost_hint`` and
-the durability ``store`` binding raise ``NotImplementedError``.
+The bst backend is ported whole: the hot and cold tiers of the column
+store (``hot_bytes``), ``explain=True`` with its per-rung record, the
+``obs`` spans and ``cost_hint``.  The multi-index and sharded backends,
+``ShardedSegmentedIndex`` and the durability ``store`` binding raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import threading
+import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -52,18 +54,20 @@ import torch
 from ..kernels import ops
 from ..kernels.ops import DEFAULT_BLOCK_M
 from ..kernels.ref import BIG, RERANK_METRICS
+from ..obs.explain import QueryExplain, RungExplain
+from ..obs.trace import span as _obs_span
 from .bst import build_bst
-from .column_store import ColumnStore
-from .cost_model import frontier_capacities, tau_for_k
+from .column_store import ColumnStore, tier_stats
+from .cost_model import cost_single, frontier_capacities, tau_for_k
 from .distributed_search import topk_from_dists
 from .hamming import (as_words, n_words, pack_suffix_words_torch,
                       pack_vertical, pack_vertical_torch, resolve_device,
                       unpack_vertical)
 from .search import (CAP_MAX_DEFAULT, LADDER_CAP_MAX, TopKResult,
-                     _CACHE_STATS, _pad_rows, _pad_topk,
+                     _CACHE_STATS, _note_trace, _pad_rows, _pad_topk,
                      _traverse_frontier_batch, bucket_m, get_searcher,
-                     scatter_root_plane, select_topk_columns,
-                     select_topk_scores)
+                     scatter_root_plane, searcher_cache_info,
+                     select_topk_columns, select_topk_scores)
 
 BIG_I = int(BIG)
 
@@ -285,7 +289,8 @@ def _ladder_topk(columns_fn, n_live: int, b: int, L: int, qs: np.ndarray,
         return _empty_topk(m, int(k), device)
     _, tau, dist, col_ids, overflow = _ladder(columns_fn, n_live, b, L, qs,
                                               k, tau0)
-    ids, dists = topk_from_dists(dist.cpu().numpy(), int(k), ids=col_ids)
+    with _obs_span("topk_readback", cat="device", k=int(k)):
+        ids, dists = topk_from_dists(dist.cpu().numpy(), int(k), ids=col_ids)
     return TopKResult(ids=torch.from_numpy(ids).to(device),
                       dists=torch.from_numpy(dists).to(device),
                       tau=tau, overflow=overflow)
@@ -370,13 +375,73 @@ def _ladder_topk_rerank(columns_fn, payload_rows_fn, n_live: int, b: int,
                                                k, tau0)
     pay_vert = as_words(payload_rows_fn().T, device)
     _dispatch("rerank")
-    ids, dists, scores = _rerank_select(
-        dist, pay_vert, as_words(q_pay.T, device),
-        torch.from_numpy(col_ids.astype(np.int32)).to(device),
-        metric=metric, kk=kk, block_m=block_m)
+    with _obs_span("rerank", cat="device", metric=metric, kk=kk):
+        ids, dists, scores = _rerank_select(
+            dist, pay_vert, as_words(q_pay.T, device),
+            torch.from_numpy(col_ids.astype(np.int32)).to(device),
+            metric=metric, kk=kk, block_m=block_m)
     ids, dists, scores = _pad_topk_scores(ids, dists, scores, int(k))
     return TopKResult(ids=ids, dists=dists, tau=tau, overflow=int(overflow),
                       scores=scores)
+
+
+class _ExplainRecorder:
+    """Explain-mode bookkeeping: serves an index's column planes so that
+    every τ-ladder rung is recorded as a ``RungExplain`` (survivor
+    and pruned counts off the rung's own distance plane, dispatch
+    deltas, wall clock, frontier widths), and snapshots the process-wide
+    cache, dispatch and tier counters at construction so that ``finish``
+    reports the request's deltas.  ``columns`` returns the identical
+    planes, so an explained answer is bit-identical to a plain one.
+
+    The counters are process-wide, so explain is a single-request
+    diagnostic: queries on other threads would bleed into the deltas
+    (the counts read off the distance planes are always exact)."""
+
+    def __init__(self, index: "SegmentedIndex"):
+        self.t0 = time.perf_counter()
+        self.cache0 = searcher_cache_info()
+        self.disp0 = dispatch_stats()
+        self.tier0 = tier_stats()
+        self.rungs: List[RungExplain] = []
+        self._index = index
+
+    def columns(self, qs, tau):
+        """The index's ``_columns``, recorded as one rung."""
+        t0 = time.perf_counter()
+        d0 = dispatch_stats()
+        dist, col_ids, overflow = self._index._columns(qs, tau)
+        d1 = dispatch_stats()
+        dt = (time.perf_counter() - t0) * 1e3
+        surv = (dist < BIG_I).sum(dim=1).tolist()
+        frontier = self._index._frontier_widths(qs, tau)
+        cand = int(dist.shape[1])
+        self.rungs.append(RungExplain(
+            tau=int(tau), candidates=cand, survivors=surv,
+            pruned=[cand - s for s in surv], overflow=int(overflow),
+            dispatches={k: d1[k] - d0[k] for k in d1},
+            duration_ms=dt, frontier=frontier))
+        return dist, col_ids, overflow
+
+    def finish(self, *, op: str, backend: str, n_queries: int,
+               n_live: int, k: Optional[int], tau0: Optional[int],
+               tau_final: int, rerank: Optional[str]) -> QueryExplain:
+        cache1 = searcher_cache_info()
+        disp1 = dispatch_stats()
+        tier1 = tier_stats()
+        rerank_surv = None
+        if rerank is not None and self.rungs:
+            rerank_surv = list(self.rungs[-1].survivors)
+        return QueryExplain(
+            op=op, backend=backend, n_queries=int(n_queries),
+            n_live=int(n_live), k=k, tau0=tau0, tau_final=int(tau_final),
+            rungs=self.rungs, rerank=rerank,
+            rerank_survivors=rerank_surv,
+            cache={key: cache1[key] - self.cache0[key]
+                   for key in ("hits", "misses", "traces")},
+            dispatch={key: disp1[key] - self.disp0[key] for key in disp1},
+            tier={key: tier1[key] - self.tier0[key] for key in tier1},
+            duration_ms=(time.perf_counter() - self.t0) * 1e3)
 
 
 def _root_plane(stack, qs: torch.Tensor, tau: int, exact_prefix: bool):
@@ -434,8 +499,10 @@ class SegmentedIndex:
       layout:     "suffix" (default): packed per-segment suffix columns
                   in the ``ColumnStore``; "full": the full-length
                   ``_ColumnArena`` reference.
-      hot_bytes:  device budget of the cold tier; only None (everything
-                  on the device) is ported.
+      hot_bytes:  device budget of the column store (``None``: every
+                  block on the device); past it, the least recently used
+                  blocks go cold (host master copies, staged to the
+                  device per query) with bit-identical answers.
       payload_words: uint32 words per row payload bitmap
                   (``ceil(vocab / 32)``, see ``hamming.pack_sets``).
                   When set, every ``insert`` must supply matching
@@ -469,8 +536,6 @@ class SegmentedIndex:
             raise ValueError(f"layout must be one of {LAYOUTS}")
         if backend != "bst":
             raise _unported(f"backend={backend!r}")
-        if hot_bytes is not None:
-            raise _unported("hot_bytes (the cold tier)")
         self.device = resolve_device(device)
         self.L = int(L)
         self.b = int(b)
@@ -741,10 +806,20 @@ class SegmentedIndex:
         ``qs`` (m, L) uint8 -> ``ColumnSearchResult`` with (m, R)
         mask/dist planes over the physical columns plus the (R,)
         global-id labels.  One fused dispatch per capacity rung on the
-        arena path."""
-        if explain:
-            raise _unported("explain=True")
+        arena path.
+
+        ``explain=True`` returns ``(ColumnSearchResult, QueryExplain)``:
+        the identical planes plus the per-rung pruning record."""
         qs = self._as_batch(qs)
+        if explain:
+            rec = _ExplainRecorder(self)
+            dist, col_ids, overflow = rec.columns(qs, int(tau))
+            res = ColumnSearchResult(mask=dist <= tau, dist=dist,
+                                     ids=col_ids, overflow=overflow)
+            return res, rec.finish(
+                op="search", backend=self.backend, n_queries=qs.shape[0],
+                n_live=self.n_live, k=None, tau0=int(tau),
+                tau_final=int(tau), rerank=None)
         dist, col_ids, overflow = self._columns(qs, int(tau))
         return ColumnSearchResult(mask=dist <= tau, dist=dist, ids=col_ids,
                                   overflow=overflow)
@@ -759,23 +834,34 @@ class SegmentedIndex:
                      explain: bool = False) -> SegmentedSearchResult:
         """Range search on the opt-in dense contract: (m, L) queries ->
         (m, n_ids) mask and exact-distance planes over every id ever
-        assigned (BIG off-mask and on dead ids)."""
-        if explain:
-            raise _unported("explain=True")
+        assigned (BIG off-mask and on dead ids).
+
+        ``explain=True`` returns ``(SegmentedSearchResult,
+        QueryExplain)``: the identical planes plus the pruning record."""
         qs = self._as_batch(qs)
-        dist, col_ids, overflow = self._columns(qs, int(tau))
-        plane = torch.full((qs.shape[0], self.n_ids), BIG_I,
-                           dtype=torch.int32, device=self.device)
-        plane[:, torch.from_numpy(col_ids).to(self.device)] = dist
+        if explain:
+            rec = _ExplainRecorder(self)
+            plane, overflow = self._search_planes(
+                qs, int(tau), columns_fn=rec.columns)
+            res = SegmentedSearchResult(mask=plane <= tau, dist=plane,
+                                        overflow=overflow)
+            return res, rec.finish(
+                op="search", backend=self.backend, n_queries=qs.shape[0],
+                n_live=self.n_live, k=None, tau0=int(tau),
+                tau_final=int(tau), rerank=None)
+        plane, overflow = self._search_planes(qs, int(tau))
         return SegmentedSearchResult(mask=plane <= tau, dist=plane,
                                      overflow=overflow)
 
     def search(self, q: np.ndarray, tau: int,
                explain: bool = False) -> SegmentedSearchResult:
-        """Single-query ``search_batch`` (m=1 planes squeezed)."""
-        res = self.search_batch(np.asarray(q)[None], tau, explain=explain)
-        return SegmentedSearchResult(mask=res.mask[0], dist=res.dist[0],
-                                     overflow=res.overflow)
+        """Single-query ``search_batch`` (m=1 planes squeezed);
+        ``explain=True`` appends the ``QueryExplain`` record."""
+        out = self.search_batch(np.asarray(q)[None], tau, explain=explain)
+        res, ex = out if explain else (out, None)
+        res = SegmentedSearchResult(mask=res.mask[0], dist=res.dist[0],
+                                    overflow=res.overflow)
+        return (res, ex) if explain else res
 
     def topk_batch(self, qs: np.ndarray, k: int,
                    tau0: Optional[int] = None, *,
@@ -795,10 +881,16 @@ class SegmentedIndex:
         bitmaps exactly against ``q_payloads`` ((m, Wp) uint32) and
         selects the k largest (score, -id) — ``TopKResult.scores``
         carries the scores, ids/dists follow score order, pads are
-        (-1, BIG, -1.0).  Requires ``payload_words``."""
-        if explain:
-            raise _unported("explain=True")
+        (-1, BIG, -1.0).  Requires ``payload_words``.
+
+        ``explain=True`` returns ``(TopKResult, QueryExplain)``: a
+        bit-identical result plus the per-rung pruning record.  Explain
+        serves through the shared ladder over the same column planes (the
+        path ``use_arena=False`` selects with), plus one frontier-width
+        launch per rung."""
         qs = self._as_batch(qs)
+        if explain:
+            return self._explain_topk(qs, int(k), tau0, rerank, q_payloads)
         if rerank is not None:
             q_pay = self._check_rerank(rerank, q_payloads, qs.shape[0])
             if self.use_arena:
@@ -817,23 +909,45 @@ class SegmentedIndex:
              rerank: Optional[str] = None,
              q_payloads: Optional[np.ndarray] = None,
              explain: bool = False) -> TopKResult:
-        """Single-query ``topk_batch`` (row 0)."""
+        """Single-query ``topk_batch`` (row 0); ``explain=True`` appends
+        the ``QueryExplain`` record."""
         qp = None
         if q_payloads is not None:
             qp = np.asarray(q_payloads, np.uint32)
             if qp.ndim == 1:
                 qp = qp[None, :]
-        res = self.topk_batch(np.asarray(q)[None], k, tau0=tau0,
+        out = self.topk_batch(np.asarray(q)[None], k, tau0=tau0,
                               rerank=rerank, q_payloads=qp, explain=explain)
-        return TopKResult(ids=res.ids[0], dists=res.dists[0], tau=res.tau,
-                          overflow=res.overflow,
-                          scores=(None if res.scores is None
-                                  else res.scores[0]))
+        res, ex = out if explain else (out, None)
+        res = TopKResult(ids=res.ids[0], dists=res.dists[0], tau=res.tau,
+                         overflow=res.overflow,
+                         scores=(None if res.scores is None
+                                 else res.scores[0]))
+        return (res, ex) if explain else res
 
     def cost_hint(self, op: str, *, k: Optional[int] = None,
                   tau: Optional[int] = None, rows: int = 1) -> float:
-        """The admission controller's cost estimate: not ported yet."""
-        raise _unported("cost_hint")
+        """Cost-model estimate of one request against the current corpus
+        (paper Appendix A, Eq. 2) — the admission controller's currency.
+        ``op``:
+
+          * ``"topk"``   — cost of the τ ladder seeded by
+            ``tau_for_k(b, L, n, k)``;
+          * ``"search"`` — cost at the fixed ``tau``;
+          * ``"write"``  — ``rows`` delta appends / tombstone flips,
+            priced as τ=0 probes.
+
+        Pure host arithmetic, monotone in k/τ/rows, never raises."""
+        n = max(float(self.n_live), 1.0)
+        if op == "write":
+            return max(float(rows), 1.0) \
+                * max(cost_single(self.b, self.L, 0, n), 1e-6)
+        if op == "search":
+            t = min(max(int(tau) if tau is not None else 0, 0), self.L)
+        else:
+            t = tau_for_k(self.b, self.L, n,
+                          max(int(k) if k is not None else 1, 1))
+        return max(cost_single(self.b, self.L, t, n), 1e-6)
 
     # -- accounting ------------------------------------------------------
 
@@ -976,7 +1090,9 @@ class SegmentedIndex:
         qs_t = self._q_tensor(qs)
         for seg in self.segments:
             if seg.live.any():
-                dist, ov = self._search_segment(seg, qs_t, tau)
+                with _obs_span("segment_fanout", cat="device",
+                               serial=seg.serial, tau=tau):
+                    dist, ov = self._search_segment(seg, qs_t, tau)
                 overflow += ov
             else:
                 dist = torch.full((m, seg.n), BIG_I, dtype=torch.int32,
@@ -987,7 +1103,9 @@ class SegmentedIndex:
         if nd:
             q_vert = ops.to_lane_major(pack_vertical_torch(qs_t, self.b))
             _dispatch("fanout")
-            d = ops.hamming_distances(self._delta_planes(), q_vert)[:, :nd]
+            with _obs_span("delta_scan", cat="device", rows=nd):
+                d = ops.hamming_distances(self._delta_planes(),
+                                          q_vert)[:, :nd]
             live = torch.from_numpy(self._delta_live).to(self.device)
             dists.append(torch.where(live[None, :] & (d <= tau), d, BIG_I))
             col_ids.append(self._delta_ids)
@@ -997,6 +1115,20 @@ class SegmentedIndex:
                     np.zeros((0,), np.int64), 0)
         return torch.cat(dists, dim=1), np.concatenate(col_ids), overflow
 
+    def _search_planes(self, qs: np.ndarray, tau: int,
+                       columns_fn=None) -> Tuple[torch.Tensor, int]:
+        """(m, L) queries -> ((m, n_ids) int32 distance plane over every
+        id ever assigned, BIG on non-results; total overflow): the column
+        planes scattered onto the global-id axis.  ``columns_fn``
+        overrides the column source (the explain path's recorder)."""
+        if columns_fn is None:
+            columns_fn = self._columns
+        dist, col_ids, overflow = columns_fn(qs, tau)
+        plane = torch.full((qs.shape[0], self.n_ids), BIG_I,
+                           dtype=torch.int32, device=self.device)
+        plane[:, torch.from_numpy(col_ids).to(self.device)] = dist
+        return plane, overflow
+
     def _columns(self, qs: np.ndarray,
                  tau: int) -> Tuple[torch.Tensor, np.ndarray, int]:
         """Route to the fused path or the per-segment reference fan-out
@@ -1004,6 +1136,87 @@ class SegmentedIndex:
         if self.use_arena:
             return self._fused_columns(qs, tau)
         return self._search_columns(qs, tau)
+
+    # -- query explain ---------------------------------------------------
+
+    def _explain_topk(self, qs: np.ndarray, k: int, tau0: Optional[int],
+                      rerank: Optional[str], q_payloads):
+        """The explain-mode kNN: the shared τ ladder over this index's
+        column planes, each rung recorded.  Its ladder schedule,
+        planes and selections are those the serving paths are
+        bit-identical to (``_ladder_topk`` against ``_fused_topk``,
+        ``_ladder_topk_rerank`` against ``_fused_topk_rerank``), so the
+        result is the ``explain=False`` one."""
+        rec = _ExplainRecorder(self)
+        columns_fn = rec.columns
+        if rerank is not None:
+            q_pay = self._check_rerank(rerank, q_payloads, qs.shape[0])
+            res = _ladder_topk_rerank(
+                columns_fn, self._payload_rows, self.n_live, self.b,
+                self.L, self.block_m, qs, k, tau0, rerank, q_pay,
+                self.device)
+        else:
+            if q_payloads is not None:
+                raise ValueError("q_payloads supplied without rerank=")
+            res = _ladder_topk(columns_fn, self.n_live, self.b, self.L,
+                               qs, k, tau0, self.device)
+        return res, rec.finish(
+            op="topk", backend=self.backend, n_queries=qs.shape[0],
+            n_live=self.n_live, k=int(k),
+            tau0=None if tau0 is None else int(tau0),
+            tau_final=int(res.tau), rerank=rerank)
+
+    def _frontier_widths(self, qs: np.ndarray,
+                         tau: int) -> Optional[List[List[int]]]:
+        """Per-query, per-trie-level live frontier widths at this τ,
+        summed across the segment stack ((m, L); levels past a segment's
+        collapse depth ℓ_s contribute nothing).  Explain only: one extra
+        program run, outside the dispatch ledger."""
+        if not self.segments:
+            return None
+        m = qs.shape[0]
+        qs_t = self._q_tensor(qs)
+        mb = bucket_m(m)
+        if mb != m:
+            qs_t = _pad_rows(qs_t, mb)
+        return self._widths_fn(int(tau))(qs_t)[:m].tolist()
+
+    def _widths_fn(self, tau: int):
+        """The frontier-width program, cached beside the fused programs
+        (same ``_fused_id`` scope, so the stale-generation purge of
+        ``_fused_fn`` drops it too)."""
+        key = (self.backend, self.layout, self._fused_id,
+               self._seg_serials(), "widths", tau, self.block_m)
+        fn = _FUSED_CACHE.get(key)
+        if fn is None:
+            fn = self._build_widths(tau)
+            while len(_FUSED_CACHE) >= _FUSED_CACHE_CAP:
+                _FUSED_CACHE.pop(next(iter(_FUSED_CACHE)))
+            _FUSED_CACHE[key] = fn
+        return fn
+
+    def _build_widths(self, tau: int):
+        """Every segment's frontier descent with the per-level width
+        taps, summed into an (m, L) plane (the traversal arithmetic of
+        the fused programs' first half)."""
+        _note_trace()
+        stack = [(seg.index, frontier_capacities(seg.index.t, self.b, tau,
+                                                 CAP_MAX_DEFAULT))
+                 for seg in self.segments]
+        L = self.L
+
+        def run(qs):
+            per_level = torch.zeros((qs.shape[0], L), dtype=torch.int32,
+                                    device=qs.device)
+            for ix, caps in stack:
+                widths: List[torch.Tensor] = []
+                _traverse_frontier_batch(ix, qs, tau=tau, caps=caps,
+                                         level_widths=widths)
+                if widths:
+                    w = torch.stack(widths, dim=-1)        # (m, depth_s)
+                    per_level[:, :w.shape[-1]] += w
+            return per_level
+        return run
 
     def _search_segment(self, seg: Segment, qs_t: torch.Tensor,
                         tau: int) -> Tuple[torch.Tensor, int]:
@@ -1106,6 +1319,7 @@ class SegmentedIndex:
         fn = _FUSED_CACHE.get(key)
         if fn is None:
             fn = build()
+            _note_trace()
             while len(_FUSED_CACHE) >= _FUSED_CACHE_CAP:
                 _FUSED_CACHE.pop(next(iter(_FUSED_CACHE)))
             _FUSED_CACHE[key] = fn
@@ -1189,9 +1403,14 @@ class SegmentedIndex:
         """The suffix-layout program: the same traversal, ONE root plane
         carrying exact prefix distances, one verify launch per geometry
         group (packed words, or plane columns when b·S > 32), the
-        full-length delta scan, and the selection.  The groups' columns
-        come back in group order; a static inverse permutation restores
-        stack order, on which the selection's tie order depends."""
+        full-length delta scan, and the selection.  Hot columns are
+        closure constants; a group's cold columns arrive as a staging
+        slab (``ColumnStore.stage``) that takes their places in the
+        group's stack order, and the stream waits for the slab's copies
+        only right before the group's verify.  The groups' columns come
+        back in group order; a static inverse permutation restores stack
+        order (on which the selection's tie order depends) where the
+        groups interleave."""
         store = self._refresh_store()
         plan = store.plan()
         stack = self._stack_constants(tau, rung)
@@ -1200,22 +1419,24 @@ class SegmentedIndex:
         perms = [torch.from_numpy(g.perm).to(self.device) for g in plan]
         inv = _stack_inverse(plan, self.device)
 
-        def run(qs, live_sealed, delta_vert, delta_live, delta_gids):
+        def run(qs, live_sealed, staged, delta_vert, delta_live,
+                delta_gids):
             base_plane, overflow = _root_plane(stack, qs, tau, True)
             parts: List[torch.Tensor] = []
-            for g, perm in zip(plan, perms):
+            for g, perm, slab in zip(plan, perms, staged):
                 live_g = live_sealed[perm]
                 S = g.geom.suffix_len
+                cols = store.assemble(g, slab)
                 if g.geom.packed:
                     qw = pack_suffix_words_torch(qs[:, L - S:], b_)
                     hm, d = ops.sparse_verify_arena_packed(
-                        g.cols_hot, qw, base_plane, g.base_idx, live_g,
+                        cols, qw, base_plane, g.base_idx, live_g,
                         b=b_, S=S, tau=tau, block_m=block_m)
                 else:
                     qv = ops.to_lane_major(pack_vertical_torch(qs[:, L - S:],
                                                                b_))
                     hm, d = ops.sparse_verify_arena(
-                        g.cols_hot, qv, base_plane, g.base_idx, live_g,
+                        cols, qv, base_plane, g.base_idx, live_g,
                         tau=tau, block_m=block_m)
                 parts.append(torch.where(hm > 0, d, BIG_I))
             sealed = (torch.cat(parts, dim=1) if parts else torch.zeros(
@@ -1258,26 +1479,43 @@ class SegmentedIndex:
                 torch.from_numpy(delta_gids).to(self.device))
 
     def _fused_call(self, kind: str, qs: np.ndarray, tau: int,
-                    kk: Optional[int] = None):
+                    kk: Optional[int] = None, before_dispatch=None):
         """Dispatch ONE fused program per capacity rung: pads the query
         axis to its power-of-two bucket by repeating the last row (the
         overflow sums over the padded bucket, as in the JAX package),
         assembles the bucketed delta args, and escalates the
-        frontier-capacity rung until the traversal is exact."""
+        frontier-capacity rung until the traversal is exact.
+        ``before_dispatch`` runs once the call's uploads and staging are
+        queued, before the first rung's dispatch."""
         m = qs.shape[0]
         mb = bucket_m(m)
         qs_t = self._q_tensor(qs)
         if mb != m:
             qs_t = _pad_rows(qs_t, mb)
-        live = (self._refresh_store().live if self._suffix_store()
-                else self._refresh_arena().live)
-        args = (live,) + self._delta_args()
+        delta = self._delta_args()
+        if self._suffix_store():
+            store = self._refresh_store()
+            # copy-ahead: the cold blocks' slabs are staged ONCE per query,
+            # before the rung loop; the copies overlap the first rung's
+            # traversal, and capacity retries reuse the same slabs.  The
+            # query's own uploads go first: queued behind a staging copy
+            # on the copy engine, one would hold up the stream.
+            args = (store.live, store.stage()) + delta
+        else:
+            args = (self._refresh_arena().live,) + delta
+        if before_dispatch is not None:
+            before_dispatch()
         rung = 0
         while True:
-            fn = self._fused_fn(kind, tau, rung, kk)
-            _dispatch("fused")
-            out = fn(qs_t, *args)
-            if int(out[-1]) == 0 or self._fused_saturated(rung):
+            # the span covers the fetch or build, the dispatch and the
+            # steering scalar's read (the sync where device time surfaces)
+            with _obs_span("rung_dispatch", cat="device", kind=kind,
+                           tau=tau, rung=rung):
+                fn = self._fused_fn(kind, tau, rung, kk)
+                _dispatch("fused")
+                out = fn(qs_t, *args)
+                done = int(out[-1]) == 0 or self._fused_saturated(rung)
+            if done:
                 return out
             rung += 1
 
@@ -1316,7 +1554,8 @@ class SegmentedIndex:
             if int(min_surv) >= kk or tau >= self.L:
                 break
             tau = min(self.L, max(tau + 1, 2 * tau))
-        dists, ids = _pad_topk(dists[:m], ids[:m], int(k))
+        with _obs_span("topk_readback", cat="device", k=int(k)):
+            dists, ids = _pad_topk(dists[:m], ids[:m], int(k))
         return TopKResult(ids=ids, dists=dists, tau=tau, overflow=int(ov))
 
     # -- exact re-rank ---------------------------------------------------
@@ -1372,10 +1611,11 @@ class SegmentedIndex:
 
     def _build_rerank(self, metric: str, kk: int):
         """The stage-2 program: the (Wp, R) payload plane in global column
-        order (sealed payloads ordered once, here; the delta's bucketed
-        plane appended per call), the exact re-rank kernel over the
-        stage-1 survivors, and the (score desc, id asc) selection — the
-        dist plane never leaves the device between the stages."""
+        order (the hot payloads ordered once, here; a cold group's staged
+        payloads and the delta's bucketed plane appended per call), the
+        exact re-rank kernel over the stage-1 survivors, and the (score
+        desc, id asc) selection — the dist plane never leaves the device
+        between the stages."""
         block_m = self.block_m
         if self._suffix_store():
             store = self._refresh_store()
@@ -1384,18 +1624,29 @@ class SegmentedIndex:
             # the inverse permutation the dist program applies: payload
             # columns land in dist order
             inv = _stack_inverse(plan, self.device)
-            pays0 = (torch.cat([g.pays_hot for g in plan], dim=-1) if plan
-                     else torch.zeros((self.payload_words, 0),
-                                      dtype=torch.int32, device=self.device))
-            if inv is not None:
-                pays0 = pays0.index_select(1, inv)
-        else:
-            if self._pay_arena is None:
-                self._pay_arena = _PayloadArena(self.payload_words,
-                                                self.device)
-            pays0 = self._pay_arena.refresh(self.segments,
-                                            self._seg_serials())
-            gids0 = self._refresh_arena().gids
+            empty = torch.zeros((self.payload_words, 0), dtype=torch.int32,
+                                device=self.device)
+
+            def sealed_pays(staged_pays):
+                pays = (torch.cat([store.assemble(g, slab, payloads=True)
+                                   for g, slab in zip(plan, staged_pays)],
+                                  dim=-1) if plan else empty)
+                return pays if inv is None else pays.index_select(1, inv)
+            all_hot = not any(g.cold_blocks for g in plan)
+            pays0 = sealed_pays((None,) * len(plan)) if all_hot else None
+
+            def run(dist, q_pay, staged_pays, delta_pay, delta_gids):
+                sealed = pays0 if pays0 is not None else sealed_pays(
+                    staged_pays)
+                pays = torch.cat([sealed, delta_pay], dim=-1)
+                col_ids = torch.cat([gids0, delta_gids])
+                return _rerank_select(dist, pays, q_pay, col_ids,
+                                      metric=metric, kk=kk, block_m=block_m)
+            return run
+        if self._pay_arena is None:
+            self._pay_arena = _PayloadArena(self.payload_words, self.device)
+        pays0 = self._pay_arena.refresh(self.segments, self._seg_serials())
+        gids0 = self._refresh_arena().gids
 
         def run(dist, q_pay, delta_pay, delta_gids):
             pays = torch.cat([pays0, delta_pay], dim=-1)
@@ -1410,17 +1661,25 @@ class SegmentedIndex:
         """The fused two-stage ladder: stage 1 runs the kind="dist" fused
         program per τ rung (the survivor plane stays on the device; only
         the two ladder scalars cross), then stage 2 is ONE re-rank
-        dispatch for the whole request."""
+        dispatch for the whole request.  Cold blocks' payloads are staged
+        once, behind stage 1's first uploads, so that their copy overlaps
+        its traversal."""
         m = qs.shape[0]
         n_live = self.n_live
         if n_live == 0:
             return _empty_topk_rerank(m, int(k), self.device)
+        staged: List[tuple] = []
+
+        def stage_payloads():
+            if self._suffix_store() and not staged:
+                staged.append(self._refresh_store().stage_payloads())
         kk = min(int(k), n_live)
         tau = tau0 if tau0 is not None else tau_for_k(self.b, self.L,
                                                       n_live, kk)
         tau = min(max(int(tau), 0), self.L)
         while True:
-            dist, min_surv, ov = self._fused_call("dist", qs, tau)
+            dist, min_surv, ov = self._fused_call(
+                "dist", qs, tau, before_dispatch=stage_payloads)
             if int(min_surv) >= kk or tau >= self.L:
                 break
             tau = min(self.L, max(tau + 1, 2 * tau))
@@ -1434,9 +1693,10 @@ class SegmentedIndex:
         delta_gids = self._delta_args()[2]
         fn = self._rerank_fn(metric, kk)
         _dispatch("rerank")
-        ids, dists, scores = fn(dist, as_words(qp.T, self.device), delta_pay,
-                                delta_gids)
-        ids, dists, scores = _pad_topk_scores(ids[:m], dists[:m],
-                                              scores[:m], int(k))
+        with _obs_span("rerank", cat="device", metric=metric, kk=kk):
+            ids, dists, scores = fn(dist, as_words(qp.T, self.device),
+                                    *staged, delta_pay, delta_gids)
+            ids, dists, scores = _pad_topk_scores(ids[:m], dists[:m],
+                                                  scores[:m], int(k))
         return TopKResult(ids=ids, dists=dists, tau=tau, overflow=int(ov),
                           scores=scores)

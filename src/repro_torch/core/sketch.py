@@ -1,16 +1,26 @@
-"""Similarity-preserving hashing: b-bit minhash (paper §I, §VI-A).
+"""Similarity-preserving hashing: b-bit minhash and 0-bit CWS (paper §I,
+§VI-A).
 
-``bbit_minhash`` [Li & König, WWW'10] maps sets to length-L strings over
-Σ=[0, 2^b): L independent min-wise hashes ``h_j(x) = mix32(a_j·x + c_j)``
-over uint32 arithmetic, keeping the low b bits of each minimum — the
-*b-bit sketches* the index consumes.  Collision probability per
-position ≈ J + (1-J)/2^b for Jaccard J.
+Both map vectorial data to length-L strings over Σ=[0, 2^b) — the
+*b-bit sketches* the index consumes.
 
-The JAX package draws (a, c) from a ``jax.random`` key, whose bits torch
-cannot reproduce; here the hash parameters are explicit (L,) tensors, so
-one set of parameters gives the same sketches in both packages.
-``hash_params`` draws fresh ones from a ``torch.Generator`` in the same
-ranges (a odd in [1, 2^31), c in [0, 2^31)).
+* ``bbit_minhash`` [Li & König, WWW'10]: for sets, L independent
+  min-wise hashes ``h_j(x) = mix32(a_j·x + c_j)`` over uint32
+  arithmetic, keeping the low b bits of each minimum.  Collision
+  probability per position ≈ J + (1-J)/2^b for Jaccard J.
+* ``zbit_cws`` [Li, KDD'15]: 0-bit consistent weighted sampling for
+  non-negative weighted vectors (the paper's SIFT and GIST datasets);
+  per hash the Ioffe-CWS argmin feature id i* is kept and its low b bits
+  form the character.  Approximates the min-max kernel
+  (``minmax_kernel``).
+
+The JAX package draws its parameters from a ``jax.random`` key, whose
+bits torch cannot reproduce; here they are explicit tensors, so one set
+of parameters gives the same sketches in both packages.  ``hash_params``
+draws minhash's (a, c) from a ``torch.Generator`` in the same ranges (a
+odd in [1, 2^31), c in [0, 2^31)), ``cws_params`` the CWS draws (r, c,
+β) in the same distributions (Gamma(2, 1) as the sum of two Exp(1), and
+U(0, 1)).
 
 uint32 multiplies wrap mod 2^32, and a product of two 32-bit values
 reaches 2^64, past int64.  ``_mul32`` splits one factor into 16-bit
@@ -115,3 +125,77 @@ def sketch_tokens(params, tokens: torch.Tensor, *, L: int,
     tokens = torch.as_tensor(tokens)
     return bbit_minhash(params, torch.clamp(tokens, min=0), tokens >= 0,
                         L=L, b=b)
+
+
+def cws_params(L: int, dim: int, generator: torch.Generator | None = None,
+               device="cpu") -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Draw the Ioffe-CWS parameters ``(r, c, beta)``: (L, dim) float32
+    tensors, r and c ~ Gamma(2, 1) (each the sum of two Exp(1) draws, as
+    in the JAX package) and beta ~ U(0, 1)."""
+    def gamma2():
+        e = torch.empty((2, L, dim), dtype=torch.float32, device=device)
+        return e.exponential_(generator=generator).sum(0)
+    r = gamma2()
+    c = gamma2()
+    beta = torch.rand((L, dim), generator=generator, dtype=torch.float32,
+                      device=device)
+    return r, c, beta
+
+
+# (rows, L, dim) float32 elements of one chunk of the CWS intermediate
+# (256 MiB each; the chunk holds a few of them at once)
+CWS_CHUNK_ELEMS = 1 << 26
+
+
+def zbit_cws(params, weights: torch.Tensor, *, L: int, b: int) -> torch.Tensor:
+    """0-bit consistent weighted sampling of non-negative vectors.
+
+    params:  ``(r, c, beta)``, (L, dim) float32 tensors or arrays
+             (``cws_params`` draws them);
+    weights: (batch, dim) float, >= 0;
+    returns (batch, L) uint8 sketches over [0, 2^b), on ``weights``'
+    device.
+
+    Ioffe-CWS per hash j and feature i, in float32 as the JAX package
+    computes it: t = floor(ln w_i / r + beta); ln y = r (t - beta);
+    ln a = ln c - ln y - r; the character is the low b bits of
+    k* = argmin_i ln a (the first on ties), features with w = 0 excluded
+    (+inf).  Rows are processed in chunks of at most ``CWS_CHUNK_ELEMS``
+    (rows·L·dim) elements, so the (batch, L, dim) intermediate stays
+    bounded; the chunking changes no result (rows are independent).
+    """
+    weights = torch.as_tensor(weights)
+    dev = weights.device
+    r, c, beta = (torch.as_tensor(p if isinstance(p, torch.Tensor)
+                                  else np.array(p, dtype=np.float32)).to(
+        device=dev, dtype=torch.float32) for p in params)
+    batch, dim = weights.shape
+    if r.shape != (L, dim) or c.shape != (L, dim) or beta.shape != (L, dim):
+        raise ValueError(f"CWS parameters must be three ({L}, {dim}) "
+                         f"tensors, got {tuple(r.shape)}, {tuple(c.shape)} "
+                         f"and {tuple(beta.shape)}")
+    log_c = torch.log(c)
+    out = torch.empty((batch, L), dtype=torch.uint8, device=dev)
+    rows = max(1, CWS_CHUNK_ELEMS // max(1, L * dim))
+    for lo in range(0, batch, rows):
+        w = weights[lo:lo + rows].to(torch.float32)
+        logw = torch.where(w > 0, torch.log(torch.clamp(w, min=1e-30)),
+                           -torch.inf)                      # (rows, dim)
+        t = torch.floor(logw[:, None, :] / r + beta)        # (rows, L, dim)
+        lny = r * (t - beta)
+        lna = log_c - lny - r
+        lna = torch.where(torch.isfinite(logw)[:, None, :], lna, torch.inf)
+        kstar = torch.argmin(lna, dim=-1)                   # (rows, L)
+        out[lo:lo + rows] = (kstar & ((1 << b) - 1)).to(torch.uint8)
+    return out
+
+
+def minmax_kernel(wa: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+    """Exact min-max kernel — the oracle of ``zbit_cws``.
+    wa, wb: (..., dim) float, >= 0 -> (...,) in [0, 1] (0.0 where both
+    are all zero)."""
+    wa, wb = torch.as_tensor(wa), torch.as_tensor(wb)
+    num = torch.minimum(wa, wb).sum(dim=-1)
+    den = torch.maximum(wa, wb).sum(dim=-1)
+    return torch.where(den > 0, num / torch.where(den > 0, den, 1), 0.0)

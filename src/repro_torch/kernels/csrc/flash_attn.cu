@@ -34,8 +34,11 @@
 //     warp loads from shared memory), chosen by head dim as measured
 //     fastest (PERF.md): at D = 64, the serving shape, 32 rows a warp
 //     (128 a CTA; 248 registers, no spill); at D = 128, where 32-row
-//     warps spill, and at D = 16, where the two measured alike, 16 (64
-//     a CTA).  The grid is (b·h, q tiles) with the q tile on the slow
+//     warps spill, at D = 80 (hubert-xlarge), where they take 255
+//     registers and a stack for at most 6%, and at D = 16, where the
+//     two measured alike, 16 (64 a CTA).  D = 80 keeps the 16-byte
+//     padding: its 176-byte rows put the 8 rows of an ldmatrix phase
+//     in 8 distinct bank groups (11 is odd).  The grid is (b·h, q tiles) with the q tile on the slow
 //     axis and reversed when causal, so the CTAs with the most kv tiles
 //     are issued first and the short ones fill the tail.
 //   * Q (its rows x D) and a 2-stage ring of 64-key K and V tiles come into
@@ -240,6 +243,7 @@ int launch_f32(const float* q, const float* k, const float* v, float* out,
     break;
     FLASH_F32_CASE(16)
     FLASH_F32_CASE(64)
+    FLASH_F32_CASE(80)
     FLASH_F32_CASE(128)
 #undef FLASH_F32_CASE
     default:
@@ -633,7 +637,7 @@ int launch_tc_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
 }
 
 // the CTA shape by head dim: warps of 32 rows at D = 64, of 16 rows at
-// D = 16 and 128
+// D = 16, 80 and 128
 int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
               const __nv_bfloat16* v, __nv_bfloat16* out, int B, int H,
               int Sq, int Skv, int D, Strides sq, Strides sk, Strides sv,
@@ -645,6 +649,9 @@ int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                 causal, window, cap, scale, q_offset, s);
     case 64:
       return launch_tc_d<64, 2>(q, k, v, out, B, H, Sq, Skv, sq, sk, sv, so,
+                                causal, window, cap, scale, q_offset, s);
+    case 80:
+      return launch_tc_d<80, 1>(q, k, v, out, B, H, Sq, Skv, sq, sk, sv, so,
                                 causal, window, cap, scale, q_offset, s);
     case 128:
       return launch_tc_d<128, 1>(q, k, v, out, B, H, Sq, Skv, sq, sk, sv, so,
@@ -662,7 +669,7 @@ extern "C" {
 // by its (b, h, s) element strides with a unit stride along D.
 // dtype: 0 float32 (scalar kernel), 1 bfloat16 (tensor-core kernel; q, k,
 // v and out with 16-byte aligned base pointers and strides).  D in
-// {16, 64, 128}.
+// {16, 64, 80, 128}; any other D returns cudaErrorInvalidValue.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* out, int B, int H, int Sq, int Skv,
                                int D, long long qsb, long long qsh,

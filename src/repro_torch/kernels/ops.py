@@ -396,9 +396,9 @@ def exact_rerank(pay_vert: torch.Tensor, q_vert: torch.Tensor,
     return out
 
 
-# the registry's dense head dims: SMOKE configs 16, smollm-135m 64, the
-# larger models 128
-FLASH_HEAD_DIMS = (16, 64, 128)
+# the kernels' head dims: SMOKE configs 16, smollm-135m 64, hubert-xlarge
+# 80, the larger models 128 (the plain version takes any D)
+FLASH_HEAD_DIMS = (16, 64, 80, 128)
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FLASH_ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -414,7 +414,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     repeats kv heads for GQA), float32 or bfloat16 alike; ``scale=None``
     is 1/√D; ``q_offset`` is the absolute position of q's first row.
     Returns (B, H, Sq, D) in q's dtype.  Any Sq and Skv: the kernel masks
-    the ragged kv edge itself.  D must be one of ``FLASH_HEAD_DIMS``.
+    the ragged kv edge itself.  The plain version takes any D; the kernels
+    take D in ``FLASH_HEAD_DIMS`` and any other D raises on the card.
     Strided views are read and written in place as long as D is the unit
     stride: the output is allocated (B, Sq, H, D) and returned as its
     (B, H, Sq, D) view, so the caller's transpose back is free.
@@ -439,8 +440,6 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"{name}: q on {q.device}, k on {k.device}, v on "
                          f"{v.device}")
-    if D not in FLASH_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} not in {FLASH_HEAD_DIMS}")
     if window < 0 or cap < 0:
         raise ValueError(f"{name}: window {window} and cap {cap} must be >= 0")
     if scale is None:
@@ -450,6 +449,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        cap=cap, scale=scale,
                                        q_offset=q_offset)
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} not in {FLASH_HEAD_DIMS}")
     q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
     if q.dtype == torch.bfloat16:      # the tensor-core kernel's cp.async
         for what, x in (("q", q), ("k", k), ("v", v)):

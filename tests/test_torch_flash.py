@@ -268,15 +268,32 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ops.flash_attention_fwd(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.flash_attention_fwd(q, q.bfloat16(), q)
-    with pytest.raises(ValueError, match="head dim"):
-        z = torch.zeros((1, 2, 8, 32))
-        ops.flash_attention_fwd(z, z, z)
+    z = torch.zeros((1, 2, 8, 32))      # no kernel takes D = 32: the
+    assert ops.flash_attention_fwd(z, z, z).shape == z.shape  # plain one does
     with pytest.raises(ValueError, match=r"\(B, H, S, D\)"):
         ops.flash_attention_fwd(q[0], q[0], q[0])
     with pytest.raises(ValueError, match="must be"):
         ops.flash_attention_fwd(q, torch.zeros((1, 3, 8, 16)), q)
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention_fwd(q, q, q, window=-1)
+
+
+@pytest.mark.parametrize("D,causal", [(80, False), (80, True), (32, True)])
+def test_head_dims_past_the_kernels_match_jax(D, causal):
+    """Head dim 80 (hubert-xlarge) and 32 run the plain version on the CPU,
+    as the JAX package runs them: q, k, v (1, 24, 2, D), numpy seed 0."""
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((1, 24, 2, D)).astype(np.float32)
+               for _ in range(3))
+    want = jflash.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal, q_block=8,
+                                  kv_block=8)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal, q_block=8,
+                          kv_block=8)
+    assert got.shape == (1, 24, 2, D)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
 
 
 def test_model_flash_refuses_grad_and_ragged_noncausal():
@@ -324,7 +341,7 @@ class TestCudaKernel:
             torch.testing.assert_close(got.float(), want.float(), rtol=t,
                                        atol=t)
 
-    @pytest.mark.parametrize("D", [16, 64, 128])
+    @pytest.mark.parametrize("D", [16, 64, 80, 128])
     @pytest.mark.parametrize("causal", [True, False])
     def test_bf16_head_dims(self, cuda_device, D, causal):
         """The tensor-core route at every head dim, ragged S (not a
@@ -386,7 +403,7 @@ class TestCudaKernel:
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                    atol=2e-2)
 
-    @pytest.mark.parametrize("D", [16, 64, 128])
+    @pytest.mark.parametrize("D", [16, 64, 80, 128])
     def test_bf16_every_head_dim(self, cuda_device, D):
         """The tensor-core kernel at each head dim (each with its own CTA
         shape) over the masks, a ragged S and a query block at an
@@ -401,6 +418,36 @@ class TestCudaKernel:
             torch.cuda.synchronize()
             torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                        atol=2e-2)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("D", [32, 96])
+    def test_head_dim_without_a_kernel_raises(self, cuda_device, D, dtype):
+        """On the card a head dim that neither route takes raises; it is
+        never handed to the plain version quietly."""
+        x = torch.zeros((1, 2, 8, D), device=cuda_device).to(
+            TORCH_DTYPES[dtype])
+        ops.reset_kernel_stats()
+        with pytest.raises(ValueError, match="head dim"):
+            ops.flash_attention_fwd(x, x, x)
+        assert ops.kernel_stats() == {}
+
+    def test_hubert_shape_d80(self, cuda_device):
+        """hubert-xlarge's attention (H 16, D 80, bidirectional) at a
+        ragged S on both routes, through the model's GQA wrapper too."""
+        rng = np.random.default_rng(80)
+        for dtype in ("bfloat16", "float32"):
+            q, k, v = (as_torch(a, dtype, cuda_device)
+                       for a in qkv(rng, 2, 16, 250, 80))
+            got = ops.flash_attention_fwd(q, k, v, causal=False)
+            want = ref.flash_attention_ref(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            t = tol(dtype)
+            torch.testing.assert_close(got.float(), want.float(), rtol=t,
+                                       atol=t)
+            x = [a.transpose(1, 2) for a in (q, k, v)]
+            got = flash_attention(*x, causal=False, kv_block=250)
+            torch.testing.assert_close(got.transpose(1, 2).float(),
+                                       want.float(), rtol=t, atol=t)
 
     def test_bf16_misaligned_raises(self, cuda_device):
         """cp.async moves 16 bytes: a row stride or base pointer that is
@@ -418,7 +465,7 @@ class TestCudaKernel:
         with pytest.raises(ValueError, match="16-byte"):
             ops.flash_attention_fwd(ok, odd_base, ok)
 
-    @pytest.mark.parametrize("D", [16, 64, 128])
+    @pytest.mark.parametrize("D", [16, 64, 80, 128])
     def test_f32_route_exact(self, cuda_device, D):
         """float32 keeps the scalar kernel, at 2e-5, and counts under the
         same name as the bf16 route."""

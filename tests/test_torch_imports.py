@@ -1,7 +1,7 @@
-"""The port stands alone: importing it pulls in neither jax nor the JAX
-package, no source of it names ``repro``, its entry points refuse a
-missing CUDA device instead of running on the CPU, and ``chip_smoke.py``
-fails without a card."""
+"""The port stands alone: importing it (its ``obs`` copy included) pulls
+in neither jax nor the JAX package, no source of it names ``repro``, its
+entry points refuse a missing CUDA device instead of running on the CPU,
+and ``chip_smoke.py`` fails without a card."""
 
 import os
 import pkgutil
@@ -31,7 +31,9 @@ def test_import_pulls_in_no_jax_and_no_repro():
     assert "repro_torch.core.search" in names and "repro_torch.kernels.ops" in names
     for name in ("repro_torch.models.model", "repro_torch.models.flash",
                  "repro_torch.configs.registry", "repro_torch.train.steps",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.obs",
+                 "repro_torch.obs.trace", "repro_torch.obs.explain",
+                 "repro_torch.obs.prom", "repro_torch.obs.slowlog"):
         assert name in names, name
     code = ("import importlib, sys\n"
             f"for name in ['repro_torch'] + {names!r}:\n"

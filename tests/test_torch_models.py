@@ -168,6 +168,29 @@ def test_forward_matches_jax(arch):
 
 
 @pytest.mark.parametrize("attn_impl", ["flash", "ref"])
+def test_hubert_forward_head_dim_80_matches_jax(attn_impl):
+    """hubert-xlarge (frame embeddings in, bidirectional) at SMOKE width
+    with its full head dim, 80: the flash path runs the plain version on
+    the CPU at a head dim no kernel of the SMOKE configs uses."""
+    jcfg = dataclasses.replace(jget_config("hubert-xlarge", smoke=True),
+                               head_dim=80, attn_impl=attn_impl)
+    cfg = dataclasses.replace(get_config("hubert-xlarge", smoke=True),
+                              head_dim=80, attn_impl=attn_impl)
+    jparams = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    params = TM.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                                cfg, device="cpu")
+    emb = np.random.default_rng(7).standard_normal(
+        (B, 16, cfg.d_model)).astype(np.float32)
+    ops.reset_kernel_stats()
+    got = TM.forward(params, cfg, {"embeds": t(emb)})
+    want = JM.forward(jparams, jcfg, {"embeds": jnp.asarray(emb)})
+    assert got.shape == (B, 16, cfg.vocab) and got.dtype == torch.float32
+    close(got, want, 1e-4)
+    assert ops.kernel_stats().get("flash_attention_fwd:ref", 0) == (
+        cfg.num_layers if attn_impl == "flash" else 0)
+
+
+@pytest.mark.parametrize("attn_impl", ["flash", "ref"])
 @pytest.mark.parametrize("arch", DENSE)
 def test_prefill_decode_match_jax(arch, attn_impl):
     """Prefill logits and caches, then GEN greedy decode steps.  gemma2's

@@ -200,7 +200,8 @@ def test_searcher_cache_counts_and_bucketing():
     db, _, tidx = built(16, 2, "bst")
     ts.clear_searcher_cache()
     run = ts.make_batch_searcher(tidx, 2)
-    assert ts.searcher_cache_info() == {"hits": 0, "misses": 1, "size": 1}
+    assert ts.searcher_cache_info() == {"hits": 0, "misses": 1, "traces": 0,
+                                        "size": 1}
     assert ts.make_batch_searcher(tidx, 2) is run
     assert ts.searcher_cache_info()["hits"] == 1
     ts.make_batch_searcher(tidx, 3)

@@ -254,22 +254,11 @@ def test_unported_options_raise():
         tseg.SegmentedIndex(16, 2, backend="lsh", device="cpu")
     with pytest.raises(ValueError):
         tseg.SegmentedIndex(16, 2, layout="columnar", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tseg.SegmentedIndex(16, 2, hot_bytes=1 << 20, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tcs.ColumnStore(16, 2, hot_bytes=1, device="cpu")
-    idx = tseg.SegmentedIndex(16, 2, device="cpu")
-    q = np.zeros((1, 16), np.uint8)
-    for call in (lambda: idx.topk_batch(q, 1, explain=True),
-                 lambda: idx.search_batch(q, 1, explain=True),
-                 lambda: idx.search_columns_batch(q, 1, explain=True),
-                 lambda: idx.cost_hint("topk", k=1)):
-        with pytest.raises(NotImplementedError):
-            call()
+    idx = tseg.SegmentedIndex(16, 2, hot_bytes=1 << 20, device="cpu")
     with pytest.raises(NotImplementedError):
         idx.store = object()
     assert idx.store is None
-    assert tcs.tier_stats() == dict.fromkeys(jcs.tier_stats(), 0)
+    assert tcs.tier_stats().keys() == jcs.tier_stats().keys()
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

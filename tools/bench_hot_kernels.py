@@ -3,7 +3,7 @@ forward of the port on one GPU, at the shapes of ``chip_smoke.py``'s
 main paths.
 
     python3 tools/bench_hot_kernels.py [--src DIR] [--seed 0] [--iters 10]
-                                       [--only packed,plane,rerank,flash]
+                                       [--only packed,plane,rerank,flash,hubert]
                                        [--slab-q 4|8|16]
 
 ``--src`` is the ``src/`` directory whose ``repro_torch`` is imported
@@ -44,6 +44,9 @@ per slab pass (a variant; by default the wrapper picks it from T).
     contiguous (B, H, S, D) and the model's strided (B, S, H, D) views,
     beside ``scaled_dot_product_attention``; the other head dims of
     ``ops.FLASH_HEAD_DIMS`` at the same B, H and S; the float32 route.
+  * hubert: hubert-xlarge's attention (B 2, H 16, D 80, bidirectional,
+    bf16) at S 1,000 and 1,500, beside ``scaled_dot_product_attention``
+    and the float32 route, with the bound (operations).
 
 Needs CUDA; prints the card's name and power limit first, then one line
 per measurement and a JSON line of the times.
@@ -300,9 +303,43 @@ def bench_flash(ops, ref, gen, iters: int) -> dict:
     return out
 
 
-def check_flash(ops, ref, x) -> None:
-    got = ops.flash_attention_fwd(*x, causal=True)
-    want = ref.flash_attention_ref(*x, causal=True)
+def bench_hubert(ops, ref, gen, iters: int) -> dict:
+    """hubert-xlarge's attention: B 2, H 16, D 80, bidirectional, bf16, at
+    S 1,000 (the frames of ``chip_smoke.py``'s hubert step, 20 s of audio
+    at 50 Hz) and 1,500 (30 s)."""
+    import torch.nn.functional as F
+    B, H, D = 2, 16, 80
+    dev = torch.device("cuda")
+    out = {}
+    for S in (1000, 1500):
+        x = tuple(torch.randn((B, H, S, D), device=dev, generator=gen)
+                  .bfloat16() for _ in range(3))
+        check_flash(ops, ref, x, causal=False)
+        r = {"bf16": both(lambda: ops.flash_attention_fwd(*x, causal=False),
+                          iters),
+             "sdpa": both(lambda: F.scaled_dot_product_attention(*x),
+                          iters)}
+        x32 = tuple(a.float() for a in x)
+        r["f32"] = time_ms(lambda: ops.flash_attention_fwd(
+            *x32, causal=False), max(3, iters // 3))
+        flops = 4 * B * H * S * S * D
+        bnd = max(flops / PEAK_BF16_FLOPS, 4 * B * H * S * D * 2
+                  / PEAK_BYTES_PER_S) * 1e3
+        t = r["bf16"]["queued"]
+        print(f"flash hubert (B={B} H={H} S={S} D={D} bidirectional, "
+              f"{flops / 1e9:.2f} GFLOP): bf16 wrapper "
+              f"{r['bf16']['wrapper']:.4f} ms, queued {t:.4f} ms "
+              f"({flops / t / 1e9:.1f} TFLOP/s); "
+              f"scaled_dot_product_attention {r['sdpa']['wrapper']:.4f} / "
+              f"{r['sdpa']['queued']:.4f} ms; float32 route {r['f32']:.4f} "
+              f"ms; bound {bnd:.4f} ms (operations)", flush=True)
+        out[f"S{S}"] = r
+    return out
+
+
+def check_flash(ops, ref, x, causal: bool = True) -> None:
+    got = ops.flash_attention_fwd(*x, causal=causal)
+    want = ref.flash_attention_ref(*x, causal=causal)
     e = float((got.float() - want.float()).abs().max())
     if not e <= 2e-2:
         raise SystemExit(f"flash kernel max err {e} > 2e-2")
@@ -338,7 +375,8 @@ def main() -> int:
     out = {}
     only = args.only.split(",")
     benches = {"packed": bench_packed, "plane": bench_plane,
-               "rerank": bench_rerank, "flash": bench_flash}
+               "rerank": bench_rerank, "flash": bench_flash,
+               "hubert": bench_hubert}
     for key in only:
         out[key] = benches[key](ops, ref, gen, args.iters)
         torch.cuda.empty_cache()
