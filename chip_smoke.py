@@ -54,7 +54,27 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      at that shape timed beside its bound, plain version and SDPA;
   9. ``zbit_cws`` at the SIFT (2^22 rows, dim 128, L 32, b 4) and GIST
      (2^18 rows, dim 960, L 64, b 8) shapes, rows/s, the first 4,096
-     rows held against the CPU run under a 4-ulp rule.
+     rows held against the CPU run under a 4-ulp rule;
+ 10. the other backends: (a) the static MI-bST (2 blocks) on phase 3's
+     Review sketches, ``mi_search_batch`` at τ = 1, 2, 3 for the 64
+     queries held against the scan kernel at τ, its candidates and
+     ``choose_plan``; (b) the static sharded bST (4 shards) there,
+     ``make_sharded_searcher`` (scan) at τ = 1-3, ``gather_ids`` and
+     ``gather_topk`` against the scan, a stable sort and numpy, and one
+     ``verify="gather"`` call; the batched launches of the scan (MI
+     verify, one per call over all queries) and the verify (one per call
+     over all shards) counted and timed; (c) ``SegmentedIndex`` with the
+     multi and sharded backends and ``ShardedSegmentedIndex`` over bst
+     stacks on 4,500,000 of phase 5's token sets, 1% deleted and a live
+     delta buffer: top-k and range planes against the scan kernel, the
+     fan-out against the fused path, the stacks' Jaccard re-rank against
+     numpy; (d) SIH, MIH and HmSearch on 2^20 of phase 3's rows, masks
+     against ``LinearScan``.  Range-search and top-k times beside the
+     bst backend's of phases 4 and 5.
+
+Phase 2 also sweeps the batched launches (grid.z over the batch) of the
+scan and the verify: batch 1, 3, 4 and 64, ragged n and m, shared and
+per-entry query planes, base planes with BIG lanes.
 
 Phase 2 also sweeps the flash kernel at head dim 80 on both routes.
 Phase 5 also puts half of its index's block bytes in the cold tier
@@ -163,6 +183,25 @@ HUBERT_BATCH, HUBERT_FRAMES = 2, 1000
 # CPU.
 CWS_SHAPES = [("SIFT", 1 << 22, 128, 32, 4), ("GIST", 1 << 18, 960, 64, 8)]
 CWS_CHECK_ROWS = 4096
+# Phase 2's sweep of the batched launches (grid.z over the batch): the
+# batch sizes of the paths (1; 3 and 4 shards; 64 queries of the MI
+# verify), over geometries, ragged n and m.
+SWEEP_BATCH = [1, 3, 4, 64]
+BATCH_BL = [(1, 8), (2, 16), (4, 32), (8, 64)]
+BATCH_N = [1, 130, 4097, 100_003]
+BATCH_M = [1, 3, 8]
+# Phase 10, the other backends: MI-bST over MI_BLOCKS blocks (the plan
+# choose_plan picks at the Review geometry and τ = 3) and the sharded bST
+# over SHARDS shards on phase 3's sketches; the segmented backends on the
+# first SEG10_N of phase 5's token sets (cut from 12,886,488 to keep the
+# three ingests within the phase's time; at least 2^22); the baselines on
+# BASE_N of phase 3's rows for BASE_Q queries (host numpy indexes: the
+# full size's HmSearch sorts ≈ 116 M keys a block), MIH at τ = 2, where
+# its block thresholds keep the pigeonhole bound.
+MI_BLOCKS, SHARDS = 2, 4
+SEG10_N = 4_500_000
+BASE_N, BASE_Q = 1 << 20, 16
+SIH_TAU, MIH_TAU, HM_TAU = 2, 2, 3
 # popcounts an SM issues a clock on Hopper (the integer pipe's rate for
 # POPC); times the SMs and the SM clock, the re-rank's popcount bound
 POPC_PER_SM_CLOCK = 16
@@ -207,10 +246,7 @@ def bound(b: int, W: int, n: int, m: int, verify: bool):
     written once, against the card's peak bytes and operations.  Per
     (query, column): W·(b XOR + (b-1) OR + popc + add) ops, plus add,
     compare and min for the verify."""
-    planes = 3 if verify else 1                   # base in; mask, dist out
-    nbytes = 4 * (b * W * n + b * W * m + planes * m * n)
-    ops = m * n * (W * (2 * b + 1) + (3 if verify else 0))
-    return bound_ms(nbytes, ops)
+    return batched_bound(1, b, W, n, m, 1, verify)
 
 
 def arena_bound(groups, m: int, T: int):
@@ -682,6 +718,9 @@ def segmented_review(torch, args, dev, ops, ref, err, maxerr) -> dict:
     del idx
     torch.cuda.empty_cache()
     return {
+        "corpus10": (sketches[:SEG10_N].copy(), payloads[:SEG10_N].copy(),
+                     qs, qp),
+        "topk_ms": e2e[None],
         "sparse_verify_arena_packed": {
             "launches": launches["sparse_verify_arena_packed"], "ms": pk_ms,
             "plain_ms": pk_plain, "bound_ms": pk_bound, "bound_by": pk_by,
@@ -1524,6 +1563,482 @@ def serving_smollm(torch, args, dev, ops, ref) -> dict:
             "library_ms": lib_ms}
 
 
+def review_static(seed: int):
+    """Phase 3's Review sketches and queries, made from ``seed``: REVIEW_N
+    uniform sketches, M_QUERIES // 2 database rows with 0-3 symbols
+    perturbed and as many uniform rows."""
+    rng = np.random.default_rng(seed)
+    sketches = rng.integers(0, 1 << REVIEW_B, size=(REVIEW_N, REVIEW_L),
+                            dtype=np.uint8)
+    near = sketches[rng.integers(0, REVIEW_N, size=M_QUERIES // 2)].copy()
+    for row in near:                     # 0-3 symbols perturbed per row
+        pos = rng.choice(REVIEW_L, size=rng.integers(0, 4), replace=False)
+        row[pos] = (row[pos] + rng.integers(1, 1 << REVIEW_B, size=len(pos))) \
+            % (1 << REVIEW_B)
+    far = rng.integers(0, 1 << REVIEW_B, size=(M_QUERIES // 2, REVIEW_L),
+                       dtype=np.uint8)
+    return sketches, np.concatenate([near, far])
+
+
+def check_batched_kernels(torch, ops, ref, dev, gen, words, maxerr,
+                          err) -> int:
+    """Phase 2, the batched launches of the scan and the verify (grid.z
+    over the batch): SWEEP_BATCH entries over BATCH_BL, ragged n and m,
+    the scan's query planes shared (batch stride 0) and per entry, the
+    verify's base planes with BIG lanes.  Returns the shapes checked."""
+    checks = 0
+    for B in SWEEP_BATCH:
+        for b, L in BATCH_BL:
+            W = (L + 31) // 32
+            for n in BATCH_N:
+                db = words(B, b, W, n)
+                for m in BATCH_M:
+                    for shared in (True, False):
+                        q = words(1 if shared else B, b, W, m)
+                        got = ops.hamming_distances_batched(db, q)
+                        want = ref.hamming_distances_batched_ref(db, q)
+                        e = maxerr(got, want)
+                        err["hamming_distances_batched"] = max(
+                            err["hamming_distances_batched"], e)
+                        check(e == 0, f"hamming_distances_batched B={B} "
+                                      f"b={b} L={L} n={n} m={m} "
+                                      f"shared={shared}")
+                        checks += 1
+                    q = words(b, W, m)
+                    for tau in SWEEP_TAU:
+                        base = torch.randint(0, tau + 3, (B, m, n),
+                                             dtype=torch.int32, device=dev,
+                                             generator=gen)
+                        pruned = torch.rand((B, m, n), device=dev,
+                                            generator=gen) < 0.2
+                        base[pruned] = BIG
+                        got = ops.sparse_verify_batch_batched(db, q, base,
+                                                              tau=tau)
+                        want = ref.sparse_verify_batch_batched_ref(db, q,
+                                                                   base, tau)
+                        e = max(maxerr(got[0], want[0]),
+                                maxerr(got[1], want[1]))
+                        err["sparse_verify_batch_batched"] = max(
+                            err["sparse_verify_batch_batched"], e)
+                        check(e == 0, f"sparse_verify_batch_batched B={B} "
+                                      f"b={b} L={L} n={n} m={m} tau={tau}")
+                        checks += 1
+                del db
+    return checks
+
+
+def host_ms(torch, fn, iters: int = 5):
+    """(median, sorted samples): host-clock ms of a synchronised ``fn``
+    after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), sorted(round(t, 2) for t in times)
+
+
+def capture_args(ops, name: str, fn) -> tuple:
+    """Run ``fn`` once with the wrapper ``ops.<name>`` recording the
+    positional operands of its last call: the kernel's inputs on the
+    path, for timing it alone."""
+    orig = getattr(ops, name)
+    seen = {}
+
+    def spy(*a, **kw):
+        seen["args"] = a
+        return orig(*a, **kw)
+    setattr(ops, name, spy)
+    try:
+        fn()
+    finally:
+        setattr(ops, name, orig)
+    return seen["args"]
+
+
+def planes_to_symbols(torch, planes, b: int, L: int):
+    """(B, b, W, n) int32 bit-plane words -> (B, n, L) float32 symbols,
+    the inverse of ``pack_vertical`` (bit l of word l // 32 of plane i is
+    bit i of symbol l): the operand of the library call ``cdist(p=0)``."""
+    pos = torch.arange(L, device=planes.device)
+    words = planes[:, :, pos // 32, :]                    # (B, b, L, n)
+    bits = (words >> (pos % 32)[None, None, :, None]) & 1
+    sym = sum(bits[:, i] << i for i in range(b))          # (B, L, n)
+    return sym.transpose(1, 2).float().contiguous()
+
+
+def batched_bound(B: int, b: int, W: int, n: int, m: int, q_sets: int,
+                  verify: bool):
+    """(bound_ms, bound_by) of one batched launch: B databases of (b, W,
+    n) words and ``q_sets`` sets of m query columns read once, B (m, n)
+    planes in (the verify's base) and out; per (entry, query, column) the
+    operations of ``bound``."""
+    planes = 3 if verify else 1                   # base in; mask, dist out
+    nbytes = 4 * (B * b * W * n + q_sets * b * W * m + planes * B * m * n)
+    ops = B * m * n * (W * (2 * b + 1) + (3 if verify else 0))
+    return bound_ms(nbytes, ops)
+
+
+def static_multi(torch, dev, ops, ref, err, maxerr, sketches, qs, d,
+                 si_ms) -> dict:
+    """Phase 10 (a): the static MI-bST on the Review sketches."""
+    from repro_torch.core import build_multi_index, choose_plan, mi_search_batch
+    from repro_torch.core.multi_index import candidate_capacity
+
+    n, L, b = len(sketches), REVIEW_L, REVIEW_B
+    qs_t = torch.from_numpy(qs.astype(np.int32)).to(dev)
+    t0 = time.perf_counter()
+    mi = build_multi_index(sketches, b, MI_BLOCKS, device=dev)
+    torch.cuda.synchronize()
+    blocks = [(lo, hi, blk.ls, blk.t[-1])
+              for blk, (lo, hi) in zip(mi.blocks, mi.bounds)]
+    print(f"(a) build_multi_index m={MI_BLOCKS} n={n}: "
+          f"{time.perf_counter() - t0:.1f} s; blocks (lo, hi, l_s, leaves) "
+          f"{blocks}; model_bits {mi.model_bits()}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_stats()                       # the static MI path
+    res = {tau: mi_search_batch(mi, qs_t, tau) for tau in (1, 2, 3)}
+    torch.cuda.synchronize()
+    launches = ops.kernel_stats()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"(a) mi_search_batch tau=1,2,3 (m={M_QUERIES}): launches "
+          f"{launches}, peak {peak / 2**30:.2f} GiB", flush=True)
+    check(launches.get("hamming_distances_batched", 0) > 0,
+          "the batched scan kernel not launched on the MI path")
+    check(not any(k.endswith(":ref") for k in launches),
+          f"plain version ran on the MI path: {launches}")
+    n_valid = int(res[3].candidates.sum())        # the verify's real work
+    for tau, r in res.items():
+        inside = d <= tau
+        check(int(r.overflow.sum()) == 0, f"MI tau={tau}: overflow")
+        check(torch.equal(r.mask, inside)
+              and torch.equal(r.dist, torch.where(inside, d, BIG)),
+              f"MI tau={tau}: mask/dist != the scan kernel at tau")
+        c = r.candidates.float()
+        print(f"(a) tau={tau}: candidates per query min/median/max "
+              f"{int(c.min())}/{int(c.median())}/{int(c.max())} (capacity "
+              f"{candidate_capacity(mi, tau)}), overflow 0", flush=True)
+        del inside
+    del res
+    plan = choose_plan(b, L, 3, n)
+    check(plan == ("multi", 2), f"choose_plan({b}, {L}, 3, {n}) = {plan}")
+    print(f"(a) MI-bST masks and distances exact at tau=1,2,3 against the "
+          f"scan kernel; choose_plan({b}, {L}, 3, {n}) = {plan}", flush=True)
+    for tau in (1, 2, 3):
+        ms, samples = host_ms(torch, lambda: mi_search_batch(mi, qs_t, tau))
+        print(f"(a) range search tau={tau}, m={M_QUERIES}: MI-bST {ms:.2f} "
+              f"ms median of 5 {samples}; SI-bST {si_ms[tau]:.2f} ms "
+              "(phase 4)", flush=True)
+    profile_window(torch, "(a) mi_search_batch tau=3",
+                   lambda: mi_search_batch(mi, qs_t, 3))
+    cand, qv = capture_args(ops, "hamming_distances_batched",
+                            lambda: mi_search_batch(mi, qs_t, 3))
+    B, _, W, C = cand.shape
+    got = ops.hamming_distances_batched(cand, qv, block_m=1)
+    e = maxerr(got, ref.hamming_distances_batched_ref(cand, qv))
+    err["hamming_distances_batched"] = max(err["hamming_distances_batched"], e)
+    check(e == 0, "batched scan at the MI verify's shape")
+    ms = time_ms(torch, lambda: ops.hamming_distances_batched(cand, qv,
+                                                              block_m=1))
+    queued = queued_ms(torch, lambda: ops.hamming_distances_batched(
+        cand, qv, block_m=1))
+    plain = time_ms(torch, lambda: ref.hamming_distances_batched_ref(cand, qv),
+                    iters=3)
+    # the same (B, 1, C) distances in one library call: batched cdist(p=0)
+    # over the symbols, decoded from the same words
+    qf, cf = planes_to_symbols(torch, qv, b, L), planes_to_symbols(torch, cand,
+                                                                   b, L)
+    check(torch.equal(torch.cdist(qf, cf, p=0).to(torch.int32), got),
+          "batched cdist(p=0) disagrees with the batched scan at the MI verify")
+    lib_ms = time_ms(torch, lambda: torch.cdist(qf, cf, p=0))
+    # bound of the launch over its C padded slots, and over the candidates
+    # this run's data holds (the slots past a query's count are id 0's
+    # words, the reference's static capacity): the kernel line's bound
+    pad_bnd, _ = batched_bound(B, b, W, C, 1, B, verify=False)
+    bnd, by = batched_bound(1, b, W, n_valid, 1, B, verify=False)
+    print(f"hamming_distances_batched at the MI verify (B={B} queries, one "
+          f"each, b={b} W={W}, C={C} slots, {n_valid} valid candidates, "
+          f"tile 1): {ms:.4f} ms, queued {queued:.4f} ms, bound {bnd:.4f} ms "
+          f"({by}) over the valid candidates, {pad_bnd:.4f} ms over the "
+          f"slots, plain {plain:.3f} ms, batched cdist(p=0) {lib_ms:.3f} ms",
+          flush=True)
+    del mi, cand, qv, got, qf, cf
+    torch.cuda.empty_cache()
+    return {"launches": launches["hamming_distances_batched"], "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib_ms, "batched": "queries"}
+
+
+def static_sharded(torch, dev, ops, ref, err, maxerr, sketches, qs, d,
+                   si_ms) -> dict:
+    """Phase 10 (b): the static sharded bST, S = SHARDS, on the Review
+    sketches."""
+    from repro_torch.core import (build_sharded_bst, gather_ids, gather_topk,
+                                  make_sharded_searcher)
+
+    n, b = len(sketches), REVIEW_B
+    qs_t = torch.from_numpy(qs.astype(np.int32)).to(dev)
+    t0 = time.perf_counter()
+    sh = build_sharded_bst(sketches, b, SHARDS, device=dev)
+    torch.cuda.synchronize()
+    print(f"(b) build_sharded_bst S={SHARDS} n={n}: "
+          f"{time.perf_counter() - t0:.1f} s; lm={sh.lm} ls={sh.ls} kinds "
+          f"{list(sh.kinds)}, n_max {sh.n_max}, padded leaves "
+          f"{sh.paths_vert.shape[-1]}, model_bits {sh.model_bits()}",
+          flush=True)
+    searchers = {tau: make_sharded_searcher(sh, tau) for tau in (1, 2, 3)}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_stats()                       # the static sharded path
+    res = {tau: fn(qs_t) for tau, fn in searchers.items()}
+    torch.cuda.synchronize()
+    launches = ops.kernel_stats()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"(b) sharded searcher (scan) tau=1,2,3 (m={M_QUERIES}): launches "
+          f"{launches}, peak {peak / 2**30:.2f} GiB", flush=True)
+    check(launches.get("sparse_verify_batch_batched", 0) == 3,
+          "the shard-batched verify not launched once a call")
+    check(not any(k.endswith(":ref") for k in launches),
+          f"plain version ran on the sharded path: {launches}")
+
+    def merged(x):                                 # (m, S, n_max) -> (m, n)
+        return x.reshape(M_QUERIES, -1).index_select(1, sh.merge_idx)
+    for tau, (masks, dists, ov) in res.items():
+        inside = d <= tau
+        check(int(ov) == 0, f"sharded tau={tau}: overflow {int(ov)}")
+        check(torch.equal(merged(masks), inside)
+              and torch.equal(merged(dists), torch.where(inside, d, BIG)),
+              f"sharded tau={tau}: mask/dist != the scan kernel at tau")
+        del inside
+    masks, dists, _ = res[3]
+    got_ids = gather_ids(sh, masks)
+    for i in range(M_QUERIES):
+        want = torch.nonzero(d[i] <= 3).flatten().cpu().numpy()
+        check(np.array_equal(got_ids[i], want), f"gather_ids row {i}")
+    ids, dk = gather_topk(sh, dists, TOPK)
+    dd = torch.where(d <= 3, d, BIG)
+    for r0 in range(0, M_QUERIES, 8):              # stable sort: ties by id
+        sd, si = torch.sort(dd[r0:r0 + 8], dim=1, stable=True)
+        real = sd[:, :TOPK] < BIG
+        check(np.array_equal(ids[r0:r0 + 8], torch.where(
+            real, si[:, :TOPK], -1).cpu().numpy())
+              and np.array_equal(dk[r0:r0 + 8], sd[:, :TOPK].cpu().numpy()),
+              f"gather_topk rows {r0}..{r0 + 7} != the stable sort")
+    for i in (0, M_QUERIES - 1):                   # host witness
+        hd = (sketches != qs[i][None, :]).sum(axis=1)
+        hd = np.where(hd <= 3, hd, BIG)
+        order = np.lexsort((np.arange(n), hd))[:TOPK]
+        check(np.array_equal(ids[i], np.where(hd[order] < BIG, order, -1))
+              and np.array_equal(dk[i], hd[order]),
+              f"gather_topk row {i} != the numpy host check")
+    del res, masks, dists, dd
+    g = make_sharded_searcher(sh, 2, verify="gather")
+    t0 = time.perf_counter()
+    gm, gd, gov = g(qs_t[:8])
+    torch.cuda.synchronize()
+    g_s = time.perf_counter() - t0
+    sm, sd, _ = searchers[2](qs_t[:8])
+    check(int(gov) == 0 and torch.equal(gm, sm) and torch.equal(gd, sd),
+          "verify='gather' differs from the scan at tau=2")
+    print(f"(b) sharded bST exact at tau=1,2,3 against the scan kernel; "
+          f"gather_ids and gather_topk(k={TOPK}) at tau=3 against it, the "
+          f"stable sort and numpy; verify='gather' (8 queries, tau=2, the "
+          f"plain verify per query and shard) equal to the scan in "
+          f"{g_s:.2f} s", flush=True)
+    del gm, gd, sm, sd
+    for tau, fn in searchers.items():
+        ms, samples = host_ms(torch, lambda: fn(qs_t))
+        print(f"(b) range search tau={tau}, m={M_QUERIES}: sharded bST "
+              f"S={SHARDS} {ms:.2f} ms median of 5 {samples}; SI-bST "
+              f"{si_ms[tau]:.2f} ms (phase 4)", flush=True)
+    profile_window(torch, "(b) sharded searcher tau=3",
+                   lambda: searchers[3](qs_t))
+    paths, q_sfx, base = capture_args(ops, "sparse_verify_batch_batched",
+                                      lambda: searchers[3](qs_t))
+    S, bb, W, n_pad = paths.shape
+    got = ops.sparse_verify_batch_batched(paths, q_sfx, base, tau=3)
+    slices = range(0, M_QUERIES, 8)
+
+    def plain():
+        return [ref.sparse_verify_batch_batched_ref(
+            paths, q_sfx[..., r0:r0 + 8], base[:, r0:r0 + 8], 3)
+            for r0 in slices]
+    for r0, (w_mask, w_dist) in zip(slices, plain()):
+        e = max(maxerr(got[0][:, r0:r0 + 8], w_mask),
+                maxerr(got[1][:, r0:r0 + 8], w_dist))
+        err["sparse_verify_batch_batched"] = max(
+            err["sparse_verify_batch_batched"], e)
+        check(e == 0, "shard-batched verify at the sharded path's shape")
+    del got, w_mask, w_dist
+    ms = time_ms(torch, lambda: ops.sparse_verify_batch_batched(
+        paths, q_sfx, base, tau=3))
+    plain_ms = time_ms(torch, plain, iters=3)
+    bnd, by = batched_bound(S, bb, W, n_pad, M_QUERIES, 1, verify=True)
+    print(f"sparse_verify_batch_batched at the sharded scan (S={S} shards, "
+          f"b={bb} W={W}, {n_pad} padded leaves, m={M_QUERIES}): {ms:.3f} "
+          f"ms, bound {bnd:.3f} ms ({by}), plain {plain_ms:.3f} ms",
+          flush=True)
+    del sh, searchers, paths, q_sfx, base
+    torch.cuda.empty_cache()
+    return {"launches": launches["sparse_verify_batch_batched"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None, "batched": "shards"}
+
+
+def segmented_backends(torch, dev, ops, corpus10, bst_ms) -> None:
+    """Phase 10 (c): ``SegmentedIndex(backend="multi")``,
+    ``SegmentedIndex(backend="sharded")`` and ``ShardedSegmentedIndex``
+    over bst stacks, on the first SEG10_N of phase 5's token sets, 1%
+    deleted and a live delta buffer; top-k and range planes against the
+    scan kernel with dead ids at BIG, the fan-out against the fused path,
+    the stacks' Jaccard re-rank against numpy."""
+    from repro_torch.core import (LinearScan, SegmentedIndex,
+                                  ShardedSegmentedIndex, dispatch_stats,
+                                  reset_dispatch_stats)
+
+    sk, pay, qs, qp = corpus10
+    n, L, b, Wp = len(sk), REVIEW_L, REVIEW_B, pay.shape[1]
+    rng = np.random.default_rng(SEG10_N)
+    dead = rng.choice(n, size=int(n * DELETE_FRAC), replace=False)
+    live = np.ones(n, bool)
+    live[dead] = False
+    d = LinearScan.build(sk, b, device=dev).distances(qs)
+    d = torch.where(torch.from_numpy(live).to(dev)[None, :], d, BIG)
+    stacks = {
+        "multi": (lambda: SegmentedIndex(L, b, delta_cap=DELTA_CAP,
+                                         backend="multi",
+                                         mi_blocks=MI_BLOCKS, device=dev),
+                  ("hamming_distances_batched", "hamming_distances")),
+        "sharded": (lambda: SegmentedIndex(L, b, delta_cap=DELTA_CAP,
+                                           backend="sharded",
+                                           n_shards=SHARDS, device=dev),
+                    ("sparse_verify_batch_batched", "hamming_distances")),
+        "sharded-stacks": (lambda: ShardedSegmentedIndex(
+            L, b, n_shards=SHARDS, delta_cap=DELTA_CAP, payload_words=Wp,
+            device=dev), ("sparse_verify_arena_packed", "hamming_distances",
+                          "exact_rerank", "sparse_verify_batch")),
+    }
+    for name, (make, kernels) in stacks.items():
+        idx = make()
+        stacked = isinstance(idx, ShardedSegmentedIndex)
+        t0 = time.perf_counter()
+        step = DELTA_CAP // 4
+        for lo in range(0, n, step):
+            idx.insert(sk[lo:lo + step],
+                       payloads=pay[lo:lo + step] if stacked else None)
+        check(idx.delete(dead) == len(dead), f"{name}: delete count")
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        parts = idx.shards if stacked else [idx]
+        delta = sum(len(p._delta_ids) for p in parts)
+        print(f"(c) {name}: ingest {ingest_s:.1f} s, segments "
+              f"{[[s.n for s in p.segments] for p in parts]}, delta rows "
+              f"{delta}", flush=True)
+        check(delta > 0, f"{name}: no live delta buffer")
+
+        def fanout(on: bool) -> None:
+            for p in parts:
+                p.use_arena = not on
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_kernel_stats()                   # this backend's path
+        reset_dispatch_stats()
+        top = idx.topk_batch(qs, TOPK)
+        if stacked:
+            plane = idx.search_batch(qs, top.tau)
+            rr = idx.topk_batch(qs, TOPK, rerank="jaccard", q_payloads=qp)
+        else:
+            cols = idx.search_columns_batch(qs, top.tau)
+        fanout(True)
+        fan = idx.topk_batch(qs, TOPK)
+        fanout(False)
+        torch.cuda.synchronize()
+        launches = ops.kernel_stats()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"(c) {name}: launches {launches}, dispatches "
+              f"{dispatch_stats()}, peak {peak / 2**30:.2f} GiB", flush=True)
+        for k in kernels:
+            check(launches.get(k, 0) > 0, f"{name}: {k} not launched")
+        check(not any(k.endswith(":ref") for k in launches),
+              f"{name}: plain version ran: {launches}")
+        check(top.overflow == 0, f"{name}: top-k overflow")
+        for r0 in range(0, M_QUERIES, 8):          # stable sort: ties by id
+            sd, si = torch.sort(d[r0:r0 + 8], dim=1, stable=True)
+            check(torch.equal(top.ids[r0:r0 + 8], si[:, :TOPK].to(torch.int32))
+                  and torch.equal(top.dists[r0:r0 + 8], sd[:, :TOPK]),
+                  f"{name}: top-k rows {r0}..{r0 + 7} != the scan kernel")
+        check(fan.tau == top.tau and torch.equal(fan.ids, top.ids)
+              and torch.equal(fan.dists, top.dists),
+              f"{name}: the fan-out differs from the fused path")
+        inside = torch.where(d <= top.tau, d, BIG)
+        if stacked:
+            check(plane.overflow == 0 and torch.equal(plane.dist, inside)
+                  and torch.equal(plane.mask, inside <= top.tau),
+                  f"{name}: search_batch != the scan kernel in the ball")
+            r_ids, r_s = rr.ids.cpu().numpy(), rr.scores.cpu().numpy()
+            for i in range(M_QUERIES):
+                cand = torch.nonzero(d[i] <= rr.tau).flatten().cpu().numpy()
+                sc = jaccard_np(qp[i], pay[cand])
+                order = np.lexsort((cand, -sc))[:TOPK]
+                k = len(order)
+                check(np.array_equal(r_ids[i, :k], cand[order])
+                      and np.array_equal(r_s[i, :k].view(np.int32),
+                                         sc[order].view(np.int32)),
+                      f"{name}: re-ranked row {i} != numpy Jaccard")
+        else:
+            want = inside.index_select(1, torch.from_numpy(cols.ids).to(dev))
+            check(cols.overflow == 0 and torch.equal(cols.dist, want),
+                  f"{name}: search_columns_batch != the scan kernel")
+            del want
+        del inside
+        ms, samples = host_ms(torch, lambda: idx.topk_batch(qs, TOPK))
+        print(f"(c) {name} exact (tau*={top.tau}; top-{TOPK}, range, "
+              f"fan-out{', Jaccard re-rank' if stacked else ''}); topk_batch "
+              f"{ms:.2f} ms median of 5 {samples} at {n} rows; the bst "
+              f"backend's at {REVIEW_N} rows: {bst_ms:.2f} ms (phase 5)",
+              flush=True)
+        del idx, parts
+        torch.cuda.empty_cache()
+
+
+def baselines_check(torch, dev, sketches) -> None:
+    """Phase 10 (d): SIH, MIH and HmSearch (host numpy indexes, the scan
+    kernel verifying) on the first BASE_N Review rows, BASE_Q queries,
+    masks against ``LinearScan``."""
+    from repro_torch.core import MIH, SIH, HmSearch, LinearScan
+
+    db = sketches[:BASE_N]
+    rng = np.random.default_rng(BASE_N)
+    qs = db[rng.integers(0, BASE_N, size=BASE_Q)].copy()
+    for row in qs:
+        pos = rng.choice(REVIEW_L, size=rng.integers(0, 3), replace=False)
+        row[pos] = (row[pos] + 1) % (1 << REVIEW_B)
+    scan = LinearScan.build(db, REVIEW_B, device=dev)
+    for name, build, tau, search in (
+            ("SIH", lambda: SIH.build(db, REVIEW_B), SIH_TAU,
+             lambda ix, q: ix.search(q, SIH_TAU)[0]),
+            ("MIH", lambda: MIH.build(db, REVIEW_B, MI_BLOCKS, device=dev),
+             MIH_TAU, lambda ix, q: ix.search(q, MIH_TAU)[0]),
+            ("HmSearch", lambda: HmSearch.build(db, REVIEW_B, HM_TAU,
+                                                device=dev),
+             HM_TAU, lambda ix, q: ix.search(q, HM_TAU)[0])):
+        t0 = time.perf_counter()
+        ix = build()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        masks = [search(ix, q) for q in qs]
+        torch.cuda.synchronize()
+        query_s = time.perf_counter() - t0
+        for i, (q, mask) in enumerate(zip(qs, masks)):
+            check(np.array_equal(mask, scan.search(q, tau)),
+                  f"{name} tau={tau} query {i} != LinearScan")
+        print(f"(d) {name} tau={tau} on {BASE_N} rows: build {build_s:.2f} "
+              f"s, {BASE_Q} queries {query_s:.3f} s, masks equal to "
+              f"LinearScan; {ix.array_bytes()} index bytes", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1584,7 +2099,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     err = dict.fromkeys(("sparse_verify_batch", "hamming_distances",
                          "sparse_verify_arena_packed", "sparse_verify_arena",
-                         "exact_rerank"), 0)
+                         "exact_rerank", "sparse_verify_batch_batched",
+                         "hamming_distances_batched"), 0)
     err["flash_attention_fwd"] = 0.0
     n_checks = 0
 
@@ -1631,6 +2147,13 @@ def main() -> int:
           f"{n_checks // len(SWEEP_TAU)} scan shapes bit-exact "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
+    batched_checks = check_batched_kernels(torch, ops, ref, dev, gen, words,
+                                           maxerr, err)
+    torch.cuda.synchronize()
+    print(f"batched scan and verify launches vs plain: {batched_checks} "
+          f"bit-exact, batch {SWEEP_BATCH} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
     arena_checks = check_arena_kernels(torch, ops, ref, dev, gen, words,
                                        maxerr, err)
     torch.cuda.synchronize()
@@ -1646,10 +2169,8 @@ def main() -> int:
     phase_done("2 (kernels against their plain versions)")
 
     # -- 3. main path at the Review size -------------------------------------
-    rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
-    sketches = rng.integers(0, 1 << REVIEW_B, size=(REVIEW_N, REVIEW_L),
-                            dtype=np.uint8)
+    sketches, qs = review_static(args.seed)
     index = build_bst(sketches, REVIEW_B, device="cuda")
     torch.cuda.synchronize()
     print(f"build_bst n={REVIEW_N} L={REVIEW_L} b={REVIEW_B}: "
@@ -1661,14 +2182,6 @@ def main() -> int:
     scan = LinearScan.build(sketches, REVIEW_B, device="cuda")
     print(f"LinearScan.build: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    near = sketches[rng.integers(0, REVIEW_N, size=M_QUERIES // 2)].copy()
-    for row in near:                     # 0-3 symbols perturbed per row
-        pos = rng.choice(REVIEW_L, size=rng.integers(0, 4), replace=False)
-        row[pos] = (row[pos] + rng.integers(1, 1 << REVIEW_B, size=len(pos))) \
-            % (1 << REVIEW_B)
-    far = rng.integers(0, 1 << REVIEW_B, size=(M_QUERIES // 2, REVIEW_L),
-                       dtype=np.uint8)
-    qs = np.concatenate([near, far])
     qs_t = torch.from_numpy(qs.astype(np.int32)).to(dev)
 
     torch.cuda.reset_peak_memory_stats()
@@ -1808,6 +2321,12 @@ def main() -> int:
         f"{k} {time_ms(torch, fn):.3f} ms" for k, fn in med.items()), flush=True)
     del db_med, q_med, base_med
 
+    si_ms = {}
+    for tau in (1, 2, 3):
+        si_ms[tau], samples = host_ms(
+            torch, lambda: make_batch_searcher(index, tau)(qs_t))
+        print(f"range search tau={tau} (m={M_QUERIES}): {si_ms[tau]:.2f} ms "
+              f"median of 5 {samples}", flush=True)
     topk_batch(index, qs_t, TOPK)                  # warm-up
     torch.cuda.synchronize()
     e2e = []
@@ -1823,11 +2342,12 @@ def main() -> int:
     print(f"max_memory_allocated: main path {peak_main / 2**30:.2f} GiB, "
           f"run {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    del index, scan, qs_t, tail, base, q_sfx, qv, qf
+    del index, scan, qs_t, tail, base, q_sfx, qv, qf, sketches
     torch.cuda.empty_cache()
     phase_done("4 (static kernels timed)")
 
     seg = segmented_review(torch, args, dev, ops, ref, err, maxerr)
+    corpus10, bst_seg_ms = seg.pop("corpus10"), seg.pop("topk_ms")
     phase_done("5 (segmented path at the Review size)")
     cp = plane_fallback(torch, args, dev, ops, ref, err, maxerr)
     phase_done("6 (plane fallback, CP geometry)")
@@ -1847,6 +2367,19 @@ def main() -> int:
     phase_done("8 (hubert-xlarge forward, flash at head dim 80)")
     cws_sketching(torch, args, dev)
     phase_done("9 (zbit_cws at the SIFT and GIST shapes)")
+
+    # -- 10. the other backends --------------------------------------------
+    sketches, qs = review_static(args.seed)
+    d = LinearScan.build(sketches, REVIEW_B, device="cuda").distances(qs)
+    mi_json = static_multi(torch, dev, ops, ref, err, maxerr, sketches, qs,
+                           d, si_ms)
+    sh_json = static_sharded(torch, dev, ops, ref, err, maxerr, sketches, qs,
+                             d, si_ms)
+    del d
+    torch.cuda.empty_cache()
+    segmented_backends(torch, dev, ops, corpus10, bst_seg_ms)
+    baselines_check(torch, dev, sketches)
+    phase_done("10 (the other backends)")
 
     kernels = [
         {"name": "sparse_verify_batch", "route": "cuda",
@@ -1882,6 +2415,14 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attn_kernel.py:93",
          "max_abs_err": err["flash_attention_fwd"], **flash,
          "head_dims": list(ops.FLASH_HEAD_DIMS), "d80_hubert": hubert},
+        {"name": "sparse_verify_batch_batched", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/hamming.cu",
+         "replaces": "src/repro/kernels/hamming_kernel.py:114",
+         "max_abs_err": err["sparse_verify_batch_batched"], **sh_json},
+        {"name": "hamming_distances_batched", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/hamming.cu",
+         "replaces": "src/repro/kernels/hamming_kernel.py:70",
+         "max_abs_err": err["hamming_distances_batched"], **mi_json},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -355,10 +355,18 @@ def index_from_numpy(meta: dict, arrays: Sequence[np.ndarray],
     then, with a tail, (paths_vert, D.words, D.cum, leaf_root), and last
     id_leaf.  Words may be uint32 or int32; every length and static
     field is derived from ``meta``."""
-    device = resolve_device(device)
+    it = iter(arrays)
+    index = _index_from_iter(meta, it, resolve_device(device))
+    if next(it, None) is not None:
+        raise ValueError("more arrays than the metadata describes")
+    return index
+
+
+def _index_from_iter(meta: dict, it, device) -> SketchIndex:
+    """``index_from_numpy`` over an iterator of leaves: takes exactly the
+    index's own leaves and leaves the rest (a multi-index's next block)."""
     L, b, t, ls = meta["L"], meta["b"], tuple(meta["t"]), meta["ls"]
     A = 1 << b
-    it = iter(arrays)
 
     def bitvector(length: int) -> BitVector:
         words = as_words(next(it), "cpu")
@@ -391,8 +399,6 @@ def index_from_numpy(meta: dict, arrays: Sequence[np.ndarray],
                           torch.from_numpy(np.asarray(next(it), np.int32).copy()),
                           b=b, suffix_len=L - ls, t_root=t[ls])
     id_leaf = torch.from_numpy(np.asarray(next(it), np.int32).copy())
-    if next(it, None) is not None:
-        raise ValueError("more arrays than the metadata describes")
     return SketchIndex(levels=tuple(levels), tail=tail, id_leaf=id_leaf,
                        L=L, b=b, n=meta["n"], t=t, lm=meta["lm"], ls=ls,
                        kinds=tuple(meta["kinds"])).to(device)

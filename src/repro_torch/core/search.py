@@ -285,13 +285,29 @@ def _search_trace(index: SketchIndex, q: torch.Tensor, *, tau: int,
 # searcher cache
 # ---------------------------------------------------------------------------
 
-# key: (id(index), tau, caps, block_m-or-None, with_live) -> (index, fn).
-# The index is held strongly in the value so its id can never be recycled
-# while the entry lives; FIFO-bounded so sweeps over many (index, τ, cap)
-# combinations cannot grow it without limit.
+# key: (id(index), tau, caps, block_m-or-None, with_live) -> (index, fn),
+# through ``_pin_cache_get``: the index is held strongly in the value so
+# its id can never be recycled while the entry lives; FIFO-bounded so
+# sweeps over many (index, τ, cap) combinations cannot grow it without
+# limit.
 _SEARCHER_CACHE: Dict[tuple, tuple] = {}
 _SEARCHER_CACHE_CAP = 128
 _CACHE_STATS = {"hits": 0, "misses": 0, "traces": 0}
+
+
+def _pin_cache_get(cache: dict, cap: int, key: tuple, obj, build):
+    """id-keyed bounded cache of the single-index, multi-index and
+    sharded searchers:
+    the value pins ``obj`` so that its id can never be recycled while
+    the entry lives; FIFO-evicts beyond ``cap``.  Returns (value, hit)."""
+    entry = cache.get(key)
+    if entry is not None and entry[0] is obj:
+        return entry[1], True
+    value = build()
+    while len(cache) >= cap:
+        cache.pop(next(iter(cache)))  # FIFO evict
+    cache[key] = (obj, value)
+    return value, False
 
 
 def _note_trace() -> None:
@@ -336,11 +352,6 @@ def get_searcher(index: SketchIndex, tau: int,
     (repeating the last query) and slice the results back to m."""
     caps = frontier_capacities(index.t, index.b, tau, cap_max)
     key = (id(index), tau, caps, block_m if batch else None, with_live)
-    entry = _SEARCHER_CACHE.get(key)
-    if entry is not None and entry[0] is index:
-        _CACHE_STATS["hits"] += 1
-        return entry[1]
-    _CACHE_STATS["misses"] += 1
 
     def run_one(q, id_live=None):
         return _search_trace(index, _as_queries(index, q), tau=tau, caps=caps,
@@ -355,10 +366,9 @@ def get_searcher(index: SketchIndex, tau: int,
                                   id_live=id_live)
         return res if mb == m else SearchResult(*(x[:m] for x in res))
 
-    fn = run_batch if batch else run_one
-    while len(_SEARCHER_CACHE) >= _SEARCHER_CACHE_CAP:
-        _SEARCHER_CACHE.pop(next(iter(_SEARCHER_CACHE)))  # FIFO evict
-    _SEARCHER_CACHE[key] = (index, fn)
+    fn, hit = _pin_cache_get(_SEARCHER_CACHE, _SEARCHER_CACHE_CAP, key,
+                             index, lambda: run_batch if batch else run_one)
+    _CACHE_STATS["hits" if hit else "misses"] += 1
     return fn
 
 

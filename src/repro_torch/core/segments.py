@@ -33,11 +33,12 @@ column-compressed — (m, R) over the *physical* rows currently held
 by global id.  Planes and top-k results are torch tensors on the index's
 device; column labels (``ColumnSearchResult.ids``) are host int64.
 
-The bst backend is ported whole: the hot and cold tiers of the column
-store (``hot_bytes``), ``explain=True`` with its per-rung record, the
-``obs`` spans and ``cost_hint``.  The multi-index and sharded backends,
-``ShardedSegmentedIndex`` and the durability ``store`` binding raise
-``NotImplementedError``.
+Three segment backends: "bst" (one bST per segment, on the tiered
+suffix column store or the full-length arena), "multi" (one MI-bST per
+segment) and "sharded" (one sharded bST per segment, its shards a
+leading batched axis).  ``ShardedSegmentedIndex`` keeps S independent
+stacks with round-robin inserts.  The durability ``store`` binding
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,14 +60,17 @@ from ..obs.trace import span as _obs_span
 from .bst import build_bst
 from .column_store import ColumnStore, tier_stats
 from .cost_model import cost_single, frontier_capacities, tau_for_k
-from .distributed_search import topk_from_dists
+from .distributed_search import (build_sharded_bst, make_sharded_searcher,
+                                 sharded_column_dists, topk_from_dists)
 from .hamming import (as_words, n_words, pack_suffix_words_torch,
                       pack_vertical, pack_vertical_torch, resolve_device,
                       unpack_vertical)
+from .multi_index import (build_multi_index, mi_column_dists,
+                          mi_search_batch, mi_trace_params)
 from .search import (CAP_MAX_DEFAULT, LADDER_CAP_MAX, TopKResult,
                      _CACHE_STATS, _note_trace, _pad_rows, _pad_topk,
-                     _traverse_frontier_batch, bucket_m, get_searcher,
-                     scatter_root_plane, searcher_cache_info,
+                     _pin_cache_get, _traverse_frontier_batch, bucket_m,
+                     get_searcher, scatter_root_plane, searcher_cache_info,
                      select_topk_columns, select_topk_scores)
 
 BIG_I = int(BIG)
@@ -81,8 +85,18 @@ LAYOUTS = ("suffix", "full")
 
 # Monotonic segment serials: every sealed Segment gets the next value,
 # and merged/compacted replacements get fresh ones.  Serials key the
-# fused-program cache — unlike ``id()``, a serial is never reused.
+# fused-program cache and the sharded searcher pin — unlike ``id()``, a
+# serial is never reused.
 _SEG_SERIALS = itertools.count()
+
+# The fan-out's sharded searchers, keyed on (segment serial, τ, cap) and
+# pinning their ShardedBST; FIFO-bounded.
+_SHARDED_SEARCHER_CACHE: Dict[tuple, tuple] = {}
+_SHARDED_SEARCHER_CACHE_CAP = 128
+
+# The frontier cap each backend's capacity ladder starts from.
+_LADDER_START = {"bst": CAP_MAX_DEFAULT, "multi": 1 << 15,
+                 "sharded": 1 << 14}
 
 # Program launches issued by the segmented query path: "fanout" counts
 # the per-segment reference path (one per segment searcher call,
@@ -132,7 +146,8 @@ class Segment:
     """One immutable sealed segment: a static index + host-side metadata.
 
     Attributes:
-      index:    the queryable ``SketchIndex`` (on the index's device).
+      index:    the queryable ``SketchIndex``, ``MultiIndex`` or
+                ``ShardedBST`` of the stack's backend (on its device).
       packed:   (n_seg, b, W) uint32 — the sealed sketches kept host-side
                 in ``pack_vertical`` bit-plane form; merges, compacts and
                 the suffix store unpack on demand through :attr:`sketches`.
@@ -398,23 +413,26 @@ class _ExplainRecorder:
     diagnostic: queries on other threads would bleed into the deltas
     (the counts read off the distance planes are always exact)."""
 
-    def __init__(self, index: "SegmentedIndex"):
+    def __init__(self, columns_fn, frontier_fn=None):
         self.t0 = time.perf_counter()
         self.cache0 = searcher_cache_info()
         self.disp0 = dispatch_stats()
         self.tier0 = tier_stats()
         self.rungs: List[RungExplain] = []
-        self._index = index
+        self._columns_fn = columns_fn
+        self._frontier_fn = frontier_fn
 
     def columns(self, qs, tau):
-        """The index's ``_columns``, recorded as one rung."""
+        """``columns_fn``'s planes, recorded as one rung (with the
+        frontier widths where ``frontier_fn`` samples them)."""
         t0 = time.perf_counter()
         d0 = dispatch_stats()
-        dist, col_ids, overflow = self._index._columns(qs, tau)
+        dist, col_ids, overflow = self._columns_fn(qs, tau)
         d1 = dispatch_stats()
         dt = (time.perf_counter() - t0) * 1e3
         surv = (dist < BIG_I).sum(dim=1).tolist()
-        frontier = self._index._frontier_widths(qs, tau)
+        frontier = (self._frontier_fn(qs, tau)
+                    if self._frontier_fn is not None else None)
         cand = int(dist.shape[1])
         self.rungs.append(RungExplain(
             tau=int(tau), candidates=cand, survivors=surv,
@@ -485,10 +503,12 @@ class SegmentedIndex:
     Parameters:
       L, b:       sketch length / bits per character (Σ = [0, 2^b)).
       delta_cap:  delta-buffer rows that trigger an automatic ``flush``.
-      backend:    "bst" (each segment is one bST); "multi" and "sharded"
-                  are not ported yet.
-      mi_blocks, n_shards: the other backends' parameters (kept for the
-                  JAX signature).
+      backend:    "bst" (default): each segment is one bST; "multi": one
+                  MI-bST over ``mi_blocks`` blocks; "sharded": one
+                  sharded bST over ``n_shards`` shards (clamped to the
+                  segment's row count).
+      mi_blocks:  block count of the "multi" backend.
+      n_shards:   shard count of the "sharded" backend.
       lam:        the paper's λ collapse parameter, forwarded to builds.
       auto_merge: run the size-tiered merge policy after every automatic
                   flush (manual ``flush()`` never merges implicitly).
@@ -496,8 +516,9 @@ class SegmentedIndex:
       use_arena:  serve queries through the fused program (one dispatch
                   per τ rung regardless of segment count); False runs the
                   per-segment reference fan-out.
-      layout:     "suffix" (default): packed per-segment suffix columns
-                  in the ``ColumnStore``; "full": the full-length
+      layout:     the bst backend's column layout: "suffix" (default):
+                  packed per-segment suffix columns in the
+                  ``ColumnStore``; "full": the full-length
                   ``_ColumnArena`` reference.
       hot_bytes:  device budget of the column store (``None``: every
                   block on the device); past it, the least recently used
@@ -534,8 +555,6 @@ class SegmentedIndex:
             raise ValueError(f"backend must be one of {BACKENDS}")
         if layout not in LAYOUTS:
             raise ValueError(f"layout must be one of {LAYOUTS}")
-        if backend != "bst":
-            raise _unported(f"backend={backend!r}")
         self.device = resolve_device(device)
         self.L = int(L)
         self.b = int(b)
@@ -812,7 +831,7 @@ class SegmentedIndex:
         the identical planes plus the per-rung pruning record."""
         qs = self._as_batch(qs)
         if explain:
-            rec = _ExplainRecorder(self)
+            rec = self._explain_recorder()
             dist, col_ids, overflow = rec.columns(qs, int(tau))
             res = ColumnSearchResult(mask=dist <= tau, dist=dist,
                                      ids=col_ids, overflow=overflow)
@@ -840,7 +859,7 @@ class SegmentedIndex:
         QueryExplain)``: the identical planes plus the pruning record."""
         qs = self._as_batch(qs)
         if explain:
-            rec = _ExplainRecorder(self)
+            rec = self._explain_recorder()
             plane, overflow = self._search_planes(
                 qs, int(tau), columns_fn=rec.columns)
             res = SegmentedSearchResult(mask=plane <= tau, dist=plane,
@@ -1044,6 +1063,13 @@ class SegmentedIndex:
     # -- internals -------------------------------------------------------
 
     def _build(self, sk: np.ndarray):
+        if self.backend == "multi":
+            return build_multi_index(sk, self.b, self.mi_blocks, self.lam,
+                                     device=self.device)
+        if self.backend == "sharded":
+            return build_sharded_bst(sk, self.b,
+                                     max(1, min(self.n_shards, len(sk))),
+                                     self.lam, device=self.device)
         return build_bst(sk, self.b, self.lam, device=self.device)
 
     def _q_tensor(self, qs: np.ndarray) -> torch.Tensor:
@@ -1139,6 +1165,11 @@ class SegmentedIndex:
 
     # -- query explain ---------------------------------------------------
 
+    def _explain_recorder(self) -> _ExplainRecorder:
+        """Frontier widths are sampled on the bst backend only (the multi
+        and sharded traversals have no single per-level frontier)."""
+        return _ExplainRecorder(self._columns, self._frontier_widths)
+
     def _explain_topk(self, qs: np.ndarray, k: int, tau0: Optional[int],
                       rerank: Optional[str], q_payloads):
         """The explain-mode kNN: the shared τ ladder over this index's
@@ -1147,7 +1178,7 @@ class SegmentedIndex:
         bit-identical to (``_ladder_topk`` against ``_fused_topk``,
         ``_ladder_topk_rerank`` against ``_fused_topk_rerank``), so the
         result is the ``explain=False`` one."""
-        rec = _ExplainRecorder(self)
+        rec = self._explain_recorder()
         columns_fn = rec.columns
         if rerank is not None:
             q_pay = self._check_rerank(rerank, q_payloads, qs.shape[0])
@@ -1170,9 +1201,9 @@ class SegmentedIndex:
                          tau: int) -> Optional[List[List[int]]]:
         """Per-query, per-trie-level live frontier widths at this τ,
         summed across the segment stack ((m, L); levels past a segment's
-        collapse depth ℓ_s contribute nothing).  Explain only: one extra
-        program run, outside the dispatch ledger."""
-        if not self.segments:
+        collapse depth ℓ_s contribute nothing).  Explain only, bst backend
+        only: one extra program run, outside the dispatch ledger."""
+        if self.backend != "bst" or not self.segments:
             return None
         m = qs.shape[0]
         qs_t = self._q_tensor(qs)
@@ -1221,10 +1252,34 @@ class SegmentedIndex:
     def _search_segment(self, seg: Segment, qs_t: torch.Tensor,
                         tau: int) -> Tuple[torch.Tensor, int]:
         """One segment, the whole batch -> ((m, n_seg) int32 exact local
-        distances — BIG off-mask and on tombstones, overflow): the cached
-        batch searcher with the tombstone bitmap, on the doubled capacity
-        ladder until exact."""
+        distances — BIG off-mask and on tombstones, overflow): the
+        backend's cached searcher with the tombstone bitmap, on the
+        doubled capacity ladder until exact."""
         live_t = torch.from_numpy(seg.live).to(self.device)
+        if self.backend == "multi":
+            _dispatch("fanout")
+            res = mi_search_batch(seg.index, qs_t, tau, block_m=self.block_m,
+                                  id_live=live_t)
+            return res.dist, int(res.overflow.sum())
+        if self.backend == "sharded":
+            idx = seg.index
+            cap = _LADDER_START["sharded"]
+            while True:
+                # keyed on the segment serial, never id(): a merged-away
+                # segment can never alias a live one's searcher
+                fn, _ = _pin_cache_get(
+                    _SHARDED_SEARCHER_CACHE, _SHARDED_SEARCHER_CACHE_CAP,
+                    (seg.serial, tau, cap), idx,
+                    lambda: make_sharded_searcher(idx, tau, cap_max=cap))
+                _dispatch("fanout")
+                _, dists, ov = fn(qs_t)
+                ov = int(ov)
+                if ov == 0 or cap >= LADDER_CAP_MAX:
+                    break
+                cap *= 2
+            m = dists.shape[0]
+            merged = dists.reshape(m, -1).index_select(1, idx.merge_idx)
+            return torch.where(live_t[None, :], merged, BIG_I), ov
         cap = CAP_MAX_DEFAULT
         while True:
             fn = get_searcher(seg.index, tau, cap, batch=True,
@@ -1345,8 +1400,10 @@ class SegmentedIndex:
             self._fused_stamp = (serials, gen)
         key = (self.backend, self.layout, self._fused_id, serials, gen,
                kind, tau, rung, kk, self.block_m)
-        build = (self._build_fused_bst_suffix if self._suffix_store()
-                 else self._build_fused_bst)
+        build = {"bst": (self._build_fused_bst_suffix if self._suffix_store()
+                         else self._build_fused_bst),
+                 "multi": self._build_fused_multi,
+                 "sharded": self._build_fused_sharded}[self.backend]
         return self._cache_get(key, lambda: build(kind, tau, rung, kk))
 
     def _stack_constants(self, tau: int, rung: int):
@@ -1445,20 +1502,99 @@ class SegmentedIndex:
                 sealed = sealed.index_select(1, inv)
             # the delta buffer scans full-length (its rows have no trie,
             # hence no ℓ_s to slice at); its columns come last in both
-            # orders.  An empty buffer launches nothing.
-            if delta_vert.shape[-1]:
-                q_vert = ops.to_lane_major(pack_vertical_torch(qs, b_))
-                dd = ops.hamming_distances(delta_vert, q_vert)
-                dd = torch.where(delta_live[None, :] & (dd <= tau), dd, BIG_I)
-                dist = torch.cat([sealed, dd], dim=1)
-            else:
-                dist = sealed
+            # orders
+            dist = torch.cat([sealed, self._delta_scan(qs, delta_vert,
+                                                       delta_live, tau)],
+                             dim=1)
             return self._finish(kind, dist, overflow,
                                 lambda: torch.cat([gids0, delta_gids]), kk)
         return run
 
+    def _delta_scan(self, qs: torch.Tensor, delta_vert: torch.Tensor,
+                    delta_live: torch.Tensor, tau: int) -> torch.Tensor:
+        """The delta buffer's full-length brute scan (the scan kernel),
+        clamped to τ and liveness: (m, ndb) int32, BIG off.  An empty
+        buffer launches nothing."""
+        if not delta_vert.shape[-1]:
+            return torch.zeros((qs.shape[0], 0), dtype=torch.int32,
+                               device=qs.device)
+        q_vert = ops.to_lane_major(pack_vertical_torch(qs, self.b))
+        dd = ops.hamming_distances(delta_vert, q_vert)
+        return torch.where(delta_live[None, :] & (dd <= tau), dd, BIG_I)
+
+    def _build_fused_multi(self, kind: str, tau: int, rung: int,
+                           kk: Optional[int]):
+        """The program for MI segments: each segment's batched MI search
+        (per-block traversals, then ONE batched candidate-verify launch
+        for all queries).  The candidate capacity doubles per rung with
+        the frontier caps."""
+        cap_max = _LADDER_START["multi"] << rung
+        block_m = self.block_m
+
+        def segment(mi):
+            caps_pb, cc = mi_trace_params(mi, tau, cap_max)
+            cc = min(cc << rung, mi.n)
+            return lambda qs, live: mi_column_dists(
+                mi, qs, tau, caps_pb, cc, block_m=block_m, id_live=live)
+        return self._build_fused_columns(
+            kind, tau, kk, [segment(seg.index) for seg in self.segments])
+
+    def _build_fused_sharded(self, kind: str, tau: int, rung: int,
+                             kk: Optional[int]):
+        """The program for sharded-bST segments: each segment's per-shard
+        traversals and ONE shard-batched verify launch, merged onto its
+        global columns on the device (``sharded_column_dists``)."""
+        cap = _LADDER_START["sharded"] << rung
+        block_m = self.block_m
+
+        def segment(idx):
+            t_host = idx.t.cpu().numpy()
+            caps = frontier_capacities(
+                tuple(int(x) for x in t_host.max(axis=0)), self.b, tau, cap)
+            return lambda qs, live: sharded_column_dists(
+                idx, qs, tau, caps, block_m=block_m, live=live,
+                t_host=t_host)
+        return self._build_fused_columns(
+            kind, tau, kk, [segment(seg.index) for seg in self.segments])
+
+    def _build_fused_columns(self, kind: str, tau: int, kk: Optional[int],
+                             seg_fns):
+        """The multi and sharded programs' body: every segment's (m,
+        n_seg) column distances (``seg_fns``: fn(qs, live) -> (dist,
+        overflow)), the delta scan through the scan kernel, and the
+        shared tail."""
+        gids0 = self._sealed_gids()
+
+        def run(qs, seg_lives, delta_vert, delta_live, delta_gids):
+            dists: List[torch.Tensor] = []
+            overflow = torch.zeros((), dtype=torch.int64, device=qs.device)
+            for fn, live in zip(seg_fns, seg_lives):
+                d, o = fn(qs, live)
+                dists.append(d)
+                overflow += o.sum()
+            dists.append(self._delta_scan(qs, delta_vert, delta_live, tau))
+            return self._finish(kind, torch.cat(dists, dim=1), overflow,
+                                lambda: torch.cat([gids0, delta_gids]), kk)
+        return run
+
+    def _sealed_gids(self) -> torch.Tensor:
+        """(R,) int32 global id per sealed column, stack order, on the
+        device (the multi and sharded programs' selection labels)."""
+        if not self.segments:
+            return torch.zeros((0,), dtype=torch.int32, device=self.device)
+        return torch.from_numpy(np.concatenate(
+            [seg.ids for seg in self.segments]).astype(np.int32)).to(
+                self.device)
+
     def _fused_saturated(self, rung: int) -> bool:
-        return (CAP_MAX_DEFAULT << rung) >= LADDER_CAP_MAX
+        if (_LADDER_START[self.backend] << rung) < LADDER_CAP_MAX:
+            return False
+        if self.backend == "multi":
+            # the candidate caps floor at 1024 and double per rung beside
+            # the frontier caps (mi_search_batch's ladder)
+            return all((1024 << rung) >= seg.index.n
+                       for seg in self.segments)
+        return True
 
     def _delta_args(self):
         """(delta_vert, delta_live, delta_gids) bucketed to ``ndb``: the
@@ -1501,8 +1637,11 @@ class SegmentedIndex:
             # query's own uploads go first: queued behind a staging copy
             # on the copy engine, one would hold up the stream.
             args = (store.live, store.stage()) + delta
-        else:
+        elif self.backend == "bst":
             args = (self._refresh_arena().live,) + delta
+        else:
+            args = (tuple(torch.from_numpy(seg.live).to(self.device)
+                          for seg in self.segments),) + delta
         if before_dispatch is not None:
             before_dispatch()
         rung = 0
@@ -1646,7 +1785,8 @@ class SegmentedIndex:
         if self._pay_arena is None:
             self._pay_arena = _PayloadArena(self.payload_words, self.device)
         pays0 = self._pay_arena.refresh(self.segments, self._seg_serials())
-        gids0 = self._refresh_arena().gids
+        gids0 = (self._refresh_arena().gids if self.backend == "bst"
+                 else self._sealed_gids())
 
         def run(dist, q_pay, delta_pay, delta_gids):
             pays = torch.cat([pays0, delta_pay], dim=-1)
@@ -1700,3 +1840,245 @@ class SegmentedIndex:
                                                   scores[:m], int(k))
         return TopKResult(ids=ids, dists=dists, tau=tau, overflow=int(ov),
                           scores=scores)
+
+
+class ShardedSegmentedIndex:
+    """S independent segment stacks, one per shard — the dynamic analogue
+    of ``build_sharded_bst``'s layout: inserts go round-robin across the
+    shards (global id ``i`` to shard ``i % S``, local id ``i // S``),
+    deletes route by id, and queries fan out over every shard's stack
+    before the shared shard-merge selection.  A merge touches 1/S of the
+    data.  ``hot_bytes`` splits evenly across the stacks.
+
+    Same result contract as ``SegmentedIndex`` (global-id planes,
+    ``TopKResult`` with global ids).  The durability ``store`` binding
+    raises ``NotImplementedError``.
+    """
+
+    def __init__(self, L: int, b: int, n_shards: int = 4, *,
+                 delta_cap: int = 4096, backend: str = "bst",
+                 lam: float = 0.5, auto_merge: bool = True,
+                 block_m: int = DEFAULT_BLOCK_M, use_arena: bool = True,
+                 layout: str = "suffix", hot_bytes: Optional[int] = None,
+                 payload_words: Optional[int] = None, device="cuda"):
+        if n_shards < 1:
+            raise ValueError("n_shards must be >= 1")
+        self.device = resolve_device(device)
+        self.L, self.b = int(L), int(b)
+        self.n_shards = int(n_shards)
+        self.block_m = int(block_m)
+        self.payload_words = (None if payload_words is None
+                              else int(payload_words))
+        per_stack = (None if hot_bytes is None
+                     else max(0, int(hot_bytes) // self.n_shards))
+        self.shards = [
+            SegmentedIndex(L, b, delta_cap=delta_cap, backend=backend,
+                           lam=lam, auto_merge=auto_merge, block_m=block_m,
+                           use_arena=use_arena, layout=layout,
+                           hot_bytes=per_stack,
+                           payload_words=self.payload_words,
+                           device=self.device)
+            for _ in range(self.n_shards)]
+        self.n_ids = 0
+
+    @property
+    def store(self):
+        """The durability binding; none is ported, so always None."""
+        return None
+
+    @store.setter
+    def store(self, binding) -> None:
+        if binding is not None:
+            raise _unported("the durability store binding")
+
+    def insert(self, sketches: np.ndarray,
+               payloads: Optional[np.ndarray] = None) -> np.ndarray:
+        """Round-robin insert; returns (k,) int64 global ids.  With
+        ``payload_words`` set, ``payloads`` carries the rows' (k, Wp)
+        uint32 set bitmaps, routed with their rows."""
+        sk = np.asarray(sketches, dtype=np.uint8)
+        if sk.ndim == 1:
+            sk = sk[None, :]
+        k = sk.shape[0]
+        pay = self.shards[0]._check_payloads(payloads, k)
+        new_ids = np.arange(self.n_ids, self.n_ids + k, dtype=np.int64)
+        for s in range(self.n_shards):
+            rows = np.flatnonzero(new_ids % self.n_shards == s)
+            if rows.size:
+                self.shards[s].insert(
+                    sk[rows], payloads=pay[rows] if pay is not None else None)
+        self.n_ids += k
+        return new_ids
+
+    def delete(self, ids) -> int:
+        """Tombstone global ids; returns the number newly deleted."""
+        ids = np.atleast_1d(np.asarray(ids, dtype=np.int64))
+        ids = ids[(ids >= 0) & (ids < self.n_ids)]
+        newly = 0
+        for s in range(self.n_shards):
+            mine = ids[ids % self.n_shards == s]
+            if mine.size:
+                newly += self.shards[s].delete(mine // self.n_shards)
+        return newly
+
+    def flush(self) -> None:
+        for shard in self.shards:
+            shard.flush()
+
+    def merge(self) -> int:
+        """Size-tiered merge inside every shard's stack; returns the
+        merges performed."""
+        return sum(shard.maybe_merge() for shard in self.shards)
+
+    def compact(self, min_dead_frac: float = 0.0) -> int:
+        return sum(shard.compact(min_dead_frac=min_dead_frac)
+                   for shard in self.shards)
+
+    @property
+    def n_live(self) -> int:
+        return sum(shard.n_live for shard in self.shards)
+
+    def __len__(self) -> int:
+        return self.n_live
+
+    def space_bits(self) -> int:
+        return sum(shard.space_bits() for shard in self.shards)
+
+    def cost_hint(self, op: str, *, k: Optional[int] = None,
+                  tau: Optional[int] = None, rows: int = 1) -> float:
+        """Sum of the per-stack cost hints (every stack answers every
+        read; writes split their rows round-robin)."""
+        per_rows = max(rows // len(self.shards), 1) if op == "write" \
+            else rows
+        return sum(s.cost_hint(op, k=k, tau=tau, rows=per_rows)
+                   for s in self.shards)
+
+    @property
+    def tombstones(self) -> int:
+        return sum(shard.tombstones for shard in self.shards)
+
+    def space_ledger(self) -> Dict[str, int]:
+        led = {"model_bits": 0, "device_bytes": 0, "host_bytes": 0}
+        for shard in self.shards:
+            for k, v in shard.space_ledger().items():
+                led[k] += v
+        return led
+
+    def stats(self) -> Dict[str, object]:
+        led = self.space_ledger()
+        return {"n_ids": self.n_ids, "n_live": self.n_live,
+                "tombstones": self.tombstones,
+                "n_segments": sum(len(s.segments) for s in self.shards),
+                "arena_bytes": sum(
+                    s._arena.array_bytes() if s._arena is not None else 0
+                    for s in self.shards),
+                "device_bytes": led["device_bytes"],
+                "host_bytes": led["host_bytes"],
+                "shards": [shard.stats() for shard in self.shards]}
+
+    def _search_columns(self, qs: np.ndarray, tau: int
+                        ) -> Tuple[torch.Tensor, np.ndarray, int]:
+        """Column-compressed fan-out over every shard's stack, local
+        column ids relabelled to global (``gid = local * S + s``).  Each
+        stack answers through its own fused program (one dispatch per
+        shard per rung)."""
+        dists: List[torch.Tensor] = []
+        col_ids: List[np.ndarray] = []
+        overflow = 0
+        for s, shard in enumerate(self.shards):
+            dist, local_ids, ov = shard._columns(qs, tau)
+            dists.append(dist)
+            col_ids.append(local_ids * self.n_shards + s)
+            overflow += ov
+        return torch.cat(dists, dim=1), np.concatenate(col_ids), overflow
+
+    def _global_plane(self, qs: np.ndarray, tau: int,
+                      columns_fn=None) -> Tuple[torch.Tensor, int]:
+        dist, col_ids, overflow = (columns_fn or self._search_columns)(qs,
+                                                                       tau)
+        plane = torch.full((qs.shape[0], self.n_ids), BIG_I,
+                           dtype=torch.int32, device=self.device)
+        plane[:, torch.from_numpy(col_ids).to(self.device)] = dist
+        return plane, overflow
+
+    def search_batch(self, qs: np.ndarray, tau: int,
+                     explain: bool = False) -> SegmentedSearchResult:
+        """(m, L) uint8 queries -> global (m, n_ids) mask/dist planes.
+        ``explain=True`` appends the ``QueryExplain`` record."""
+        qs = SegmentedIndex._as_batch(qs)
+        rec = _ExplainRecorder(self._search_columns) if explain else None
+        plane, overflow = self._global_plane(
+            qs, int(tau), rec.columns if explain else None)
+        res = SegmentedSearchResult(mask=plane <= tau, dist=plane,
+                                    overflow=overflow)
+        if not explain:
+            return res
+        return res, rec.finish(
+            op="search", backend="sharded-stacks", n_queries=qs.shape[0],
+            n_live=self.n_live, k=None, tau0=int(tau), tau_final=int(tau),
+            rerank=None)
+
+    def search(self, q: np.ndarray, tau: int,
+               explain: bool = False) -> SegmentedSearchResult:
+        out = self.search_batch(np.asarray(q)[None], tau, explain=explain)
+        res, ex = out if explain else (out, None)
+        res = SegmentedSearchResult(mask=res.mask[0], dist=res.dist[0],
+                                    overflow=res.overflow)
+        return (res, ex) if explain else res
+
+    def _payload_rows(self) -> np.ndarray:
+        """(R, Wp) uint32 payload rows in the global column order of
+        ``_search_columns`` (shard 0's columns, then shard 1's, ...)."""
+        return np.concatenate([shard._payload_rows() for shard in self.shards],
+                              axis=0)
+
+    def topk_batch(self, qs: np.ndarray, k: int,
+                   tau0: Optional[int] = None, *,
+                   rerank: Optional[str] = None,
+                   q_payloads: Optional[np.ndarray] = None,
+                   explain: bool = False) -> TopKResult:
+        """Exact global kNN: the per-shard fan-out on one shared τ ladder
+        (the contract of ``SegmentedIndex.topk_batch``, the two-stage
+        ``rerank=`` included: stage 2 is ONE re-rank dispatch over the
+        merged survivor plane).  ``explain=True`` appends the
+        ``QueryExplain`` record (bit-identical result)."""
+        qs = SegmentedIndex._as_batch(qs)
+        rec = _ExplainRecorder(self._search_columns) if explain else None
+        columns_fn = rec.columns if explain else self._search_columns
+        if rerank is not None:
+            q_pay = self.shards[0]._check_rerank(rerank, q_payloads,
+                                                 qs.shape[0])
+            res = _ladder_topk_rerank(
+                columns_fn, self._payload_rows, self.n_live, self.b, self.L,
+                self.block_m, qs, k, tau0, rerank, q_pay, self.device)
+        else:
+            if q_payloads is not None:
+                raise ValueError("q_payloads supplied without rerank=")
+            res = _ladder_topk(columns_fn, self.n_live, self.b, self.L, qs,
+                               k, tau0, self.device)
+        if not explain:
+            return res
+        return res, rec.finish(
+            op="topk", backend="sharded-stacks", n_queries=qs.shape[0],
+            n_live=self.n_live, k=int(k),
+            tau0=None if tau0 is None else int(tau0),
+            tau_final=int(res.tau), rerank=rerank)
+
+    def topk(self, q: np.ndarray, k: int,
+             tau0: Optional[int] = None, *,
+             rerank: Optional[str] = None,
+             q_payloads: Optional[np.ndarray] = None,
+             explain: bool = False) -> TopKResult:
+        qp = None
+        if q_payloads is not None:
+            qp = np.asarray(q_payloads, np.uint32)
+            if qp.ndim == 1:
+                qp = qp[None, :]
+        out = self.topk_batch(np.asarray(q)[None], k, tau0=tau0,
+                              rerank=rerank, q_payloads=qp, explain=explain)
+        res, ex = out if explain else (out, None)
+        res = TopKResult(ids=res.ids[0], dists=res.dists[0], tau=res.tau,
+                         overflow=res.overflow,
+                         scores=(None if res.scores is None
+                                 else res.scores[0]))
+        return (res, ex) if explain else res

@@ -37,9 +37,11 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "hamming_distances_launch": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
-    "sparse_verify_batch_launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
-                                   _I, _I, _P],
+    "hamming_distances_batched_launch": [_P, _P, _P, _LL, _I, _I, _I, _I,
+                                         _LL, _LL, _LL, _I, _I, _P],
+    "sparse_verify_batch_batched_launch": [_P, _P, _P, _P, _P, _LL, _I, _I,
+                                           _I, _I, _I, _LL, _LL, _LL, _LL,
+                                           _I, _I, _P],
     "sparse_verify_arena_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
                                    _LL, _I, _I, _I, _I, _P],
     "sparse_verify_arena_packed_launch": [_P, _P, _P, _P, _P, _P, _P, _P,

@@ -18,6 +18,12 @@ kernel take their own tiles, and accept the two for the common
 signature only.  The kernels mask the ragged edges themselves, so
 nothing is padded here.
 
+``hamming_distances_batched`` and ``sparse_verify_batch_batched`` are
+the scan and the verify over a leading batch axis, in one launch
+(grid.z): the MI-bST verify batches per-query candidate sets, the
+sharded bST verify its shards.  The unbatched scan and static
+verifies launch the same kernels at batch 1.
+
 ``flash_attention_fwd`` is the one float kernel: (B, H, S, D) float32 or
 bfloat16 attention, read through strides.
 """
@@ -105,40 +111,75 @@ def _slab(T: int, device: torch.device):
 
 def _check(name: str, db: torch.Tensor, q: torch.Tensor,
            base: torch.Tensor | None) -> None:
+    """The scan's and the verifies' operands: contiguous int32 (B, b, W, n)
+    planes, queries (B or 1, b, W, m) and, for the verify, a (B, m, n)
+    int32 base plane.  The unbatched wrappers pass their operands as the
+    B = 1 views ``x[None]``."""
     for what, x in (("database", db), ("queries", q)):
-        if x.dtype != torch.int32 or x.dim() != 3 or not x.is_contiguous():
+        if x.dtype != torch.int32 or x.dim() != 4 or not x.is_contiguous():
             raise ValueError(f"{name}: {what} must be a contiguous (b, W, ·) "
-                             f"int32 bit-view, got {x.dtype} {tuple(x.shape)}")
+                             f"int32 bit-view (batched: (B, b, W, ·)), got "
+                             f"{x.dtype} {tuple(x.shape[1:])} under batch "
+                             f"{x.shape[0] if x.dim() else None}")
         if x.device != db.device:
             raise ValueError(f"{name}: {what} on {x.device}, "
                              f"database on {db.device}")
-    if q.shape[:2] != db.shape[:2]:
-        raise ValueError(f"{name}: query planes {tuple(q.shape[:2])} != "
-                         f"database planes {tuple(db.shape[:2])}")
+    B = db.shape[0]
+    if q.shape[1:3] != db.shape[1:3]:
+        raise ValueError(f"{name}: query planes {tuple(q.shape[1:3])} != "
+                         f"database planes {tuple(db.shape[1:3])}")
+    if q.shape[0] not in (1, B):
+        raise ValueError(f"{name}: query batch {q.shape[0]} is neither 1 "
+                         f"nor the database batch {B}")
     if base is not None and (base.dtype != torch.int32
-                             or base.shape != (q.shape[-1], db.shape[-1])
+                             or base.shape != (B, q.shape[-1], db.shape[-1])
                              or not base.is_contiguous()
                              or base.device != db.device):
         raise ValueError(f"{name}: base must be a contiguous (m, n) int32 "
-                         f"tensor on {db.device}, got {base.dtype} "
-                         f"{tuple(base.shape)} on {base.device}")
+                         f"tensor (batched: (B, m, n)) on {db.device}, got "
+                         f"{base.dtype} {tuple(base.shape)} on {base.device}")
+    if B > 65535:
+        raise ValueError(f"{name}: batch {B} exceeds the grid's z extent")
+
+
+def _launch_scan(name, db_vert, q_vert, block_m, block_n):
+    """(B, b, W, n) x (B or 1, b, W, m) -> (B, m, n) in one launch
+    (grid.z = B), counted under ``name``; a query batch of 1 is shared
+    (batch stride 0)."""
+    from . import _build
+    _check(name, db_vert, q_vert, None)
+    B, b, W, n = db_vert.shape
+    m = q_vert.shape[-1]
+    out = torch.empty((B, m, n), dtype=torch.int32, device=db_vert.device)
+    lib = _build.load_library()
+    code = lib.hamming_distances_batched_launch(
+        db_vert.data_ptr(), q_vert.data_ptr(), out.data_ptr(), n, m, b, W, B,
+        b * W * n, 0 if q_vert.shape[0] == 1 else b * W * m, m * n,
+        _tile_m(block_m, m), block_n,
+        torch.cuda.current_stream(db_vert.device).cuda_stream)
+    _build.check(lib, code, name)
+    _count(name, B * m * n > 0)
+    return out
 
 
 def _launch_verify(name, paths_vert, q_vert, base, tau, block_m, block_n):
+    """(B, b, W, n) paths x (1, b, W, m) shared queries + (B, m, n) base ->
+    ((B, m, n) masks, (B, m, n) totals) in one launch, counted under
+    ``name``."""
     from . import _build
     _check(name, paths_vert, q_vert, base)
-    b, W, n = paths_vert.shape
+    B, b, W, n = paths_vert.shape
     m = q_vert.shape[-1]
-    mask = torch.empty((m, n), dtype=torch.int32, device=paths_vert.device)
+    mask = torch.empty((B, m, n), dtype=torch.int32, device=paths_vert.device)
     dist = torch.empty_like(mask)
     lib = _build.load_library()
-    code = lib.sparse_verify_batch_launch(
+    code = lib.sparse_verify_batch_batched_launch(
         paths_vert.data_ptr(), q_vert.data_ptr(), base.data_ptr(),
-        mask.data_ptr(), dist.data_ptr(), n, m, b, W, int(tau),
-        _tile_m(block_m, m), block_n,
+        mask.data_ptr(), dist.data_ptr(), n, m, b, W, int(tau), B,
+        b * W * n, 0, m * n, m * n, _tile_m(block_m, m), block_n,
         torch.cuda.current_stream(paths_vert.device).cuda_stream)
     _build.check(lib, code, name)
-    _count(name, m * n > 0)
+    _count(name, B * m * n > 0)
     return mask, dist
 
 
@@ -146,23 +187,55 @@ def hamming_distances(db_vert: torch.Tensor, q_vert: torch.Tensor,
                       *, block_m: int = DEFAULT_BLOCK_M,
                       block_n: int = DEFAULT_BLOCK_N,
                       use_kernel: bool | None = None) -> torch.Tensor:
-    """(b, W, n) x (b, W, m) -> (m, n) int32 Hamming distances."""
+    """(b, W, n) x (b, W, m) -> (m, n) int32 Hamming distances: the
+    batch-1 case of ``hamming_distances_batched``."""
     if not _on_kernel(db_vert, use_kernel):
         _count("hamming_distances", False)
         return ref.hamming_distances_ref(db_vert, q_vert)
-    from . import _build
-    _check("hamming_distances", db_vert, q_vert, None)
-    b, W, n = db_vert.shape
-    m = q_vert.shape[-1]
-    out = torch.empty((m, n), dtype=torch.int32, device=db_vert.device)
-    lib = _build.load_library()
-    code = lib.hamming_distances_launch(
-        db_vert.data_ptr(), q_vert.data_ptr(), out.data_ptr(), n, m, b, W,
-        _tile_m(block_m, m), block_n,
-        torch.cuda.current_stream(db_vert.device).cuda_stream)
-    _build.check(lib, code, "hamming_distances")
-    _count("hamming_distances", m * n > 0)
-    return out
+    return _launch_scan("hamming_distances", db_vert[None], q_vert[None],
+                        block_m, block_n)[0]
+
+
+def hamming_distances_batched(db_vert: torch.Tensor, q_vert: torch.Tensor,
+                              *, block_m: int = DEFAULT_BLOCK_M,
+                              block_n: int = DEFAULT_BLOCK_N,
+                              use_kernel: bool | None = None) -> torch.Tensor:
+    """(B, b, W, n) x (B or 1, b, W, m) -> (B, m, n) int32 Hamming
+    distances: ``hamming_distances`` for B databases in ONE launch
+    (grid.z = B).  A query batch of 1 is shared by every entry (batch
+    stride 0).  The MI-bST candidate verify passes its per-query
+    candidate sets, (m, b, W, C) against (m, b, W, 1): one query per
+    entry, so the kernel plays a query tile of one."""
+    if not _on_kernel(db_vert, use_kernel):
+        _count("hamming_distances_batched", False)
+        return ref.hamming_distances_batched_ref(db_vert, q_vert)
+    return _launch_scan("hamming_distances_batched", db_vert, q_vert,
+                        block_m, block_n)
+
+
+def sparse_verify_batch_batched(paths_vert: torch.Tensor,
+                                q_vert: torch.Tensor,
+                                base_dist: torch.Tensor, *, tau: int,
+                                block_m: int = DEFAULT_BLOCK_M,
+                                block_n: int = DEFAULT_BLOCK_N,
+                                use_kernel: bool | None = None):
+    """``sparse_verify_batch`` for B databases in ONE launch (grid.z = B):
+
+    paths_vert: (B, b, W, n) — one collapsed-path array per entry (the
+                sharded bST's padded shards);
+    q_vert:     (b, W, m) — the query suffixes, shared (batch stride 0);
+    base_dist:  (B, m, n) per-entry prefix distances (BIG = pruned);
+    returns ((B, m, n) int32 masks, (B, m, n) int32 totals, BIG-clamped).
+    """
+    base_dist = base_dist.to(torch.int32)
+    if not _on_kernel(paths_vert, use_kernel):
+        _count("sparse_verify_batch_batched", False)
+        mask, dist = ref.sparse_verify_batch_batched_ref(paths_vert, q_vert,
+                                                         base_dist, tau)
+        return mask.to(torch.int32), dist
+    return _launch_verify("sparse_verify_batch_batched", paths_vert,
+                          q_vert[None], base_dist.contiguous(), tau, block_m,
+                          block_n)
 
 
 def sparse_verify(paths_vert: torch.Tensor, q_vert: torch.Tensor,
@@ -183,11 +256,11 @@ def sparse_verify(paths_vert: torch.Tensor, q_vert: torch.Tensor,
         _count("sparse_verify", False)
         mask, dist = ref.sparse_verify_ref(paths_vert, q_vert, base_dist, tau)
         return mask.to(torch.int32), dist
-    mask, dist = _launch_verify("sparse_verify", paths_vert,
-                                q_vert[..., None].contiguous(),
-                                base_dist[None, :].contiguous(), tau, 1,
+    mask, dist = _launch_verify("sparse_verify", paths_vert[None],
+                                q_vert[None, ..., None].contiguous(),
+                                base_dist[None, None, :].contiguous(), tau, 1,
                                 block_n)
-    return mask[0], dist[0]
+    return mask[0, 0], dist[0, 0]
 
 
 def sparse_verify_batch(paths_vert: torch.Tensor, q_vert: torch.Tensor,
@@ -196,7 +269,8 @@ def sparse_verify_batch(paths_vert: torch.Tensor, q_vert: torch.Tensor,
                         block_m: int = DEFAULT_BLOCK_M,
                         block_n: int = DEFAULT_BLOCK_N,
                         use_kernel: bool | None = None):
-    """Fused query-tiled verify over a whole batch.
+    """Fused query-tiled verify over a whole batch (the batch-1 case of
+    ``sparse_verify_batch_batched``).
 
     paths_vert: (b, W, n) collapsed suffix paths (shared database);
     q_vert:     (b, W, m) query suffixes;
@@ -213,8 +287,10 @@ def sparse_verify_batch(paths_vert: torch.Tensor, q_vert: torch.Tensor,
         mask, dist = ref.sparse_verify_batch_ref(paths_vert, q_vert,
                                                  base_dist, tau)
         return mask.to(torch.int32), dist
-    return _launch_verify("sparse_verify_batch", paths_vert, q_vert,
-                          base_dist.contiguous(), tau, block_m, block_n)
+    mask, dist = _launch_verify("sparse_verify_batch", paths_vert[None],
+                                q_vert[None], base_dist[None].contiguous(),
+                                tau, block_m, block_n)
+    return mask[0], dist[0]
 
 
 def _check_lanes(name: str, n: int, base_plane: torch.Tensor, m: int,
@@ -267,7 +343,7 @@ def sparse_verify_arena(paths_vert: torch.Tensor, q_vert: torch.Tensor,
         return mask.to(torch.int32), dist
     from . import _build
     name = "sparse_verify_arena"
-    _check(name, paths_vert, q_vert, None)
+    _check(name, paths_vert[None], q_vert[None], None)
     b, W, n = paths_vert.shape
     m = q_vert.shape[-1]
     dev = paths_vert.device

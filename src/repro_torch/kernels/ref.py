@@ -39,15 +39,7 @@ def hamming_distances_ref(db_vert: torch.Tensor,
     q_vert:  (b, W, m) int32 — m queries in the same layout;
     returns: (m, n) int32 distances.
     """
-    b, W, n = db_vert.shape
-    m = q_vert.shape[-1]
-    dist = torch.zeros((m, n), dtype=torch.int32, device=db_vert.device)
-    for w in range(W):
-        acc = db_vert[0, w][None, :] ^ q_vert[0, w][:, None]
-        for p in range(1, b):
-            acc |= db_vert[p, w][None, :] ^ q_vert[p, w][:, None]
-        dist += popcount32(acc)
-    return dist
+    return hamming_distances_batched_ref(db_vert[None], q_vert[None])[0]
 
 
 def sparse_verify_batch_ref(paths_vert: torch.Tensor, q_vert: torch.Tensor,
@@ -63,6 +55,40 @@ def sparse_verify_batch_ref(paths_vert: torch.Tensor, q_vert: torch.Tensor,
     """
     total = base_dist.to(torch.int32) + hamming_distances_ref(paths_vert,
                                                               q_vert)
+    return total <= tau, torch.clamp(total, max=BIG)
+
+
+def hamming_distances_batched_ref(db_vert: torch.Tensor,
+                                  q_vert: torch.Tensor) -> torch.Tensor:
+    """``hamming_distances_ref`` over a leading batch axis.
+
+    db_vert: (B, b, W, n) int32 bit planes;
+    q_vert:  (B, b, W, m) or (1, b, W, m) — one query set per batch entry,
+             or one shared by all;
+    returns: (B, m, n) int32 distances.
+    """
+    B, b, W, n = db_vert.shape
+    m = q_vert.shape[-1]
+    dist = torch.zeros((B, m, n), dtype=torch.int32, device=db_vert.device)
+    for w in range(W):
+        acc = db_vert[:, 0, w][:, None, :] ^ q_vert[:, 0, w][:, :, None]
+        for p in range(1, b):
+            acc |= db_vert[:, p, w][:, None, :] ^ q_vert[:, p, w][:, :, None]
+        dist += popcount32(acc)
+    return dist
+
+
+def sparse_verify_batch_batched_ref(paths_vert: torch.Tensor,
+                                    q_vert: torch.Tensor,
+                                    base_dist: torch.Tensor, tau: int):
+    """``sparse_verify_batch_ref`` over a leading batch axis of databases
+    and base planes, the queries shared.
+
+    paths_vert: (B, b, W, n); q_vert: (b, W, m); base_dist: (B, m, n);
+    returns ((B, m, n) bool, (B, m, n) int32).
+    """
+    total = base_dist.to(torch.int32) + hamming_distances_batched_ref(
+        paths_vert, q_vert[None])
     return total <= tau, torch.clamp(total, max=BIG)
 
 

@@ -15,7 +15,11 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core import LinearScan, build_bst, build_fst_style, build_louds
+from repro_torch.core import (HmSearch, LinearScan, MIH,
+                              ShardedSegmentedIndex, build_bst,
+                              build_fst_style, build_louds, build_multi_index,
+                              build_sharded_bst, multi_index_from_numpy,
+                              sharded_bst_from_numpy)
 from repro_torch.configs.registry import get_config
 from repro_torch.core.bst import index_from_numpy
 from repro_torch.launch import serve
@@ -33,7 +37,10 @@ def test_import_pulls_in_no_jax_and_no_repro():
                  "repro_torch.configs.registry", "repro_torch.train.steps",
                  "repro_torch.launch.serve", "repro_torch.obs",
                  "repro_torch.obs.trace", "repro_torch.obs.explain",
-                 "repro_torch.obs.prom", "repro_torch.obs.slowlog"):
+                 "repro_torch.obs.prom", "repro_torch.obs.slowlog",
+                 "repro_torch.core.multi_index",
+                 "repro_torch.core.distributed_search",
+                 "repro_torch.core.baselines"):
         assert name in names, name
     code = ("import importlib, sys\n"
             f"for name in ['repro_torch'] + {names!r}:\n"
@@ -72,6 +79,14 @@ def test_default_device_raises_without_cuda(monkeypatch):
         index.to("cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         index_from_numpy({}, [])
+    for build in (lambda: build_multi_index(db, 2, 2),
+                  lambda: build_sharded_bst(db, 2, 2),
+                  lambda: MIH.build(db, 2, 2), lambda: HmSearch.build(db, 2, 1),
+                  lambda: multi_index_from_numpy({}, []),
+                  lambda: sharded_bst_from_numpy({}, []),
+                  lambda: ShardedSegmentedIndex(8, 2)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
     cfg = get_config("smollm-135m", smoke=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_params(torch.Generator(), cfg)

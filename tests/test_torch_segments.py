@@ -246,10 +246,15 @@ def test_fused_cache_counts_and_drops_dead_generations():
 
 
 def test_unported_options_raise():
+    for backend in ("multi", "sharded"):
+        idx = tseg.SegmentedIndex(16, 2, backend=backend, device="cpu")
+        assert idx.backend == backend
+        with pytest.raises(NotImplementedError):
+            idx.store = object()
+    sharded = tseg.ShardedSegmentedIndex(16, 2, n_shards=2, device="cpu")
     with pytest.raises(NotImplementedError):
-        tseg.SegmentedIndex(16, 2, backend="multi", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tseg.SegmentedIndex(16, 2, backend="sharded", device="cpu")
+        sharded.store = object()
+    assert sharded.store is None
     with pytest.raises(ValueError):
         tseg.SegmentedIndex(16, 2, backend="lsh", device="cpu")
     with pytest.raises(ValueError):

@@ -3,7 +3,7 @@ forward of the port on one GPU, at the shapes of ``chip_smoke.py``'s
 main paths.
 
     python3 tools/bench_hot_kernels.py [--src DIR] [--seed 0] [--iters 10]
-                                       [--only packed,plane,rerank,flash,hubert]
+                                       [--only packed,plane,rerank,flash,hubert,rows]
                                        [--slab-q 4|8|16]
 
 ``--src`` is the ``src/`` directory whose ``repro_torch`` is imported
@@ -47,6 +47,14 @@ per slab pass (a variant; by default the wrapper picks it from T).
   * hubert: hubert-xlarge's attention (B 2, H 16, D 80, bidirectional,
     bf16) at S 1,000 and 1,500, beside ``scaled_dot_product_attention``
     and the float32 route, with the bound (operations).
+
+  * rows: the static verify (row 1, ``sparse_verify_batch``: b = 2,
+    W = 1, n = 12,867,144 leaves, m = 64, tau 3, a base plane of 0..5
+    with 20% BIG) and the scan (row 2, ``hamming_distances``: n =
+    12,886,488, m = 64) at phase 4's shapes, random words; where the
+    tree has them, their batched launches at phase 10's shapes: the
+    verify over 4 shards of 3,220,448 leaves (queries shared) and the
+    scan over 64 candidate sets of 78,660 columns, one query each.
 
 Needs CUDA; prints the card's name and power limit first, then one line
 per measurement and a JSON line of the times.
@@ -337,6 +345,75 @@ def bench_hubert(ops, ref, gen, iters: int) -> dict:
     return out
 
 
+def bench_rows(ops, ref, gen, iters: int) -> dict:
+    dev = torch.device("cuda")
+    m, tau = 64, 3
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    def base_plane(*shape):
+        base = torch.randint(0, 6, shape, dtype=torch.int32, device=dev,
+                             generator=gen)
+        base[torch.rand(shape, device=dev, generator=gen) < 0.2] = BIG
+        return base
+
+    def same(got, want, what):
+        if not all(torch.equal(g, w.to(g.dtype)) for g, w in zip(got, want)):
+            raise SystemExit(f"{what} differs from the plain version")
+
+    out = {}
+    n1 = 12_867_144
+    db, q, base = words(2, 1, n1), words(2, 1, m), base_plane(m, n1)
+    got = ops.sparse_verify_batch(db, q, base, tau=tau)
+    for r0 in range(0, m, 8):
+        same([x[r0:r0 + 8] for x in got], ref.sparse_verify_batch_ref(
+            db, q[..., r0:r0 + 8], base[r0:r0 + 8], tau), "row 1")
+    out["verify"] = both(lambda: ops.sparse_verify_batch(db, q, base,
+                                                         tau=tau), iters)
+    del db, q, base, got
+    n2 = 12_886_488
+    db, q = words(2, 1, n2), words(2, 1, m)
+    got = ops.hamming_distances(db, q)
+    for r0 in range(0, m, 8):
+        same([got[r0:r0 + 8]], [ref.hamming_distances_ref(
+            db, q[..., r0:r0 + 8])], "row 2")
+    out["scan"] = both(lambda: ops.hamming_distances(db, q), iters)
+    del db, q, got
+    print(f"row 1 verify (b=2 W=1 n={n1} m={m}): wrapper "
+          f"{out['verify']['wrapper']:.3f} ms, queued "
+          f"{out['verify']['queued']:.3f} ms; row 2 scan (n={n2} m={m}): "
+          f"wrapper {out['scan']['wrapper']:.3f} ms, queued "
+          f"{out['scan']['queued']:.3f} ms", flush=True)
+    if not hasattr(ops, "sparse_verify_batch_batched"):
+        return out
+    S, n3 = 4, 3_220_448
+    db, q, base = words(S, 2, 1, n3), words(2, 1, m), base_plane(S, m, n3)
+    got = ops.sparse_verify_batch_batched(db, q, base, tau=tau)
+    for r0 in range(0, m, 8):
+        same([x[:, r0:r0 + 8] for x in got],
+             ref.sparse_verify_batch_batched_ref(
+                 db, q[..., r0:r0 + 8], base[:, r0:r0 + 8], tau),
+             "row 1 batched")
+    out["verify_shards"] = both(lambda: ops.sparse_verify_batch_batched(
+        db, q, base, tau=tau), iters)
+    del db, q, base, got
+    C = 78_660
+    db, q = words(m, 2, 1, C), words(m, 2, 1, 1)
+    same([ops.hamming_distances_batched(db, q, block_m=1)],
+         [ref.hamming_distances_batched_ref(db, q)], "row 2 batched")
+    out["scan_queries"] = both(lambda: ops.hamming_distances_batched(
+        db, q, block_m=1), iters)
+    print(f"row 1 batched over {S} shards of {n3} leaves (m={m}): wrapper "
+          f"{out['verify_shards']['wrapper']:.3f} ms, queued "
+          f"{out['verify_shards']['queued']:.3f} ms; row 2 batched over "
+          f"{m} candidate sets of {C} (one query each): wrapper "
+          f"{out['scan_queries']['wrapper']:.4f} ms, queued "
+          f"{out['scan_queries']['queued']:.4f} ms", flush=True)
+    return out
+
+
 def check_flash(ops, ref, x, causal: bool = True) -> None:
     got = ops.flash_attention_fwd(*x, causal=causal)
     want = ref.flash_attention_ref(*x, causal=causal)
@@ -376,7 +453,7 @@ def main() -> int:
     only = args.only.split(",")
     benches = {"packed": bench_packed, "plane": bench_plane,
                "rerank": bench_rerank, "flash": bench_flash,
-               "hubert": bench_hubert}
+               "hubert": bench_hubert, "rows": bench_rows}
     for key in only:
         out[key] = benches[key](ops, ref, gen, args.iters)
         torch.cuda.empty_cache()
