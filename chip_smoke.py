@@ -70,7 +70,27 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      fan-out against the fused path, the stacks' Jaccard re-rank against
      numpy; (d) SIH, MIH and HmSearch on 2^20 of phase 3's rows, masks
      against ``LinearScan``.  Range-search and top-k times beside the
-     bst backend's of phases 4 and 5.
+     bst backend's of phases 4 and 5;
+ 11. the retrieval server (``repro_torch.serving`` and ``store``) on
+     phase 10 (c)'s 4,500,000 rows (L 16, b 2, Wp 8, delta_cap 2^20,
+     auto_merge): (1) a child process ingests them into a durable
+     collection through ``Scheduler.submit_insert`` (chunks of 2^16,
+     with payloads), deletes 1% through ``submit_delete``, writes its
+     top-k, range (τ 2) and Jaccard re-rank answers, syncs the journal
+     and dies by ``os._exit``; (2) ``CollectionRegistry.open`` recovers
+     it on the card and must answer bit for bit as the child did, with
+     journal records replayed; (3) the threaded scheduler (``max_batch``
+     64, 2 ms flush, after ``warmup``) serves 8 client threads 1,024
+     top-k, 64 re-ranked and 16 range requests, each held against the
+     scan kernel, a stable sort and numpy, with rows 2, 3 and 5 counted
+     and no program built after the warm-up; p50 / p99, queries/s and
+     the batch fill printed; (4) a burst of 4 × max_queue requests with
+     admission, the degradation ladder and the breaker on: the shed
+     count equals submitted minus admitted, and every admitted answer
+     equals an undegraded run at its effective (k, rerank) and τ; the
+     next insert takes the next id; (5) ``launch.serve.main`` with
+     ``--ingest --data-dir D --rerank jaccard``, ``--ingest --recover``
+     and ``--retrieval --arch smollm-135m`` returns 0.
 
 Phase 2 also sweeps the batched launches (grid.z over the batch) of the
 scan and the verify: batch 1, 3, 4 and 64, ragged n and m, shared and
@@ -93,6 +113,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -202,6 +223,25 @@ MI_BLOCKS, SHARDS = 2, 4
 SEG10_N = 4_500_000
 BASE_N, BASE_Q = 1 << 20, 16
 SIH_TAU, MIH_TAU, HM_TAU = 2, 2, 3
+# Phase 11, the retrieval server: phase 10 (c)'s rows (the first SEG10_N
+# of phase 5's token sets, L 16, b 2, Wp 8, delta_cap 2^20, auto_merge;
+# rows cut from 12,886,488 because durability writes the stack three
+# times — journal, snapshots at every seal and merge, recovery's rebuild
+# — and phase 5 already ingests the full size).  Inserts in chunks of
+# RS_CHUNK; RS_CLIENTS client threads send RS_TOPK_REQ single top-k
+# requests (k = TOPK), RS_RERANK_REQ Jaccard re-ranked ones and
+# RS_RANGE_REQ range requests at RS_TAU to a scheduler batching up to
+# RS_MAX_BATCH with a RS_MAX_WAIT_MS flush; the overload burst is
+# 4 x RS_OVL_QUEUE requests in waves of RS_OVL_WAVE, RS_OVL_GAP_S apart
+# (longer together than a few of the admission controller's 100 ms
+# intervals, so that its pressure can rise).
+RS_CHUNK = 1 << 16
+RS_CLIENTS = 8
+RS_TOPK_REQ, RS_RERANK_REQ, RS_RANGE_REQ = 1024, 64, 16
+RS_TAU = 2
+RS_MAX_BATCH, RS_MAX_WAIT_MS = 64, 2.0
+RS_OVL_QUEUE = 256
+RS_OVL_WAVE, RS_OVL_GAP_S = 128, 0.05
 # popcounts an SM issues a clock on Hopper (the integer pipe's rate for
 # POPC); times the SMs and the SM clock, the re-rank's popcount bound
 POPC_PER_SM_CLOCK = 16
@@ -437,19 +477,18 @@ def profile_window(torch, name: str, fn, calls: int = 3) -> None:
             host, key=lambda e: -e.self_cpu_time_total)[:6]), flush=True)
 
 
-def review_cell(torch, seed: int, dev):
-    """The segmented Review cell, made from ``seed``: REVIEW_N token sets
-    (sketched by ``bbit_minhash`` and packed by ``pack_sets`` on the
-    card, chunk by chunk), M_QUERIES queries (perturbed database sets and
-    fresh sets) with their payloads, the ``SegmentedIndex`` they are
-    ingested into (size-tiered ``auto_merge``), and DELETE_FRAC of the
-    ids deleted.  Prints the corpus, ingest and stack."""
-    from types import SimpleNamespace
+def token_corpus(torch, seed: int, dev, n: int):
+    """``n`` token sets made from ``seed`` (sketched by ``bbit_minhash``
+    and packed by ``pack_sets`` on the card, chunk by chunk: the first m
+    rows are the same for every n >= m) and M_QUERIES queries (perturbed
+    database sets and fresh sets) with their payloads.  Returns
+    (sketches, payloads, qs, qp, rng): ``rng`` is the query draw's
+    generator, which the Review cell goes on to draw its deletes from.
+    Prints the corpus."""
+    from repro_torch.core import (bbit_minhash, hash_params, pack_sets,
+                                  sketch_tokens)
 
-    from repro_torch.core import (SegmentedIndex, bbit_minhash, hash_params,
-                                  pack_sets, sketch_tokens)
-
-    n, L, b = REVIEW_N, REVIEW_L, REVIEW_B
+    L, b = REVIEW_L, REVIEW_B
     Wp = (VOCAB + 31) // 32
     params = hash_params(L, torch.Generator().manual_seed(seed))
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
@@ -483,6 +522,22 @@ def review_cell(torch, seed: int, dev):
           f"card in {gen_s:.1f} s; mean set size "
           f"{np.unpackbits(head.view(np.uint8)).sum() / len(head):.2f}",
           flush=True)
+    return sketches, payloads, qs, qp, rng
+
+
+def review_cell(torch, seed: int, dev):
+    """The segmented Review cell, made from ``seed``: the REVIEW_N token
+    sets and M_QUERIES queries of ``token_corpus``, the
+    ``SegmentedIndex`` they are ingested into (size-tiered
+    ``auto_merge``), and DELETE_FRAC of the ids deleted.  Prints the
+    corpus, ingest and stack."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import SegmentedIndex
+
+    n, L, b = REVIEW_N, REVIEW_L, REVIEW_B
+    Wp = (VOCAB + 31) // 32
+    sketches, payloads, qs, qp, rng = token_corpus(torch, seed, dev, n)
 
     idx = SegmentedIndex(L, b, delta_cap=DELTA_CAP, payload_words=Wp,
                          device="cuda")
@@ -1900,8 +1955,7 @@ def segmented_backends(torch, dev, ops, corpus10, bst_ms) -> None:
 
     sk, pay, qs, qp = corpus10
     n, L, b, Wp = len(sk), REVIEW_L, REVIEW_B, pay.shape[1]
-    rng = np.random.default_rng(SEG10_N)
-    dead = rng.choice(n, size=int(n * DELETE_FRAC), replace=False)
+    dead = seg10_dead(n)
     live = np.ones(n, bool)
     live[dead] = False
     d = LinearScan.build(sk, b, device=dev).distances(qs)
@@ -2039,9 +2093,429 @@ def baselines_check(torch, dev, sketches) -> None:
               f"LinearScan; {ix.array_bytes()} index bytes", flush=True)
 
 
+def served_answers(torch, idx, qs, qp) -> dict:
+    """Phase 11's answers of ``idx`` for the queries ``qs`` (and payloads
+    ``qp``) as host arrays: top-k, the Jaccard re-rank (score bits) and
+    the range planes at τ = RS_TAU as (query, id) pairs with their
+    distances, plus whether every lane off the pairs holds BIG — together
+    the dense planes, bit for bit."""
+    top = idx.topk_batch(qs, TOPK)
+    rr = idx.topk_batch(qs, TOPK, rerank="jaccard", q_payloads=qp)
+    res = idx.search_batch(qs, RS_TAU)
+    q_i, ids = torch.nonzero(res.mask, as_tuple=True)
+    off_big = bool(((res.dist == BIG) | res.mask).all())
+    out = {"ids": top.ids, "dists": top.dists, "tau": top.tau,
+           "overflow": top.overflow, "rr_ids": rr.ids, "rr_dists": rr.dists,
+           "rr_scores": rr.scores.view(torch.int32), "rr_tau": rr.tau,
+           "r_q": q_i, "r_ids": ids, "r_dist": res.dist[res.mask],
+           "r_overflow": res.overflow, "r_off_big": off_big,
+           "n_ids": res.mask.shape[1]}
+    return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)) for k, v in out.items()}
+
+
+def crash_child(work: Path) -> int:
+    """Phase 11 step 1, in a process of its own: a durable collection
+    under ``work/data`` on the card, phase 10's rows inserted through
+    ``Scheduler.submit_insert`` in chunks of RS_CHUNK with their
+    payloads, 1% deleted through ``submit_delete`` (a delta buffer
+    stays), the answers written to ``work/answers.npz``, the journal
+    synced — then ``os._exit``: no close, no flush."""
+    import torch
+    from repro_torch.serving import (CollectionConfig, CollectionRegistry,
+                                     Scheduler, SchedulerConfig)
+
+    sk, pay = np.load(work / "sk.npy"), np.load(work / "pay.npy")
+    qs, qp = np.load(work / "qs.npy"), np.load(work / "qp.npy")
+    n = len(sk)
+    t0 = time.perf_counter()
+    reg = CollectionRegistry(str(work / "data"), device="cuda")
+    sched = Scheduler(registry=reg, config=SchedulerConfig(
+        max_batch=RS_MAX_BATCH))
+    coll = sched.create_collection("docs", CollectionConfig(
+        L=REVIEW_L, b=REVIEW_B, delta_cap=DELTA_CAP,
+        payload_words=pay.shape[1]))
+    futs = [sched.submit_insert("docs", sk[lo:lo + RS_CHUNK],
+                                payloads=pay[lo:lo + RS_CHUNK])
+            for lo in range(0, n, RS_CHUNK)]
+    sched.pump()
+    ids = np.concatenate([f.result() for f in futs])
+    check(np.array_equal(ids, np.arange(n)), "child: insert ids")
+    dead = seg10_dead(n)
+    removed = sched.submit_delete("docs", dead)
+    sched.pump()
+    check(removed.result() == len(dead), "child: delete count")
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    idx = coll.index
+    check(len(idx._delta_ids) > 0, "child: no live delta buffer")
+    ans = served_answers(torch, idx, qs, qp)
+    np.savez(work / "answers.npz", **ans)
+    coll.store.wal.sync()
+    st = coll.store.stats()
+    print(json.dumps({"ingest_s": ingest_s, "segments": [
+        s.n for s in idx.segments], "delta_rows": len(idx._delta_ids),
+        "n_live": idx.n_live, "wal_bytes": st["wal_bytes"],
+        "snapshot_bytes": st["snapshot_bytes"],
+        "segments_written": st["segments_written"],
+        "wal_truncations": st["wal_truncations"]}), flush=True)
+    os._exit(0)
+
+
+def seg10_dead(n: int) -> np.ndarray:
+    """Phase 10 (c)'s deleted ids: 1% of the rows, from seed SEG10_N."""
+    rng = np.random.default_rng(SEG10_N)
+    return rng.choice(n, size=int(n * DELETE_FRAC), replace=False)
+
+
+def scan_topk(torch, scan, live_t, qs, k: int):
+    """Exact top-k of ``qs`` from the scan kernel: dead ids at BIG, then
+    a stable sort (ties by id) — (ids, dists) host arrays."""
+    ids, dists = [], []
+    for r0 in range(0, len(qs), M_QUERIES):
+        d = scan.distances(qs[r0:r0 + M_QUERIES])
+        d = torch.where(live_t[None, :], d, BIG)
+        sd, si = torch.sort(d, dim=1, stable=True)
+        ids.append(si[:, :k].to(torch.int32).cpu().numpy())
+        dists.append(sd[:, :k].cpu().numpy())
+        del d, sd, si
+    return np.concatenate(ids), np.concatenate(dists)
+
+
+def retrieval_server(torch, args, dev, ops, corpus10) -> dict:
+    """Phase 11: the retrieval server on phase 10's rows — a crash and
+    its recovery, the threaded scheduler under load, the overload
+    control plane and the serving CLI.  Returns the launches of rows 2,
+    3 and 5 in the scheduled run."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import threading
+    from repro_torch.core import LinearScan, searcher_cache_info
+    from repro_torch.launch import serve
+    from repro_torch.obs.prom import parse_exposition
+    from repro_torch.serving import (CollectionRegistry, Scheduler,
+                                     SchedulerConfig)
+
+    sk, pay, qs, qp = corpus10
+    n = len(sk)
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_",
+                                 dir=ROOT / "build"))
+    try:
+        # -- 1. the crash --------------------------------------------------
+        for name, arr in (("sk", sk), ("pay", pay), ("qs", qs), ("qp", qp)):
+            np.save(work / f"{name}.npy", arr)
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--crash-child",
+             str(work)], capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        child_s = time.perf_counter() - t0
+        check(child.returncode == 0, f"crash child failed "
+              f"({child.returncode}):\n{child.stderr[-4000:]}")
+        cst = json.loads(child.stdout.strip().splitlines()[-1])
+        print(f"(11) crash child: {n} rows through submit_insert in chunks "
+              f"of {RS_CHUNK} and 1% through submit_delete in "
+              f"{cst['ingest_s']:.1f} s (process {child_s:.1f} s); segments "
+              f"{cst['segments']} + {cst['delta_rows']} delta rows; journal "
+              f"{cst['wal_bytes']} B, snapshots {cst['snapshot_bytes']} B "
+              f"({cst['segments_written']} segments written, "
+              f"{cst['wal_truncations']} truncations); killed with os._exit",
+              flush=True)
+        want = dict(np.load(work / "answers.npz"))
+
+        # -- 2. recovery on the card ---------------------------------------
+        t0 = time.perf_counter()
+        reg = CollectionRegistry.open(str(work / "data"), device="cuda")
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        coll = reg.get("docs")
+        idx, store = coll.index, coll.store
+        check(idx.device.type == "cuda", "recovered off the card")
+        sst = store.stats()
+        check(sst["replayed_records"] > 0, "recovery replayed no record")
+        got = served_answers(torch, idx, qs, qp)
+        check(got.keys() == want.keys(), "answer keys")
+        for key in want:
+            check(np.array_equal(got[key], want[key]),
+                  f"recovered {key} differs from the crashed child's")
+        check(bool(want["r_off_big"]) and int(want["overflow"]) == 0,
+              "child's range plane not BIG off the ball / top-k overflow")
+        print(f"(11) recovery: {recover_s:.2f} s on the card, "
+              f"{sst['recovered_segments']} segments "
+              f"{[s.n for s in idx.segments]}, {sst['replayed_records']} "
+              f"journal records replayed ({len(idx._delta_ids)} delta "
+              f"rows); journal {sst['wal_bytes']} B, snapshots "
+              f"{sst['snapshot_bytes']} B; top-{TOPK} (tau*={got['tau']}), "
+              f"range at tau={RS_TAU} ({len(got['r_ids'])} hits) and the "
+              f"Jaccard re-rank equal the child's bit for bit", flush=True)
+
+        # -- 3. serving: the threaded scheduler under 8 clients -----------
+        live = np.ones(n, bool)
+        live[seg10_dead(n)] = False
+        live_t = torch.from_numpy(live).to(dev)
+        scan = LinearScan.build(sk, REVIEW_B, device=dev)
+        rng = np.random.default_rng(args.seed + 11)
+        tq = sk[rng.choice(n, RS_TOPK_REQ, replace=False)]
+        work_items = ([("topk", i) for i in range(RS_TOPK_REQ)]
+                      + [("rerank", i) for i in range(RS_RERANK_REQ)]
+                      + [("range", i) for i in range(RS_RANGE_REQ)])
+        # every request may stand in the queue at once: this run
+        # measures the served path, the overload step its limits
+        sched = Scheduler(registry=reg, config=SchedulerConfig(
+            max_batch=RS_MAX_BATCH, max_wait_ms=RS_MAX_WAIT_MS,
+            max_queue=len(work_items)))
+        t0 = time.perf_counter()
+        warm = sched.warmup(ks=(TOPK,), taus=(RS_TAU,),
+                            reranks=("jaccard",))
+        warm_s = time.perf_counter() - t0
+        traces0 = searcher_cache_info()["traces"]
+        sched.metrics.rebaseline()
+        sched.start()
+        ops.reset_kernel_stats()                   # the served window
+        order = rng.permutation(len(work_items))
+        shares = [[work_items[j] for j in order[c::RS_CLIENTS]]
+                  for c in range(RS_CLIENTS)]
+        results, errs = {}, []
+
+        def client(share):
+            try:
+                futs = []
+                for kind, i in share:
+                    if kind == "topk":
+                        f = sched.submit_topk("docs", tq[i], TOPK)
+                    elif kind == "rerank":
+                        f = sched.submit_topk("docs", qs[i], TOPK,
+                                              rerank="jaccard",
+                                              q_payload=qp[i])
+                    else:
+                        f = sched.submit_search("docs", qs[i], RS_TAU)
+                    futs.append(((kind, i), f))
+                for key, f in futs:
+                    results[key] = f.result(timeout=300)
+            except Exception as e:                 # noqa: BLE001
+                errs.append(e)
+
+        threads = [threading.Thread(target=client, args=(s,))
+                   for s in shares]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        sched.stop()
+        launches = ops.kernel_stats()
+        check(not errs, f"a client's request failed: {errs[:1]}")
+        check(len(results) == len(work_items), "responses missing")
+        traces = searcher_cache_info()["traces"] - traces0
+        snap = sched.stats()
+        for name in ("hamming_distances", "sparse_verify_arena_packed",
+                     "exact_rerank"):
+            check(launches.get(name, 0) > 0,
+                  f"{name} kernel not launched under the scheduler")
+        check(not any(k.endswith(":ref") for k in launches),
+              f"plain version ran under the scheduler: {launches}")
+        check(traces == 0, f"{traces} program builds after warmup")
+
+        w_ids, w_d = scan_topk(torch, scan, live_t, tq, TOPK)
+        for i in range(RS_TOPK_REQ):
+            r = results[("topk", i)]
+            check(r.overflow == 0 and np.array_equal(r.ids, w_ids[i])
+                  and np.array_equal(r.dists, w_d[i]),
+                  f"scheduled top-{TOPK} request {i} != the scan kernel")
+        d = torch.where(live_t[None, :], scan.distances(qs), BIG)
+        for i in range(RS_RANGE_REQ):
+            r = results[("range", i)]
+            inside = (d[i] <= RS_TAU).cpu().numpy()
+            check(np.array_equal(r.mask, inside) and np.array_equal(
+                r.dist, np.where(inside, d[i].cpu().numpy(), BIG)),
+                f"scheduled range request {i} != the scan kernel")
+        for i in range(RS_RERANK_REQ):
+            r = results[("rerank", i)]
+            check_rerank_row(torch, d[i], r, qp[i], pay,
+                             f"scheduled re-rank request {i}")
+        del d
+        lat, ex = snap["latency"], snap["exec_latency"]
+        n_batches = sum(v for k, v in snap["counters"].items()
+                        if k.startswith("batches_total:"))
+        fams = sorted({s[0] for s in parse_exposition(
+            sched.render_stats())["samples"]})
+        n_req = len(work_items)
+        print(f"(11) warmup: {warm['calls']} calls over {warm['buckets']} "
+              f"buckets, {warm['traces']} program builds, {warm_s:.2f} s",
+              flush=True)
+        print(f"(11) served {n_req} requests from {RS_CLIENTS} client "
+              f"threads in {serve_s:.3f} s ({n_req / serve_s:.0f} queries/s):"
+              f" top-k p50 {lat['topk']['p50_ms']:.2f} ms, p99 "
+              f"{lat['topk']['p99_ms']:.2f} ms; range p50 "
+              f"{lat['search']['p50_ms']:.2f} ms, p99 "
+              f"{lat['search']['p99_ms']:.2f} ms; batch fill "
+              f"{snap['batch_fill_ratio']:.3f} over "
+              f"{snap['counters'].get('batches_total:topk', 0)} top-k and "
+              f"{snap['counters'].get('batches_total:search', 0)} range "
+              f"batches; a batch's execution p50 {ex['topk']['p50_ms']:.2f}"
+              f" ms (top-k), {ex['search']['p50_ms']:.2f} ms (range); "
+              f"{snap['device_dispatch']['fused'] / n_batches:.2f} fused "
+              f"dispatches a batch; launches {launches}; dispatches "
+              f"{snap['device_dispatch']}; 0 builds after warmup",
+              flush=True)
+        print(f"(11) every scheduled answer exact: {RS_TOPK_REQ} top-{TOPK} "
+              f"against the scan kernel and a stable sort, {RS_RANGE_REQ} "
+              f"range planes, {RS_RERANK_REQ} Jaccard re-ranks against "
+              f"numpy", flush=True)
+        print(f"(11) render_stats families ({len(fams)}): {' '.join(fams)}",
+              flush=True)
+
+        # -- 4. overload ---------------------------------------------------
+        ovl = overload_burst(torch, reg, idx, tq, qs, qp)
+
+        # -- the next insert takes the next id ----------------------------
+        n_ids = idx.n_ids
+        new = idx.insert(sk[:1], payloads=pay[:1])
+        check(int(new[0]) == n_ids == n, f"next id {new} after {n_ids}")
+        reg.close()
+        del idx, coll, reg, scan, store, sched
+        torch.cuda.empty_cache()
+
+        # -- 5. the CLI ----------------------------------------------------
+        cli_dir = str(work / "cli")
+        for argv in (["--ingest", "--data-dir", cli_dir,
+                      "--rerank", "jaccard"],
+                     ["--ingest", "--recover", "--data-dir", cli_dir],
+                     ["--retrieval", "--arch", SERVE_ARCH]):
+            argv = argv + ["--device", "cuda"]
+            ops.reset_kernel_stats()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = serve.main(argv)
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            check(rc == 0, f"serve.main({argv}) returned {rc}")
+            text = buf.getvalue()
+            body, _, stats = text.partition("--- /stats ---")
+            print(f"(11) python -m repro_torch.launch.serve "
+                  f"{' '.join(argv)}: rc 0, {cli_s:.1f} s, launches "
+                  f"{ops.kernel_stats()}", flush=True)
+            for line in body.strip().splitlines():
+                print(f"    {line}", flush=True)
+            if stats:
+                print(f"    --- /stats --- ({len(stats.splitlines())} "
+                      "lines)", flush=True)
+        return {"launches": {k: launches.get(k, 0) for k in (
+            "hamming_distances", "sparse_verify_arena_packed",
+            "exact_rerank")}, **ovl}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def check_rerank_row(torch, d_row, r, q_row, pay, what: str) -> None:
+    """One re-ranked response against numpy: the survivors within the
+    response's τ, float32 Jaccard, ordered by (score desc, id asc)."""
+    cand = torch.nonzero(d_row <= r.tau).flatten().cpu().numpy()
+    sc = jaccard_np(q_row, pay[cand])
+    order = np.lexsort((cand, -sc))[:len(r.ids)]
+    k = len(order)
+    check(np.array_equal(r.ids[:k], cand[order])
+          and np.array_equal(r.dists[:k], d_row.index_select(
+              0, torch.from_numpy(cand[order]).to(d_row.device))
+              .cpu().numpy())
+          and np.array_equal(r.scores[:k].view(np.int32),
+                             sc[order].view(np.int32))
+          and (r.ids[k:] == -1).all(), f"{what} != numpy Jaccard")
+
+
+def overload_burst(torch, reg, idx, tq, qs, qp) -> dict:
+    """Phase 11 step 4: a burst of 4 × RS_OVL_QUEUE top-k and re-rank
+    requests, in waves of RS_OVL_WAVE RS_OVL_GAP_S apart, at a scheduler
+    with admission, the degradation ladder and the breaker on.  Every
+    shed request is counted; every admitted answer equals an undegraded
+    call at its effective (k, rerank) and its response's τ."""
+    from repro_torch.serving import (AdmissionConfig, BreakerConfig,
+                                     DegradePolicy, OverloadError,
+                                     Scheduler, SchedulerConfig)
+
+    pol = DegradePolicy()
+    sched = Scheduler(registry=reg, config=SchedulerConfig(
+        max_batch=RS_MAX_BATCH, max_wait_ms=RS_MAX_WAIT_MS,
+        max_queue=RS_OVL_QUEUE, admission=AdmissionConfig(), degrade=pol,
+        breaker=BreakerConfig())).start()
+    submitted, admitted = 0, []
+    t0 = time.perf_counter()
+    for j in range(4 * RS_OVL_QUEUE):
+        if j and j % RS_OVL_WAVE == 0:
+            time.sleep(RS_OVL_GAP_S)     # waves: the queue stands for a
+            #                              few CoDel intervals
+        rerank = j % 4 == 3
+        i = j % len(qs) if rerank else j % len(tq)
+        try:
+            if rerank:
+                f = sched.submit_topk("docs", qs[i], TOPK, rerank="jaccard",
+                                      q_payload=qp[i])
+            else:
+                f = sched.submit_topk("docs", tq[i], TOPK)
+            admitted.append((rerank, i, f))
+        except OverloadError:
+            pass
+        submitted += 1
+    answers = [(rerank, i, f.result(timeout=300))
+               for rerank, i, f in admitted]
+    burst_s = time.perf_counter() - t0
+    sched.stop()
+    snap = sched.stats()
+    rejected = snap["counters"].get("rejected_total", 0)
+    check(rejected == submitted - len(admitted),
+          f"rejected {rejected} != submitted {submitted} - admitted "
+          f"{len(admitted)}")
+    level_of = {None: 0, **{s: i + 1 for i, s in enumerate(pol.stages)}}
+    groups = {}
+    for rerank, i, r in answers:
+        k, _, metric, stage = pol.apply_topk(
+            level_of[r.degraded], TOPK, None, "jaccard" if rerank else None)
+        check(stage == r.degraded and len(r.ids) == k,
+              f"degraded label {r.degraded} inconsistent")
+        groups.setdefault((k, r.tau, metric), []).append(
+            (qs[i] if rerank else tq[i], qp[i] if rerank else None, r))
+    for (k, tau, metric), rows in groups.items():
+        for r0 in range(0, len(rows), RS_MAX_BATCH):
+            part = rows[r0:r0 + RS_MAX_BATCH]
+            q = np.stack([p[0] for p in part])
+            extra = ({} if metric is None else dict(
+                rerank=metric, q_payloads=np.stack([p[1] for p in part])))
+            ref = idx.topk_batch(q, k, tau0=tau, **extra)
+            check(ref.tau == tau, "undegraded run left the response's tau")
+            for j, (_, _, r) in enumerate(part):
+                ok = (np.array_equal(r.ids, ref.ids[j].cpu().numpy())
+                      and np.array_equal(r.dists, ref.dists[j].cpu().numpy()))
+                if metric is not None:
+                    ok = ok and np.array_equal(
+                        r.scores.view(np.int32),
+                        ref.scores[j].view(torch.int32).cpu().numpy())
+                check(ok, f"admitted answer (k={k}, tau={tau}, "
+                          f"rerank={metric}) != the undegraded run")
+    stages = {}
+    for _, _, r in answers:
+        stages[r.degraded] = stages.get(r.degraded, 0) + 1
+    shed = {k.split(":", 1)[1]: v for k, v in snap["counters"].items()
+            if k.startswith("shed_total:")}
+    print(f"(11) overload: {submitted} submitted in a burst at max_queue "
+          f"{RS_OVL_QUEUE}, {len(admitted)} admitted, {rejected} shed "
+          f"{shed}; answers by stage {stages}; {burst_s:.2f} s; every "
+          f"admitted answer equals the undegraded run at its effective "
+          f"(k, rerank) and tau", flush=True)
+    return {"overload": {"submitted": submitted,
+                         "admitted": len(admitted), "shed": shed,
+                         "stages": {str(k): v for k, v in stages.items()}}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--crash-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -2051,6 +2525,8 @@ def main() -> int:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "the root of a checkout")
     sys.path.insert(0, str(ROOT / "src"))
+    if args.crash_child:                 # phase 11's child process
+        return crash_child(Path(args.crash_child))
     from repro_torch.core import (LinearScan, build_bst, make_batch_searcher,
                                   topk_batch)
     from repro_torch.core.cost_model import frontier_capacities
@@ -2379,7 +2855,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     segmented_backends(torch, dev, ops, corpus10, bst_seg_ms)
     baselines_check(torch, dev, sketches)
+    del sketches, qs
     phase_done("10 (the other backends)")
+    served = retrieval_server(torch, args, dev, ops, corpus10)
+    phase_done("11 (the retrieval server)")
 
     kernels = [
         {"name": "sparse_verify_batch", "route": "cuda",
@@ -2393,12 +2872,15 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/hamming.cu",
          "replaces": "src/repro/kernels/hamming_kernel.py:70",
          "launches": launches["hamming_distances"],
+         "served_launches": served["launches"]["hamming_distances"],
          "max_abs_err": err["hamming_distances"], "ms": scan_ms,
          "plain_ms": scan_plain, "bound_ms": scan_bound, "bound_by": scan_by,
          "library_ms": scan_lib},
         {"name": "sparse_verify_arena_packed", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/arena.cu",
          "replaces": "src/repro/kernels/hamming_kernel.py:203",
+         "served_launches":
+             served["launches"]["sparse_verify_arena_packed"],
          "max_abs_err": err["sparse_verify_arena_packed"],
          **seg["sparse_verify_arena_packed"]},
         {"name": "sparse_verify_arena", "route": "cuda",
@@ -2409,6 +2891,7 @@ def main() -> int:
         {"name": "exact_rerank", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rerank.cu",
          "replaces": "src/repro/kernels/hamming_kernel.py:381",
+         "served_launches": served["launches"]["exact_rerank"],
          "max_abs_err": err["exact_rerank"], **seg["exact_rerank"]},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn.cu",

@@ -30,6 +30,7 @@ process-level cache with the JAX package's key and counters.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
@@ -293,6 +294,10 @@ def _search_trace(index: SketchIndex, q: torch.Tensor, *, tau: int,
 _SEARCHER_CACHE: Dict[tuple, tuple] = {}
 _SEARCHER_CACHE_CAP = 128
 _CACHE_STATS = {"hits": 0, "misses": 0, "traces": 0}
+# The caches and counters are touched from every serving worker thread
+# (one per collection): this lock guards their read-modify-writes and
+# dict mutations (the builds themselves run outside it).
+_CACHE_LOCK = threading.RLock()
 
 
 def _pin_cache_get(cache: dict, cap: int, key: tuple, obj, build):
@@ -300,14 +305,22 @@ def _pin_cache_get(cache: dict, cap: int, key: tuple, obj, build):
     sharded searchers:
     the value pins ``obj`` so that its id can never be recycled while
     the entry lives; FIFO-evicts beyond ``cap``.  Returns (value, hit)."""
-    entry = cache.get(key)
+    with _CACHE_LOCK:
+        entry = cache.get(key)
     if entry is not None and entry[0] is obj:
         return entry[1], True
     value = build()
-    while len(cache) >= cap:
-        cache.pop(next(iter(cache)))  # FIFO evict
-    cache[key] = (obj, value)
+    with _CACHE_LOCK:
+        while len(cache) >= cap:
+            cache.pop(next(iter(cache)))  # FIFO evict
+        cache[key] = (obj, value)
     return value, False
+
+
+def _count_cache(event: str) -> None:
+    """One ``hits`` / ``misses`` / ``traces`` event, under the lock."""
+    with _CACHE_LOCK:
+        _CACHE_STATS[event] += 1
 
 
 def _note_trace() -> None:
@@ -315,7 +328,7 @@ def _note_trace() -> None:
     the segmented index calls this where it builds a fused closure (a
     rung, re-rank or frontier-width program), the events the JAX
     package's ``traces`` counts as jit traces of those programs."""
-    _CACHE_STATS["traces"] += 1
+    _count_cache("traces")
 
 
 def searcher_cache_info() -> Dict[str, int]:
@@ -323,14 +336,18 @@ def searcher_cache_info() -> Dict[str, int]:
     caps, block_m, with_live) keys and new fused-program keys, ``hits``
     reuses of a cached one, and ``traces`` the fused closures built
     (``_note_trace``)."""
-    return {"hits": _CACHE_STATS["hits"], "misses": _CACHE_STATS["misses"],
-            "traces": _CACHE_STATS["traces"], "size": len(_SEARCHER_CACHE)}
+    with _CACHE_LOCK:
+        return {"hits": _CACHE_STATS["hits"],
+                "misses": _CACHE_STATS["misses"],
+                "traces": _CACHE_STATS["traces"],
+                "size": len(_SEARCHER_CACHE)}
 
 
 def clear_searcher_cache() -> None:
-    _SEARCHER_CACHE.clear()
-    for key in _CACHE_STATS:
-        _CACHE_STATS[key] = 0
+    with _CACHE_LOCK:
+        _SEARCHER_CACHE.clear()
+        for key in _CACHE_STATS:
+            _CACHE_STATS[key] = 0
 
 
 def _as_queries(index: SketchIndex, q) -> torch.Tensor:
@@ -368,7 +385,7 @@ def get_searcher(index: SketchIndex, tau: int,
 
     fn, hit = _pin_cache_get(_SEARCHER_CACHE, _SEARCHER_CACHE_CAP, key,
                              index, lambda: run_batch if batch else run_one)
-    _CACHE_STATS["hits" if hit else "misses"] += 1
+    _count_cache("hits" if hit else "misses")
     return fn
 
 

@@ -37,8 +37,12 @@ Three segment backends: "bst" (one bST per segment, on the tiered
 suffix column store or the full-length arena), "multi" (one MI-bST per
 segment) and "sharded" (one sharded bST per segment, its shards a
 leading batched axis).  ``ShardedSegmentedIndex`` keeps S independent
-stacks with round-robin inserts.  The durability ``store`` binding
-raises ``NotImplementedError``.
+stacks with round-robin inserts.
+
+Durability: a ``repro_torch.store.StackBinding`` set as ``index.store``
+journals every insert and delete before applying it and checkpoints the
+segment set after every flush, merge and compaction, at the points where
+the JAX package does, in its on-disk format.
 """
 
 from __future__ import annotations
@@ -68,8 +72,8 @@ from .hamming import (as_words, n_words, pack_suffix_words_torch,
 from .multi_index import (build_multi_index, mi_column_dists,
                           mi_search_batch, mi_trace_params)
 from .search import (CAP_MAX_DEFAULT, LADDER_CAP_MAX, TopKResult,
-                     _CACHE_STATS, _note_trace, _pad_rows, _pad_topk,
-                     _pin_cache_get, _traverse_frontier_batch, bucket_m,
+                     _CACHE_LOCK, _count_cache, _note_trace, _pad_rows,
+                     _pad_topk, _pin_cache_get, _traverse_frontier_batch, bucket_m,
                      get_searcher, scatter_root_plane, searcher_cache_info,
                      select_topk_columns, select_topk_scores)
 
@@ -127,6 +131,18 @@ def reset_dispatch_stats() -> None:
     with _DISPATCH_LOCK:
         for k in _DISPATCH_STATS:
             _DISPATCH_STATS[k] = 0
+
+
+def ensure_serial_floor(floor: int) -> None:
+    """Advance the global segment-serial counter to at least ``floor``.
+    Recovery calls this with ``max(persisted serial) + 1`` so serials
+    restored from disk can never collide with serials minted later in
+    this process — the invariant every serial-keyed cache relies on (a
+    serial is never reused)."""
+    global _SEG_SERIALS
+    with _DISPATCH_LOCK:
+        cur = next(_SEG_SERIALS)
+        _SEG_SERIALS = itertools.count(max(cur, int(floor)))
 
 
 def tombstone_bits(n: int) -> int:
@@ -266,7 +282,21 @@ _FUSED_CACHE_CAP = 32
 
 def clear_fused_cache() -> None:
     """Drop every cached fused program (and its pinned arrays)."""
-    _FUSED_CACHE.clear()
+    with _CACHE_LOCK:
+        _FUSED_CACHE.clear()
+
+
+def _fused_lookup(key: tuple):
+    with _CACHE_LOCK:
+        return _FUSED_CACHE.get(key)
+
+
+def _fused_insert(key: tuple, fn) -> None:
+    """Cache a built program, FIFO-evicting beyond the cap."""
+    with _CACHE_LOCK:
+        while len(_FUSED_CACHE) >= _FUSED_CACHE_CAP:
+            _FUSED_CACHE.pop(next(iter(_FUSED_CACHE)))
+        _FUSED_CACHE[key] = fn
 
 
 def _empty_topk(m: int, k: int, device) -> TopKResult:
@@ -493,10 +523,6 @@ def _stack_inverse(plan, device) -> Optional[torch.Tensor]:
     return torch.from_numpy(inv).to(device)
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet")
-
-
 class SegmentedIndex:
     """A dynamic, incrementally maintained index over b-bit sketches.
 
@@ -593,16 +619,10 @@ class SegmentedIndex:
         # lifecycle write ("insert" / "delete" / "flush" / "merge" /
         # "compact").  Exceptions are the caller's problem.
         self.event_hook: Optional[object] = None
-
-    @property
-    def store(self):
-        """The durability binding; none is ported, so always None."""
-        return None
-
-    @store.setter
-    def store(self, binding) -> None:
-        if binding is not None:
-            raise _unported("the durability store binding")
+        # durability binding (repro_torch.store.StackBinding): log-before-
+        # apply for insert/delete, checkpoint after flush/merge/compact.
+        # None = in-memory only.
+        self.store: Optional[object] = None
 
     # -- mutation --------------------------------------------------------
 
@@ -648,6 +668,9 @@ class SegmentedIndex:
         k = sk.shape[0]
         pay = self._check_payloads(payloads, k)
         new_ids = np.arange(self.n_ids, self.n_ids + k, dtype=np.int64)
+        if self.store is not None:
+            # write-ahead: log, then apply
+            self.store.log_insert(new_ids, sk, payloads=pay)
         self.n_ids += k
         self._delta_sk = np.concatenate([self._delta_sk, sk])
         self._delta_ids = np.concatenate([self._delta_ids, new_ids])
@@ -674,6 +697,8 @@ class SegmentedIndex:
         in place, which is safe because every fused program reads
         ``live`` afresh on each call."""
         ids = np.unique(np.atleast_1d(np.asarray(ids, dtype=np.int64)))
+        if self.store is not None and ids.size:
+            self.store.log_delete(ids)           # write-ahead: log, then apply
         newly = 0
         arena = self._arena
         lanes: List[np.ndarray] = []     # arena columns going dead
@@ -726,6 +751,8 @@ class SegmentedIndex:
         if self._delta_pay is not None:
             self._delta_pay = np.zeros((0, self.payload_words), np.uint32)
             self._delta_pay_vert = None
+        if self.store is not None:
+            self.store.checkpoint(self)
         return seg
 
     def merge(self, i: Optional[int] = None,
@@ -760,6 +787,8 @@ class SegmentedIndex:
                 payloads=pay))
         self.counters["merges"] += 1
         self._emit("merge", rows=int(len(ids)))
+        if self.store is not None:
+            self.store.checkpoint(self)
         return True
 
     def maybe_merge(self) -> int:
@@ -810,6 +839,8 @@ class SegmentedIndex:
         self.counters["compactions"] += done
         if done:
             self._emit("compact", segments=done)
+            if self.store is not None:
+                self.store.checkpoint(self)
         return done
 
     # -- queries ---------------------------------------------------------
@@ -1062,6 +1093,29 @@ class SegmentedIndex:
 
     # -- internals -------------------------------------------------------
 
+    def _replay_insert(self, ids: np.ndarray, sk: np.ndarray,
+                       payloads: Optional[np.ndarray] = None) -> None:
+        """Recovery-only: append rows with *preassigned* ids to the delta
+        buffer.  No WAL logging and no auto-flush — the store runs the
+        maintenance fixpoint once replay completes, so the recovered
+        partition matches a never-crashed index."""
+        sk = np.asarray(sk, np.uint8)
+        ids = np.asarray(ids, np.int64)
+        self._delta_sk = np.concatenate([self._delta_sk, sk])
+        self._delta_ids = np.concatenate([self._delta_ids, ids])
+        self._delta_live = np.concatenate(
+            [self._delta_live, np.ones(len(ids), bool)])
+        self._delta_vert = None
+        if self._delta_pay is not None:
+            if payloads is None:
+                raise ValueError("replay of a payload index requires the "
+                                 "records' payload bitmaps")
+            self._delta_pay = np.concatenate(
+                [self._delta_pay, np.asarray(payloads, np.uint32)])
+            self._delta_pay_vert = None
+        if ids.size:
+            self.n_ids = max(self.n_ids, int(ids.max()) + 1)
+
     def _build(self, sk: np.ndarray):
         if self.backend == "multi":
             return build_multi_index(sk, self.b, self.mi_blocks, self.lam,
@@ -1218,12 +1272,10 @@ class SegmentedIndex:
         ``_fused_fn`` drops it too)."""
         key = (self.backend, self.layout, self._fused_id,
                self._seg_serials(), "widths", tau, self.block_m)
-        fn = _FUSED_CACHE.get(key)
+        fn = _fused_lookup(key)
         if fn is None:
             fn = self._build_widths(tau)
-            while len(_FUSED_CACHE) >= _FUSED_CACHE_CAP:
-                _FUSED_CACHE.pop(next(iter(_FUSED_CACHE)))
-            _FUSED_CACHE[key] = fn
+            _fused_insert(key, fn)
         return fn
 
     def _build_widths(self, tau: int):
@@ -1371,16 +1423,14 @@ class SegmentedIndex:
 
     def _cache_get(self, key: tuple, build):
         """The fused-program cache with the searcher cache's counters."""
-        fn = _FUSED_CACHE.get(key)
+        fn = _fused_lookup(key)
         if fn is None:
             fn = build()
             _note_trace()
-            while len(_FUSED_CACHE) >= _FUSED_CACHE_CAP:
-                _FUSED_CACHE.pop(next(iter(_FUSED_CACHE)))
-            _FUSED_CACHE[key] = fn
-            _CACHE_STATS["misses"] += 1
+            _fused_insert(key, fn)
+            _count_cache("misses")
         else:
-            _CACHE_STATS["hits"] += 1
+            _count_cache("hits")
         return fn
 
     def _fused_fn(self, kind: str, tau: int, rung: int, kk: Optional[int]):
@@ -1395,8 +1445,10 @@ class SegmentedIndex:
             # the stack changed generation: this index's programs keyed on
             # the old fingerprint are unreachable (serials are monotonic)
             # — drop them now so they do not pin dead column copies
-            for stale in [k for k in _FUSED_CACHE if k[2] == self._fused_id]:
-                del _FUSED_CACHE[stale]
+            with _CACHE_LOCK:
+                for stale in [k for k in _FUSED_CACHE
+                              if k[2] == self._fused_id]:
+                    del _FUSED_CACHE[stale]
             self._fused_stamp = (serials, gen)
         key = (self.backend, self.layout, self._fused_id, serials, gen,
                kind, tau, rung, kk, self.block_m)
@@ -1851,8 +1903,9 @@ class ShardedSegmentedIndex:
     data.  ``hot_bytes`` splits evenly across the stacks.
 
     Same result contract as ``SegmentedIndex`` (global-id planes,
-    ``TopKResult`` with global ids).  The durability ``store`` binding
-    raises ``NotImplementedError``.
+    ``TopKResult`` with global ids).  Durability: the top level journals
+    one global-id record per write; the shard stacks bind with
+    ``log_writes=False`` and only snapshot their own segments.
     """
 
     def __init__(self, L: int, b: int, n_shards: int = 4, *,
@@ -1880,16 +1933,9 @@ class ShardedSegmentedIndex:
                            device=self.device)
             for _ in range(self.n_shards)]
         self.n_ids = 0
-
-    @property
-    def store(self):
-        """The durability binding; none is ported, so always None."""
-        return None
-
-    @store.setter
-    def store(self, binding) -> None:
-        if binding is not None:
-            raise _unported("the durability store binding")
+        # global id -> shard is `id % S`; per-shard local ids are dense,
+        # so global id maps to local position `id // S`.
+        self.store: Optional[object] = None
 
     def insert(self, sketches: np.ndarray,
                payloads: Optional[np.ndarray] = None) -> np.ndarray:
@@ -1902,11 +1948,24 @@ class ShardedSegmentedIndex:
         k = sk.shape[0]
         pay = self.shards[0]._check_payloads(payloads, k)
         new_ids = np.arange(self.n_ids, self.n_ids + k, dtype=np.int64)
-        for s in range(self.n_shards):
-            rows = np.flatnonzero(new_ids % self.n_shards == s)
-            if rows.size:
-                self.shards[s].insert(
-                    sk[rows], payloads=pay[rows] if pay is not None else None)
+        if self.store is not None and k:
+            # one global-id WAL record
+            self.store.log_insert(new_ids, sk, payloads=pay)
+            # scope the routing: a shard's auto-flush checkpoint mid-way
+            # through must not let the store truncate the WAL (or seal
+            # sibling stacks past this record) before every shard has
+            # applied its rows
+            self.store.begin_write()
+        try:
+            for s in range(self.n_shards):
+                rows = np.flatnonzero(new_ids % self.n_shards == s)
+                if rows.size:
+                    self.shards[s].insert(
+                        sk[rows],
+                        payloads=pay[rows] if pay is not None else None)
+        finally:
+            if self.store is not None and k:
+                self.store.end_write()
         self.n_ids += k
         return new_ids
 
@@ -1914,6 +1973,8 @@ class ShardedSegmentedIndex:
         """Tombstone global ids; returns the number newly deleted."""
         ids = np.atleast_1d(np.asarray(ids, dtype=np.int64))
         ids = ids[(ids >= 0) & (ids < self.n_ids)]
+        if self.store is not None and ids.size:
+            self.store.log_delete(ids)
         newly = 0
         for s in range(self.n_shards):
             mine = ids[ids % self.n_shards == s]

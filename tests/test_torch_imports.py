@@ -1,7 +1,8 @@
-"""The port stands alone: importing it (its ``obs`` copy included) pulls
-in neither jax nor the JAX package, no source of it names ``repro``, its
-entry points refuse a missing CUDA device instead of running on the CPU,
-and ``chip_smoke.py`` fails without a card."""
+"""The port stands alone: importing it (its ``obs``, ``store`` and
+``serving`` copies included) pulls in neither jax nor the JAX package,
+no source of it names ``repro``, its entry points refuse a missing CUDA
+device instead of running on the CPU, and ``chip_smoke.py`` fails
+without a card."""
 
 import os
 import pkgutil
@@ -24,6 +25,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.bst import index_from_numpy
 from repro_torch.launch import serve
 from repro_torch.models.model import init_cache, init_params, params_from_jax
+from repro_torch.serving import CollectionConfig, CollectionRegistry, Scheduler
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -40,7 +42,15 @@ def test_import_pulls_in_no_jax_and_no_repro():
                  "repro_torch.obs.prom", "repro_torch.obs.slowlog",
                  "repro_torch.core.multi_index",
                  "repro_torch.core.distributed_search",
-                 "repro_torch.core.baselines"):
+                 "repro_torch.core.baselines",
+                 "repro_torch.store", "repro_torch.store.store",
+                 "repro_torch.store.wal", "repro_torch.store.atomic",
+                 "repro_torch.store.faults", "repro_torch.serving",
+                 "repro_torch.serving.scheduler",
+                 "repro_torch.serving.collections",
+                 "repro_torch.serving.metrics",
+                 "repro_torch.serving.overload",
+                 "repro_torch.serving.batching"):
         assert name in names, name
     code = ("import importlib, sys\n"
             f"for name in ['repro_torch'] + {names!r}:\n"
@@ -96,6 +106,13 @@ def test_default_device_raises_without_cuda(monkeypatch):
         init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--smoke"])
+    for entry in (CollectionRegistry, Scheduler,
+                  lambda: CollectionRegistry.open("no-such-dir"),
+                  lambda: CollectionConfig(L=8, b=2).create(),
+                  lambda: serve.main(["--ingest"]),
+                  lambda: serve.main(["--retrieval", "--smoke"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -263,6 +263,10 @@ def test_serve_main_runs_on_cpu(capsys):
     assert serve.main(["--arch", "hubert-xlarge", "--smoke", "--device",
                        "cpu"]) == 0
     assert "encoder-only" in capsys.readouterr().out
-    for flag in ("--retrieval", "--ingest"):
-        with pytest.raises(NotImplementedError, match="Queue 1 items 4 and 8"):
-            serve.main(["--smoke", "--device", "cpu", flag])
+    # the retrieval plane is ported: both modes run on the CPU too
+    # (held against the JAX package's CLI in tests/test_torch_serve_cli.py)
+    for flag, line in (("--retrieval", "retrieval: tau=3 hits per request"),
+                       ("--ingest", "post-merge scheduled topk")):
+        assert serve.main(["--smoke", "--device", "cpu", "--index-size",
+                           "256", flag]) == 0
+        assert line in capsys.readouterr().out

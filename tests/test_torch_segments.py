@@ -245,24 +245,60 @@ def test_fused_cache_counts_and_drops_dead_generations():
     assert not set(scope) & set(tseg._FUSED_CACHE)
 
 
+class _Recorder:
+    """A durability binding that records its hooks' calls in order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def log_insert(self, ids, sk, payloads=None):
+        self.calls.append(("insert", ids.tolist()))
+
+    def log_delete(self, ids):
+        self.calls.append(("delete", ids.tolist()))
+
+    def begin_write(self):
+        self.calls.append(("begin",))
+
+    def end_write(self):
+        self.calls.append(("end",))
+
+    def checkpoint(self, idx):
+        self.calls.append(("checkpoint", len(idx.segments)))
+
+
 def test_unported_options_raise():
-    for backend in ("multi", "sharded"):
-        idx = tseg.SegmentedIndex(16, 2, backend=backend, device="cpu")
-        assert idx.backend == backend
-        with pytest.raises(NotImplementedError):
-            idx.store = object()
+    """Unknown backends and layouts still raise; the durability binding
+    is ported: every backend (the cold tier and the sharded stacks too)
+    takes a ``store`` and calls its hooks where the JAX package does —
+    log before apply, checkpoint after flush, merge and compact."""
+    rows = corpus(16, 2, 8, 0)
+    for kw in (dict(backend="multi"), dict(backend="sharded"),
+               dict(hot_bytes=1 << 20)):
+        idx = tseg.SegmentedIndex(16, 2, delta_cap=4, device="cpu", **kw)
+        assert idx.store is None
+        idx.store = rec = _Recorder()
+        idx.insert(rows[:4])                        # auto-flush at 4
+        idx.delete([1, 1, 9])
+        idx.insert(rows[4:8])                       # flush + merge
+        idx.delete([2])
+        idx.compact()
+        assert rec.calls == [("insert", [0, 1, 2, 3]), ("checkpoint", 1),
+                             ("delete", [1, 9]), ("insert", [4, 5, 6, 7]),
+                             ("checkpoint", 2), ("checkpoint", 1),
+                             ("delete", [2]), ("checkpoint", 1)], \
+            (kw, rec.calls)
     sharded = tseg.ShardedSegmentedIndex(16, 2, n_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sharded.store = object()
     assert sharded.store is None
+    sharded.store = rec = _Recorder()
+    sharded.insert(rows[:3])
+    sharded.delete([0, 7])
+    assert rec.calls == [("insert", [0, 1, 2]), ("begin",), ("end",),
+                         ("delete", [0])]
     with pytest.raises(ValueError):
         tseg.SegmentedIndex(16, 2, backend="lsh", device="cpu")
     with pytest.raises(ValueError):
         tseg.SegmentedIndex(16, 2, layout="columnar", device="cpu")
-    idx = tseg.SegmentedIndex(16, 2, hot_bytes=1 << 20, device="cpu")
-    with pytest.raises(NotImplementedError):
-        idx.store = object()
-    assert idx.store is None
     assert tcs.tier_stats().keys() == jcs.tier_stats().keys()
 
 
