@@ -90,7 +90,26 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      equals an undegraded run at its effective (k, rerank) and τ; the
      next insert takes the next id; (5) ``launch.serve.main`` with
      ``--ingest --data-dir D --rerank jaccard``, ``--ingest --recover``
-     and ``--retrieval --arch smollm-135m`` returns 0.
+     and ``--retrieval --arch smollm-135m`` returns 0;
+ 12. the dedup-fed trainer: (a) ``SketchDedupPipeline`` at a trainer's
+     scale (8,192 candidates of 2,048 tokens a step, vocabulary 49,152,
+     L 16, b 2, τ 2, 16 steps), every step's accepted rows checked on
+     the host with numpy (pairwise > τ, and > τ from the history the
+     bST holds; ROADMAP F7: rows accepted since its last doubling are
+     not searched, as in the JAX package), the
+     history search's verify launches counted, the first 2 steps held
+     bit for bit against the CPU pipeline; (b) the FA-2 backward kernel
+     against its plain version at smollm's train shape (f32 and bf16),
+     hubert's and a windowed, capped D = 128 case, each twice for the
+     same bits, the forward's lse against the plain lse, both passes
+     timed beside SDPA's backward and the bound; (c) smollm-135m trained
+     at full width through ``launch.train.main`` (--dedup batches of 8 x
+     2,048 tokens, bf16 compute, remat, AdamW, 12 steps, a checkpoint
+     every 4) with the flash forward's and backward's launches counted,
+     one step held against the ``attn_impl="ref"`` path, step time,
+     tokens/s, peak memory and a profiled step; then the restart drill
+     (--fail-at 6 returns 13, the rerun resumes at step 4 and ends on
+     the uninterrupted run's losses and checkpoint bit for bit).
 
 Phase 2 also sweeps the batched launches (grid.z over the batch) of the
 scan and the verify: batch 1, 3, 4 and 64, ragged n and m, shared and
@@ -245,6 +264,43 @@ RS_OVL_WAVE, RS_OVL_GAP_S = 128, 0.05
 # popcounts an SM issues a clock on Hopper (the integer pipe's rate for
 # POPC); times the SMs and the SM clock, the re-rank's popcount bound
 POPC_PER_SM_CLOCK = 16
+# Phase 12, the dedup-fed trainer.  (a) The pipeline at a trainer's scale:
+# documents of 2,048 tokens of smollm-135m's 49,152-token vocabulary,
+# 4,096 accepted a step from 8,192 candidates (oversample 2, a quarter
+# near-duplicates), sketched L 16, b 2 and filtered at τ 2, for
+# TRAIN_DATA_STEPS steps: 131,072 candidates sketched on the card and a
+# history bST that grows to 65,536 rows; the first TRAIN_DATA_CPU_STEPS
+# held bit for bit against the CPU.  (b) The FA-2 backward against its
+# plain version at smollm's train shape, hubert's and a windowed, capped
+# D = 128 case.  (c) smollm-135m trained at full size through
+# launch/train.py: batches of 8 x 2,048 tokens from the --dedup pipeline,
+# TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT_EVERY, then the
+# drill (--fail-at TRAIN_FAIL_AT, and a rerun that resumes).
+TRAIN_DATA = dict(vocab=49152, batch=4096, seq=2048, dedup=True,
+                  oversample=2, dup_frac=0.25, dedup_L=16, dedup_b=2,
+                  dedup_tau=2)
+TRAIN_DATA_STEPS, TRAIN_DATA_CPU_STEPS = 16, 2
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "smollm-135m", 8, 2048
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 12, 4, 6
+TRAIN_WARMUP = 2             # steps left out of the step-time median
+# the backward kernel against its plain version: float32 to 5e-4, the
+# tolerance of tests/test_flash.py's gradients; bfloat16 (the tensor-core
+# kernels, P and dS rounded to bf16 as the plain version's bf16 tiles do):
+# both sum in float32 from the same bf16 operands and round each gradient
+# to bf16 once, so an element may land a bf16 ulp (2^-8 of its magnitude)
+# apart where the sums' order moves it, or a P or dS, across a rounding
+# boundary: 2^-7 of the tensor's largest magnitude.
+BWD_F32_TOL = 5e-4
+BWD_BF16_RTOL = 2 ** -7
+BWD_CASES = [(8, 9, 2048, 64, dict(causal=True)),        # smollm, training
+             (2, 16, 1000, 80, dict(causal=False)),      # hubert-xlarge
+             (2, 4, 1024, 128, dict(causal=True, window=256, cap=50.0))]
+# one bf16 train step through the kernels against attn_impl="ref" on the
+# same parameters and batch: phase 7 holds the two paths' logits within
+# 2^-5 of the largest logit; the loss averages 16,384 tokens' NLL and the
+# gradient norm sums every weight's square, so both sit far inside that:
+# the loss within 2^-7 and the gradient norm within 2^-5, relative.
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 2 ** -7, 2 ** -5
 
 
 def fail(msg: str) -> None:
@@ -2512,6 +2568,445 @@ def overload_burst(torch, reg, idx, tq, qs, qp) -> dict:
                          "stages": {str(k): v for k, v in stages.items()}}}
 
 
+def close_pairs(a: np.ndarray, b: np.ndarray, tau: int, same: bool) -> int:
+    """Pairs of rows (i of ``a``, j of ``b``; i < j when ``same``) within
+    Hamming distance ``tau``, counted exactly on the host with numpy: a
+    pair that differs in at most tau symbols agrees on one of tau + 1
+    disjoint blocks (pigeonhole), so only the pairs that share a block's
+    value are compared in full."""
+    L = a.shape[1]
+    edges = np.linspace(0, L, tau + 2).astype(int)
+    cand = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        def key(x):
+            k = np.zeros(len(x), np.int64)
+            for c in range(lo, hi):
+                k = k * 256 + x[:, c]
+            return k
+        ka, kb = key(a), key(b)
+        order = np.argsort(kb, kind="stable")
+        kbs = kb[order]
+        left = np.searchsorted(kbs, ka, "left")
+        counts = np.searchsorted(kbs, ka, "right") - left
+        ii = np.repeat(np.arange(len(a), dtype=np.int64), counts)
+        offs = np.arange(counts.sum()) - np.repeat(np.cumsum(counts) - counts,
+                                                   counts)
+        jj = order[np.repeat(left, counts) + offs]
+        cand.append(ii * len(b) + jj)
+    cand = np.unique(np.concatenate(cand))
+    ii, jj = cand // len(b), cand % len(b)
+    if same:
+        ii, jj = ii[ii < jj], jj[ii < jj]
+    return int(((a[ii] != b[jj]).sum(axis=1) <= tau).sum())
+
+
+def dedup_pipeline(torch, args, ops) -> None:
+    """Phase 12 (a): the dedup pipeline at a trainer's scale on the card,
+    every step's accepted rows checked on the host, the first steps held
+    bit for bit against the CPU."""
+    from repro_torch.core.hamming import hamming_pairwise_naive
+    from repro_torch.core.sketch import sketch_tokens
+    from repro_torch.data.pipeline import DataConfig, SketchDedupPipeline
+
+    cfg = DataConfig(seed=args.seed, **TRAIN_DATA)
+    tau = cfg.dedup_tau
+    pipe = SketchDedupPipeline(cfg, device="cuda")
+    params = pipe._sketch_params
+    # the host checker against the card's brute force on step 0's
+    # candidates, where the injected near-duplicates make pairs within tau
+    sk0 = pipe._sketch(pipe._candidates(0))
+    d0 = hamming_pairwise_naive(sk0, sk0)
+    brute = int(torch.triu((d0 <= tau).to(torch.uint8), diagonal=1).sum())
+    got = close_pairs(sk0.cpu().numpy(), sk0.cpu().numpy(), tau, True)
+    check(got == brute and brute > 0, f"host pair checker {got} != the "
+                                      f"card's brute force {brute}")
+    del sk0, d0
+    print(f"dedup pipeline: {cfg.batch * cfg.oversample} candidates of "
+          f"{cfg.seq} tokens a step, vocab {cfg.vocab}, L {cfg.dedup_L} b "
+          f"{cfg.dedup_b} tau {tau}; host checker agrees with the card on "
+          f"step 0's {brute} candidate pairs within tau", flush=True)
+
+    first = []
+    step_s = []
+    tail_hits = 0
+    ops.reset_kernel_stats()                       # the pipeline's window
+    for step in range(TRAIN_DATA_STEPS):
+        # the history bST holds the first _index_size accepted rows: it
+        # is rebuilt when the history has doubled, and the rows accepted
+        # since are not searched (ROADMAP F7)
+        prev = pipe._history
+        n_prev = 0 if prev is None else len(prev)
+        indexed = None if prev is None else prev[:pipe._index_size]
+        tail = None if prev is None else prev[pipe._index_size:]
+        t0 = time.perf_counter()
+        batch = pipe.batch_for_step(step)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        acc = pipe._history[n_prev:]
+        toks = batch["tokens"]
+        check(toks.shape == (cfg.batch, cfg.seq) and toks.dtype == torch.int32
+              and toks.is_cuda and batch["targets"].shape == toks.shape,
+              f"step {step}: batch {tuple(toks.shape)} {toks.dtype}")
+        check(len(acc) == cfg.batch, f"step {step}: {len(acc)} accepted "
+                                     f"rows for a batch of {cfg.batch}")
+        sk = sketch_tokens(params, toks, L=cfg.dedup_L, b=cfg.dedup_b)
+        check(np.array_equal(sk.cpu().numpy(), acc),
+              f"step {step}: the batch is not the accepted documents")
+        inside = close_pairs(acc, acc, tau, True)
+        check(inside == 0, f"step {step}: {inside} accepted pairs within "
+                           f"tau {tau}")
+        if indexed is not None:
+            hist = close_pairs(acc, indexed, tau, False)
+            check(hist == 0, f"step {step}: {hist} accepted rows within tau "
+                             "of the indexed history")
+            if len(tail):
+                tail_hits += close_pairs(acc, tail, tau, False)
+        if step < TRAIN_DATA_CPU_STEPS:
+            first.append((toks.cpu(), batch["targets"].cpu(),
+                          dict(pipe.stats)))
+    launches = ops.kernel_stats()
+    check(launches.get("sparse_verify_batch", 0) == TRAIN_DATA_STEPS - 1
+          and not any(k.endswith(":ref") for k in launches),
+          f"history search launches {launches}: want the verify kernel once "
+          "a step from step 1")
+    n_cand = TRAIN_DATA_STEPS * cfg.batch * cfg.oversample
+    total = sum(step_s)
+    print(f"dedup pipeline: {TRAIN_DATA_STEPS} steps, {n_cand} candidates "
+          f"in {total:.2f} s ({n_cand / total:.0f} candidates/s; a step "
+          f"median {statistics.median(step_s) * 1e3:.1f} ms); stats "
+          f"{pipe.stats}; history {len(pipe._history)} rows; "
+          f"{pipe.rebuilds} history builds in {pipe.rebuild_seconds:.2f} s; "
+          f"launches {launches}; every step's accepted rows pairwise > tau "
+          "and > tau from the indexed history (host check); pairs within "
+          f"tau of rows accepted since the last build (not searched, F7): "
+          f"{tail_hits}", flush=True)
+    t0 = time.perf_counter()
+    cpu = SketchDedupPipeline(cfg, device="cpu", sketch_params=params)
+    for step, (toks, targets, stats) in enumerate(first):
+        b = cpu.batch_for_step(step)
+        check(torch.equal(b["tokens"], toks)
+              and torch.equal(b["targets"], targets) and cpu.stats == stats,
+              f"step {step}: the card's batch differs from the CPU's")
+    print(f"dedup pipeline: the first {len(first)} steps equal the CPU "
+          f"pipeline's bit for bit ({time.perf_counter() - t0:.1f} s on the "
+          "CPU)", flush=True)
+
+
+def check_flash_bwd(torch, ops, ref, dev, gen, err) -> dict:
+    """Phase 12 (b): the FA-2 backward kernel against its plain version
+    over BWD_CASES in float32 and bfloat16 (each run twice: the same
+    bits), the forward's lse against the plain lse; then both passes
+    timed at smollm's train shape (bf16) beside the plain version, SDPA's
+    backward and the bound.  Returns the two JSON rows' fields."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+
+    for B, H, S, D, kw in BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn((B, H, S, D), device=dev,
+                                       generator=gen).to(dtype)
+                           for _ in range(4))
+            out, lse = ops.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+            _, lse_r = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+            fin = torch.isfinite(lse_r)
+            e_lse = float((lse - lse_r)[fin].abs().max())
+            err["flash_attention_fwd_lse"] = max(
+                err["flash_attention_fwd_lse"], e_lse)
+            check(torch.equal(fin, torch.isfinite(lse)) and e_lse <= 1e-4,
+                  f"lse {dtype} B={B} H={H} S={S} D={D} {kw}: max err {e_lse}")
+            got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            again = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            # the bf16 kernels round P and dS to bf16 for their products:
+            # their specification is the plain version with bf16 tiles
+            bf = dtype == torch.bfloat16
+            want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                               tile_bf16=bf, **kw)
+            errs = []
+            for a, b, w, name in zip(got, again, want, ("dq", "dk", "dv")):
+                what = f"{name} {dtype} B={B} H={H} S={S} D={D} {kw}"
+                check(torch.equal(a, b), f"{what}: two runs differ")
+                e = float((a.float() - w.float()).abs().max())
+                top = float(w.float().abs().max())
+                err["flash_attention_bwd"] = max(err["flash_attention_bwd"],
+                                                 e)
+                if dtype == torch.float32:
+                    ok = torch.allclose(a, w, rtol=BWD_F32_TOL,
+                                        atol=BWD_F32_TOL)
+                else:
+                    ok = e <= BWD_BF16_RTOL * top
+                check(ok and a.dtype == dtype and bool(torch.isfinite(a).all()),
+                      f"{what}: max err {e} (largest {top})")
+                errs.append(e)
+            tiles = ""
+            if bf:                           # beside the float32 tiles
+                f32 = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+                tiles = ", from float32 tiles " + "/".join(
+                    f"{float((a.float() - w.float()).abs().max()):.3g}"
+                    for a, w in zip(got, f32))
+                del f32
+            print(f"flash_attention_bwd vs plain, {str(dtype)[6:]} B={B} "
+                  f"H={H} S={S} D={D} {kw}: max err dq/dk/dv "
+                  f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g}{tiles}, lse "
+                  f"{e_lse:.3g}, two runs bit-identical", flush=True)
+            del q, k, v, do, out, lse, lse_r, got, again, want
+
+    B, H, S, D = BWD_CASES[0][:4]
+    bf16 = torch.bfloat16
+    q, k, v, do = (torch.randn((B, H, S, D), device=dev, generator=gen)
+                   .to(bf16) for _ in range(4))
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    lib = _build.load_library()
+    _, args_ = ops.flash_bwd_args(q, k, v, out, lse, do, causal=True,
+                                  window=0, cap=0.0, scale=D ** -0.5,
+                                  q_offset=0, tile_bf16=False)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def one_pass(passes):
+        code = lib.flash_attention_bwd_launch(*args_, passes, stream)
+        check(code == 0, f"flash_attention_bwd_launch passes={passes}: {code}")
+
+    dq_ms = time_ms(torch, lambda: one_pass(1))
+    dkdv_ms = time_ms(torch, lambda: one_pass(2))
+    bwd_ms = time_ms(torch, lambda: ops.flash_attention_bwd(
+        q, k, v, out, lse, do, causal=True))
+    bwd_plain = time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, causal=True), iters=3)
+    lse_ms = time_ms(torch, lambda: ops.flash_attention_fwd(
+        q, k, v, causal=True, return_lse=True))
+    fwd_ms = time_ms(torch, lambda: ops.flash_attention_fwd(
+        q, k, v, causal=True))
+    lse_plain = time_ms(torch, lambda: ref.flash_attention_ref(
+        q, k, v, causal=True, return_lse=True), iters=3)
+    qq, kk, vv = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    F.scaled_dot_product_attention(qq, kk, vv, is_causal=True).backward(do)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True)
+    sdpa_err = [float((g.float() - w.float()).abs().max())
+                for g, w in zip((qq.grad, kk.grad, vv.grad), want)]
+    sdpa_fwd_ag = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, is_causal=True))
+    sdpa_total = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, is_causal=True).backward(do))
+    sdpa_bwd = sdpa_total - sdpa_fwd_ag
+    with torch.no_grad():
+        sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+    pairs = B * H * (S * (S + 1) // 2)
+    elems = B * H * S * D
+    # backward: s recomputed, dp, dq, dk, dv (5 products of the visible
+    # pairs); q, k, v, out, dout read, dq, dk, dv written, lse read
+    bwd_bound, bwd_by = max_bound(10 * pairs * D, 2 * 8 * elems + 4 * B * H * S)
+    lse_bound, lse_by = max_bound(4 * pairs * D, 2 * 4 * elems + 4 * B * H * S)
+    print(f"flash_attention_bwd (B={B} H={H} S={S} D={D} bf16 causal): "
+          f"{bwd_ms:.3f} ms a call (dq pass {dq_ms:.3f} ms, dk/dv pass "
+          f"{dkdv_ms:.3f} ms), bound {bwd_bound:.4f} ms ({bwd_by}), "
+          f"{10 * pairs * D / bwd_ms / 1e9:.1f} TFLOP/s; plain "
+          f"{bwd_plain:.3f} ms; scaled_dot_product_attention backward "
+          f"{sdpa_bwd:.3f} ms ({sdpa_total:.3f} forward under autograd and "
+          f"backward, {sdpa_fwd_ag:.3f} the forward; its dq/dk/dv "
+          f"{'/'.join(f'{e:.3g}' for e in sdpa_err)} from the plain "
+          "version)", flush=True)
+    print(f"flash_attention_fwd with lse (same shape): {lse_ms:.4f} ms, "
+          f"without {fwd_ms:.4f} ms (the serving launch), bound "
+          f"{lse_bound:.4f} ms ({lse_by}); plain {lse_plain:.3f} ms; "
+          f"scaled_dot_product_attention {sdpa_fwd:.4f} ms", flush=True)
+    del q, k, v, do, out, lse, qq, kk, vv, want
+    torch.cuda.empty_cache()
+    return {"bwd": {"ms": bwd_ms, "dq_ms": dq_ms, "dkdv_ms": dkdv_ms,
+                    "plain_ms": bwd_plain, "bound_ms": bwd_bound,
+                    "bound_by": bwd_by, "library_ms": sdpa_bwd},
+            "lse": {"ms": lse_ms, "serving_ms": fwd_ms, "plain_ms": lse_plain,
+                    "bound_ms": lse_bound, "bound_by": lse_by,
+                    "library_ms": sdpa_fwd}}
+
+
+def max_bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by) of a bf16 tensor-core computation: the larger
+    of its FLOPs over the bf16 peak and its bytes over the memory rate."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def train_smollm(torch, args, ops) -> dict:
+    """Phase 12 (c): smollm-135m trained at full size through
+    ``launch.train.main`` with --dedup batches, checkpoints and the
+    restart drill; one kernel-path step against the plain path; step
+    time, tokens/s, peak memory and a profiled step.  Returns the
+    launches of the training run."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SketchDedupPipeline
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import Params
+    from repro_torch.optim.adamw import Hyper, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    n_layers = cfg.num_layers
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    argv = ["--arch", TRAIN_ARCH, "--dedup", "--steps", str(TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--ckpt-every", str(TRAIN_CKPT_EVERY), "--log-every", "1",
+            "--seed", str(args.seed)]
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_",
+                                 dir=ROOT / "build"))
+
+    def recorder(store):
+        def on_step(step, metrics):
+            store[step] = (float(metrics["loss"]),
+                           float(metrics["grad_norm"]), time.perf_counter())
+        return on_step
+
+    try:
+        full, first, resumed = {}, {}, {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        ops.reset_kernel_stats()                   # the main path's window
+        t0 = time.perf_counter()
+        rc = train.main(argv + ["--ckpt-dir", str(work / "full")],
+                        on_step=recorder(full))
+        run_s = time.perf_counter() - t0
+        launches = ops.kernel_stats()
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        check(rc == 0 and sorted(full) == list(range(TRAIN_STEPS)),
+              f"launch.train returned {rc} after steps {sorted(full)}")
+        fwd_per = 2 * n_layers                     # + the recompute (remat)
+        check(launches.get("flash_attention_fwd") == fwd_per * TRAIN_STEPS
+              and launches.get("flash_attention_fwd:lse")
+              == fwd_per * TRAIN_STEPS
+              and launches.get("flash_attention_fwd:bf16")
+              == fwd_per * TRAIN_STEPS
+              and launches.get("flash_attention_bwd") == n_layers * TRAIN_STEPS
+              and launches.get("flash_attention_bwd:bf16")
+              == n_layers * TRAIN_STEPS
+              and launches.get("sparse_verify_batch", 0) > 0
+              and not any(k.endswith(":ref") for k in launches),
+              f"training launches {launches}: want {fwd_per} bf16 forwards "
+              f"with lse and {n_layers} backwards a step, the history "
+              "search's verify kernel, no plain version")
+        losses = [full[s][0] for s in range(TRAIN_STEPS)]
+        check(all(np.isfinite(losses)), f"losses {losses}")
+        stamps = [t0] + [full[s][2] for s in range(TRAIN_STEPS)]
+        loop_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        step_ms = statistics.median(loop_ms[TRAIN_WARMUP:])
+        print(f"train {TRAIN_ARCH} (--dedup, {TRAIN_BATCH} x {TRAIN_SEQ} "
+              f"tokens, f32 masters, bf16 compute, remat): {TRAIN_STEPS} "
+              f"steps in {run_s:.1f} s; losses "
+              f"{[round(x, 4) for x in losses]}; grad norms "
+              f"{[round(full[s][1], 3) for s in range(TRAIN_STEPS)]}",
+              flush=True)
+        print(f"train loop: a step {step_ms:.1f} ms median after "
+              f"{TRAIN_WARMUP} (data, step and checkpoint copies; "
+              f"{[round(x, 1) for x in loop_ms]}), {tokens / step_ms * 1e3:.0f}"
+              f" tokens/s; peak memory {peak / 2**30:.2f} GiB; launches "
+              f"{launches}: {launches['flash_attention_fwd'] // TRAIN_STEPS} "
+              f"flash forwards ({n_layers} + {n_layers} recomputed) and "
+              f"{launches['flash_attention_bwd'] // TRAIN_STEPS} backwards a "
+              f"step, {launches.get('sparse_verify_batch', 0)} history "
+              "searches (row 1)", flush=True)
+
+        # the step alone, its launches and a profile; the kernel path
+        # against the plain path from the same parameters and batch
+        hyper = Hyper(warmup_steps=2, total_steps=TRAIN_STEPS)
+        p0 = M.init_params(torch.Generator().manual_seed(args.seed), cfg,
+                           device="cuda")
+        batch = SketchDedupPipeline(DataConfig(
+            vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            seed=args.seed, dedup=True), device="cuda").batch_for_step(0)
+
+        def clone(p):
+            def copy(t):
+                if isinstance(t, dict):
+                    return {k: copy(v) for k, v in t.items()}
+                if isinstance(t, list):
+                    return [copy(u) for u in t]
+                return t.clone()
+            return Params(copy(p.tree()))
+
+        metrics = {}
+        for impl in ("ref", "flash"):
+            step = make_train_step(dataclasses.replace(cfg, attn_impl=impl),
+                                   hyper)
+            p = clone(p0)
+            _, _, m = step(p, adamw_init(p), batch)
+            metrics[impl] = (float(m["loss"]), float(m["grad_norm"]))
+            del p
+        (l_ref, g_ref), (l_k, g_k) = metrics["ref"], metrics["flash"]
+        check(abs(l_k - l_ref) <= TRAIN_LOSS_RTOL * abs(l_ref)
+              and abs(g_k - g_ref) <= TRAIN_GNORM_RTOL * abs(g_ref),
+              f"kernel path loss {l_k} gnorm {g_k} vs ref path {l_ref} "
+              f"{g_ref}")
+        print(f"one step, kernel path vs attn_impl='ref': loss {l_k:.6f} vs "
+              f"{l_ref:.6f} (|diff| {abs(l_k - l_ref):.3g}, limit "
+              f"{TRAIN_LOSS_RTOL} relative), grad norm {g_k:.5f} vs "
+              f"{g_ref:.5f} (|diff| {abs(g_k - g_ref):.3g}, limit "
+              f"{TRAIN_GNORM_RTOL} relative)", flush=True)
+        step = make_train_step(cfg, hyper)
+        opt = adamw_init(p0)
+        step(p0, opt, batch)
+        torch.cuda.synchronize()
+        ops.reset_kernel_stats()
+        step(p0, opt, batch)
+        per_step = ops.kernel_stats()
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            step(p0, opt, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        print(f"train step alone (no data): {statistics.median(times):.1f} "
+              f"ms median of 3 {[round(x, 1) for x in times]}, "
+              f"{tokens / statistics.median(times) * 1e3:.0f} tokens/s; "
+              f"launches a step {per_step}", flush=True)
+        profile_window(torch, "train step", lambda: step(p0, opt, batch),
+                       calls=1)
+        del p0, opt, batch, step
+
+        # the drill: fail at TRAIN_FAIL_AT, rerun, resume
+        drill = str(work / "drill")
+        rc = train.main(argv + ["--ckpt-dir", drill, "--fail-at",
+                                str(TRAIN_FAIL_AT)], on_step=recorder(first))
+        check(rc == 13 and sorted(first) == list(range(TRAIN_FAIL_AT)),
+              f"the drill returned {rc} after steps {sorted(first)}")
+        start = ckpt.latest_checkpoint(drill)
+        check(start == TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY,
+              f"the drill's latest checkpoint is step {start}")
+        rc = train.main(argv + ["--ckpt-dir", drill], on_step=recorder(resumed))
+        check(rc == 0 and sorted(resumed) == list(range(start, TRAIN_STEPS)),
+              f"the rerun returned {rc} after steps {sorted(resumed)}")
+        diffs = {s: (first.get(s) or resumed[s])[0] - full[s][0]
+                 for s in range(TRAIN_STEPS)}
+        check(all(first[s][0] == full[s][0] for s in first)
+              and all(resumed[s][0] == full[s][0] for s in resumed),
+              f"the drill's losses differ from the uninterrupted run's: "
+              f"{diffs}")
+        with np.load(work / "full" / f"step_{TRAIN_STEPS:07d}" /
+                     "arrays.npz") as a, \
+                np.load(Path(drill) / f"step_{TRAIN_STEPS:07d}" /
+                        "arrays.npz") as b:
+            check(sorted(a.files) == sorted(b.files)
+                  and all(np.array_equal(a[k], b[k]) for k in a.files),
+                  "the resumed run's final checkpoint differs from the "
+                  "uninterrupted run's")
+            n_arrays = len(a.files)
+        print(f"restart drill: --fail-at {TRAIN_FAIL_AT} returned 13, the "
+              f"rerun resumed at step {start}; losses of steps "
+              f"0-{TRAIN_STEPS - 1} and the {n_arrays} arrays of the step-"
+              f"{TRAIN_STEPS} checkpoint equal the uninterrupted run's bit "
+              "for bit", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2860,11 +3355,19 @@ def main() -> int:
     served = retrieval_server(torch, args, dev, ops, corpus10)
     phase_done("11 (the retrieval server)")
 
+    # -- 12. the dedup-fed trainer -----------------------------------------
+    dedup_pipeline(torch, args, ops)
+    err["flash_attention_fwd_lse"] = err["flash_attention_bwd"] = 0.0
+    attn = check_flash_bwd(torch, ops, ref, dev, gen, err)
+    trained = train_smollm(torch, args, ops)
+    phase_done("12 (the dedup-fed trainer)")
+
     kernels = [
         {"name": "sparse_verify_batch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming.cu",
          "replaces": "src/repro/kernels/hamming_kernel.py:114",
          "launches": launches["sparse_verify_batch"],
+         "train_launches": trained["sparse_verify_batch"],
          "max_abs_err": err["sparse_verify_batch"], "ms": sfx_ms,
          "plain_ms": sfx_plain, "bound_ms": sfx_bound, "bound_by": sfx_by,
          "library_ms": None},
@@ -2898,6 +3401,16 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attn_kernel.py:93",
          "max_abs_err": err["flash_attention_fwd"], **flash,
          "head_dims": list(ops.FLASH_HEAD_DIMS), "d80_hubert": hubert},
+        {"name": "flash_attention_fwd_lse", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+         "replaces": "src/repro/kernels/flash_attn_kernel.py:93",
+         "launches": trained["flash_attention_fwd:lse"],
+         "max_abs_err": err["flash_attention_fwd_lse"], **attn["lse"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+         "replaces": "src/repro/models/flash.py:134",
+         "launches": trained["flash_attention_bwd"],
+         "max_abs_err": err["flash_attention_bwd"], **attn["bwd"]},
         {"name": "sparse_verify_batch_batched", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming.cu",
          "replaces": "src/repro/kernels/hamming_kernel.py:114",

@@ -4,8 +4,8 @@
 process per source, all started together — and links the objects into
 one shared library with a plain C interface, which ``ctypes`` loads.
 The library lands in ``build/repro_torch_kernels/`` at the root of the
-checkout, named by a hash of the sources and the flags, so an edited
-source is rebuilt and a stale library is never loaded.  Nothing is
+checkout, named by a hash of the sources, their headers and the flags,
+so an edited source is rebuilt and a stale library is never loaded.  Nothing is
 built when the module is imported: the CPU tests import it on machines
 without nvcc.
 """
@@ -23,7 +23,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "hamming.cu", _CSRC / "arena.cu", _CSRC / "rerank.cu",
-           _CSRC / "flash_attn.cu")
+           _CSRC / "flash_attn.cu", _CSRC / "flash_attn_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,7 +48,11 @@ _SIGNATURES = {
                                           _LL, _I, _LL, _I, _I, _I, _I, _P],
     "exact_rerank_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
     "flash_attention_fwd_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   *[_LL] * 12, _I, _I, _F, _F, _I, _I, _P],
+                                   *[_LL] * 12, _I, _I, _F, _F, _I, _P, _I,
+                                   _I, _P],
+    "flash_attention_bwd_launch": [*[_P] * 10, _I, _I, _I, _I, _I,
+                                   *[_LL] * 24, _I, _I, _F, _F, _I, _I, _I,
+                                   _I, _P],
 }
 
 
@@ -102,7 +106,7 @@ def load_library() -> ctypes.CDLL:
         if _LIB is not None:
             return _LIB
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in SOURCES:
+        for src in (*SOURCES, *sorted(_CSRC.glob("*.cuh"))):
             digest.update(src.read_bytes())
         path = BUILD_DIR / f"libkernels_{digest.hexdigest()[:16]}.so"
         t0 = time.perf_counter()

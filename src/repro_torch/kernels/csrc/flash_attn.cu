@@ -16,6 +16,15 @@
 //             acc / max(l, 1e-30) in the input dtype, so a row with no
 //             key left is 0.
 // Inputs float32 or bfloat16 (all three alike); the output has q's dtype.
+// With a non-null `lse` (B, H, Sq) float32, each row's log-sum-exp of its
+// scaled (and capped) scores is written too, m + log(max(l, 1e-30)) in
+// natural-log units, -inf for a row with no visible key (the residual of
+// the JAX package's FA-2 backward, repro/models/flash.py:96); the FA-2
+// backward (flash_attn_bwd.cu) recomputes P from it.  Whether lse is
+// written is a template flag, so a null pointer runs the same code as a
+// kernel without it.  `tile_bf16` (the float32 route only) rounds P and V
+// to bfloat16 before P·V, as repro/models/flash.py's TILE_DTYPE does; the
+// bfloat16 route always rounds P (below).
 // Every operand is addressed through (b, h, s) element strides with a
 // unit stride along D, so the model's (B, S, H, D) tensors are read and
 // written as (B, H, S, D) views without a transpose copy.  Both kernels
@@ -84,11 +93,9 @@
 
 #include <atomic>
 
-namespace {
+#include "flash_mma.cuh"
 
-struct Strides {
-  long long b, h, s;
-};
+namespace {
 
 // ---------------------------------------------------------------------------
 // float32: scalar kernel on the CUDA cores
@@ -99,13 +106,14 @@ constexpr int kF32BK = 32;           // keys of one shared-memory tile
 constexpr int kF32Lanes = 4;         // threads sharing one query row
 constexpr int kF32Threads = kF32BQ * kF32Lanes;
 
-template <int D>
+template <int D, bool LSE, bool TILE>
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     int H, int Sq, int Skv, Strides sq, Strides sk,
-                     Strides sv, Strides so, int causal, int window,
-                     float cap, float scale, int q_offset) {
+                     float* __restrict__ lse, int H, int Sq, int Skv,
+                     Strides sq, Strides sk, Strides sv, Strides so,
+                     int causal, int window, float cap, float scale,
+                     int q_offset) {
   static_assert(D % 16 == 0 && D <= 128, "D: a multiple of 16, at most 128");
   constexpr int kV4 = D / 16;        // float4s of a row each thread holds
   __shared__ __align__(16) float k_tile[kF32BK][D];
@@ -202,12 +210,19 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 #pragma unroll
     for (int j = 0; j < kF32BK; ++j) {
-      const float p = expf(s[j] - m_new);      // 0 on a masked key
+      float p = expf(s[j] - m_new);            // 0 on a masked key
       l += p;
+      if (TILE) p = round_bf16(p);
 #pragma unroll
       for (int c = 0; c < kV4; ++c) {
-        const float4 vv =
+        float4 vv =
             *reinterpret_cast<const float4*>(&v_tile[j][16 * c + 4 * lane]);
+        if (TILE) {
+          vv.x = round_bf16(vv.x);
+          vv.y = round_bf16(vv.y);
+          vv.z = round_bf16(vv.z);
+          vv.w = round_bf16(vv.w);
+        }
         acc[c][0] = fmaf(p, vv.x, acc[c][0]);
         acc[c][1] = fmaf(p, vv.y, acc[c][1]);
         acc[c][2] = fmaf(p, vv.z, acc[c][2]);
@@ -217,6 +232,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (qi >= Sq) return;
+  if (LSE && lane == 0)
+    lse[(long long)bh * Sq + qi] =
+        m == -INFINITY ? -INFINITY : m + logf(fmaxf(l, 1e-30f));
   const float den = fmaxf(l, 1e-30f);
   float* ob = out + b * so.b + h * so.h + (long long)qi * so.s;
 #pragma unroll
@@ -226,20 +244,36 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int D>
+void launch_f32_d(const float* q, const float* k, const float* v, float* out,
+                  float* lse, int tile_bf16, dim3 grid, int H, int Sq,
+                  int Skv, Strides sq, Strides sk, Strides sv, Strides so,
+                  int causal, int window, float cap, float scale,
+                  int q_offset, cudaStream_t s) {
+#define FLASH_F32_LAUNCH(L, T)                                                \
+  flash_fwd_f32_kernel<D, L, T><<<grid, kF32Threads, 0, s>>>(                 \
+      q, k, v, out, lse, H, Sq, Skv, sq, sk, sv, so, causal, window, cap,     \
+      scale, q_offset)
+  if (lse == nullptr && !tile_bf16) FLASH_F32_LAUNCH(false, false);
+  else if (!tile_bf16) FLASH_F32_LAUNCH(true, false);
+  else if (lse == nullptr) FLASH_F32_LAUNCH(false, true);
+  else FLASH_F32_LAUNCH(true, true);
+#undef FLASH_F32_LAUNCH
+}
+
 int launch_f32(const float* q, const float* k, const float* v, float* out,
-               int B, int H, int Sq, int Skv, int D, Strides sq, Strides sk,
-               Strides sv, Strides so, int causal, int window, float cap,
-               float scale, int q_offset, cudaStream_t s) {
+               float* lse, int tile_bf16, int B, int H, int Sq, int Skv,
+               int D, Strides sq, Strides sk, Strides sv, Strides so,
+               int causal, int window, float cap, float scale, int q_offset,
+               cudaStream_t s) {
   const long long bh = (long long)B * H;
   if (bh > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((Sq + kF32BQ - 1) / kF32BQ), (unsigned)bh);
-  const dim3 block(kF32Threads);
   switch (D) {
 #define FLASH_F32_CASE(DD)                                                    \
   case DD:                                                                    \
-    flash_fwd_f32_kernel<DD><<<grid, block, 0, s>>>(                          \
-        q, k, v, out, H, Sq, Skv, sq, sk, sv, so, causal, window, cap, scale, \
-        q_offset);                                                            \
+    launch_f32_d<DD>(q, k, v, out, lse, tile_bf16, grid, H, Sq, Skv, sq, sk,  \
+                     sv, so, causal, window, cap, scale, q_offset, s);        \
     break;
     FLASH_F32_CASE(16)
     FLASH_F32_CASE(64)
@@ -257,8 +291,6 @@ int launch_f32(const float* q, const float* k, const float* v, float* out,
 // ---------------------------------------------------------------------------
 
 constexpr int kBK = 64;              // keys of one K / V tile
-constexpr float kLog2e = 1.4426950408889634f;
-
 constexpr int kTcWarps = 4;          // warps of one CTA
 
 // One CTA: kTcWarps warps of 16·MT q rows each (MT m16 tiles a warp,
@@ -275,90 +307,13 @@ struct TcCfg {
   static constexpr int kBytes = (kQ + 4 * kTile) * 2;  // Q, 2 x K, 2 x V
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared; src_bytes 0 writes 16 zero bytes
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row) · b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float ex2(float x) {   // 2^x; 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two floats -> one register of two bf16 (round to nearest even), the
-// first in the low half: the element order of an mma fragment
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// rows [row0, row0 + ROWS) of a (·, D) bf16 operand with row stride
-// `stride` -> shared memory of pitch D + 8, by THREADS threads; rows at or
-// past `limit` are zero-filled (their source address is clamped to row0,
-// which is valid)
-template <int D, int THREADS, int ROWS>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src,
-                                          long long stride, int row0,
-                                          int limit, int tid) {
-  constexpr int kChunks = D / 8;     // 16-byte chunks of a row
-#pragma unroll
-  for (int c = tid; c < ROWS * kChunks; c += THREADS) {
-    const int r = c / kChunks;
-    const int ch = c - r * kChunks;
-    const bool ok = row0 + r < limit;
-    const __nv_bfloat16* g = src + (long long)(ok ? row0 + r : row0) * stride
-                             + ch * 8;
-    cp_async16(dst + (uint32_t)((r * (D + 8) + ch * 8) * 2), g, ok ? 16 : 0);
-  }
-}
-
-template <int D, int MT>
+template <int D, int MT, bool LSE>
 __global__ void __launch_bounds__(32 * kTcWarps, 1)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ out, int H, int Sq, int Skv,
+                    __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ lse, int H, int Sq, int Skv,
                     Strides sq, Strides sk, Strides sv, Strides so,
                     int causal, int window, float cap, float scale,
                     int q_offset) {
@@ -588,6 +543,13 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const float inv = 1.f / fmaxf(l, 1e-30f);
       const int row = 16 * mt + 8 * r + g;
+      if (LSE && t == 0 && w_row + row < Sq) {
+        // m_run is in log2 units of the scaled (capped) scores
+        const float mx = m_run[mt][r];
+        lse[(long long)bh * Sq + w_row + row] =
+            mx == -INFINITY ? -INFINITY
+                            : (mx + log2f(fmaxf(l, 1e-30f))) * kLn2;
+      }
 #pragma unroll
       for (int i = 0; i < kDB; ++i)
         *reinterpret_cast<uint32_t*>(&sO[row * P + i * 8 + 2 * t]) =
@@ -607,58 +569,61 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D, int MT>
+template <int D, int MT, bool LSE>
 int launch_tc_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                const __nv_bfloat16* v, __nv_bfloat16* out, int B, int H,
-                int Sq, int Skv, Strides sq, Strides sk, Strides sv,
-                Strides so, int causal, int window, float cap, float scale,
-                int q_offset, cudaStream_t s) {
+                const __nv_bfloat16* v, __nv_bfloat16* out, float* lse,
+                int B, int H, int Sq, int Skv, Strides sq, Strides sk,
+                Strides sv, Strides so, int causal, int window, float cap,
+                float scale, int q_offset, cudaStream_t s) {
   using Cfg = TcCfg<D, MT>;
   const long long n_qt = (Sq + Cfg::kBQ - 1) / Cfg::kBQ;
   if (n_qt > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((long long)B * H), (unsigned)n_qt);
-  // the shared-memory limit, raised once per device (a bit each)
   static std::atomic<unsigned long long> raised{0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e =
+      raise_smem_limit(flash_fwd_tc_kernel<D, MT, LSE>, Cfg::kBytes, raised);
   if (e != cudaSuccess) return (int)e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (!(raised.load(std::memory_order_relaxed) & bit)) {
-    e = cudaFuncSetAttribute(flash_fwd_tc_kernel<D, MT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Cfg::kBytes);
-    if (e != cudaSuccess) return (int)e;
-    raised.fetch_or(bit, std::memory_order_relaxed);
-  }
-  flash_fwd_tc_kernel<D, MT><<<grid, Cfg::kThreads, Cfg::kBytes, s>>>(
-      q, k, v, out, H, Sq, Skv, sq, sk, sv, so, causal, window, cap, scale,
-      q_offset);
+  flash_fwd_tc_kernel<D, MT, LSE><<<grid, Cfg::kThreads, Cfg::kBytes, s>>>(
+      q, k, v, out, lse, H, Sq, Skv, sq, sk, sv, so, causal, window, cap,
+      scale, q_offset);
   return (int)cudaGetLastError();
 }
 
 // the CTA shape by head dim: warps of 32 rows at D = 64, of 16 rows at
-// D = 16, 80 and 128
-int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
-              const __nv_bfloat16* v, __nv_bfloat16* out, int B, int H,
-              int Sq, int Skv, int D, Strides sq, Strides sk, Strides sv,
-              Strides so, int causal, int window, float cap, float scale,
-              int q_offset, cudaStream_t s) {
+// D = 16, 80 and 128; the lse flag from the pointer
+template <bool LSE>
+int launch_tc_lse(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                  const __nv_bfloat16* v, __nv_bfloat16* out, float* lse,
+                  int B, int H, int Sq, int Skv, int D, Strides sq,
+                  Strides sk, Strides sv, Strides so, int causal, int window,
+                  float cap, float scale, int q_offset, cudaStream_t s) {
   switch (D) {
-    case 16:
-      return launch_tc_d<16, 1>(q, k, v, out, B, H, Sq, Skv, sq, sk, sv, so,
-                                causal, window, cap, scale, q_offset, s);
-    case 64:
-      return launch_tc_d<64, 2>(q, k, v, out, B, H, Sq, Skv, sq, sk, sv, so,
-                                causal, window, cap, scale, q_offset, s);
-    case 80:
-      return launch_tc_d<80, 1>(q, k, v, out, B, H, Sq, Skv, sq, sk, sv, so,
-                                causal, window, cap, scale, q_offset, s);
-    case 128:
-      return launch_tc_d<128, 1>(q, k, v, out, B, H, Sq, Skv, sq, sk, sv, so,
-                                 causal, window, cap, scale, q_offset, s);
+#define FLASH_TC_CASE(DD, MT)                                                 \
+  case DD:                                                                    \
+    return launch_tc_d<DD, MT, LSE>(q, k, v, out, lse, B, H, Sq, Skv, sq, sk, \
+                                    sv, so, causal, window, cap, scale,       \
+                                    q_offset, s);
+    FLASH_TC_CASE(16, 1)
+    FLASH_TC_CASE(64, 2)
+    FLASH_TC_CASE(80, 1)
+    FLASH_TC_CASE(128, 1)
+#undef FLASH_TC_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
+              const __nv_bfloat16* v, __nv_bfloat16* out, float* lse, int B,
+              int H, int Sq, int Skv, int D, Strides sq, Strides sk,
+              Strides sv, Strides so, int causal, int window, float cap,
+              float scale, int q_offset, cudaStream_t s) {
+  if (lse == nullptr)
+    return launch_tc_lse<false>(q, k, v, out, lse, B, H, Sq, Skv, D, sq, sk,
+                                sv, so, causal, window, cap, scale, q_offset,
+                                s);
+  return launch_tc_lse<true>(q, k, v, out, lse, B, H, Sq, Skv, D, sq, sk, sv,
+                             so, causal, window, cap, scale, q_offset, s);
 }
 
 }  // namespace
@@ -669,7 +634,10 @@ extern "C" {
 // by its (b, h, s) element strides with a unit stride along D.
 // dtype: 0 float32 (scalar kernel), 1 bfloat16 (tensor-core kernel; q, k,
 // v and out with 16-byte aligned base pointers and strides).  D in
-// {16, 64, 80, 128}; any other D returns cudaErrorInvalidValue.
+// {16, 64, 80, 128}; any other D returns cudaErrorInvalidValue.  lse:
+// null, or a contiguous (B, H, Sq) float32 output.  tile_bf16: 1 rounds P
+// and V to bfloat16 for P·V on the float32 route (the bfloat16 route
+// always rounds P).
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* out, int B, int H, int Sq, int Skv,
                                int D, long long qsb, long long qsh,
@@ -678,7 +646,8 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                long long vss, long long osb, long long osh,
                                long long oss, int causal, int window,
                                float cap, float scale, int q_offset,
-                               int dtype, void* stream) {
+                               void* lse, int tile_bf16, int dtype,
+                               void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return (int)cudaSuccess;
   if (Skv < 0) return (int)cudaErrorInvalidValue;
   const Strides sq{qsb, qsh, qss}, sk{ksb, ksh, kss}, sv{vsb, vsh, vss},
@@ -686,13 +655,14 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_f32((const float*)q, (const float*)k, (const float*)v,
-                      (float*)out, B, H, Sq, Skv, D, sq, sk, sv, so, causal,
-                      window, cap, scale, q_offset, s);
+                      (float*)out, (float*)lse, tile_bf16, B, H, Sq, Skv,
+                      D, sq, sk, sv, so, causal, window, cap, scale,
+                      q_offset, s);
   if (dtype == 1)
     return launch_tc((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-                     (const __nv_bfloat16*)v, (__nv_bfloat16*)out, B, H, Sq,
-                     Skv, D, sq, sk, sv, so, causal, window, cap, scale,
-                     q_offset, s);
+                     (const __nv_bfloat16*)v, (__nv_bfloat16*)out,
+                     (float*)lse, B, H, Sq, Skv, D, sq, sk, sv, so, causal,
+                     window, cap, scale, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 

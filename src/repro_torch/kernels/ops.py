@@ -24,8 +24,9 @@ the scan and the verify over a leading batch axis, in one launch
 sharded bST verify its shards.  The unbatched scan and static
 verifies launch the same kernels at batch 1.
 
-``flash_attention_fwd`` is the one float kernel: (B, H, S, D) float32 or
-bfloat16 attention, read through strides.
+``flash_attention_fwd`` and ``flash_attention_bwd`` are the float
+kernels: (B, H, S, D) float32 or bfloat16 attention and its FA-2
+gradient, read through strides.
 """
 
 from __future__ import annotations
@@ -44,16 +45,17 @@ _MAX_TILE_M = 32
 # Process-wide launch ledger keyed by wrapper name: ``<name>`` counts
 # kernel launches (bumped after the launch succeeded, and only there),
 # ``<name>:ref`` calls that ran the plain version instead, and, for the
-# flash kernel, ``<name>:bf16`` / ``<name>:f32`` the same launches by the
-# route their dtype chose (tensor cores / scalar).
+# flash kernels, ``<name>:bf16`` / ``<name>:f32`` the same launches by the
+# route their dtype chose (tensor cores / scalar) and
+# ``flash_attention_fwd:lse`` the forwards that also wrote the lse.
 _KSTATS_LOCK = threading.Lock()
 _KERNEL_STATS: dict = {}
 
 
-def _count(name: str, launched: bool, route: str | None = None) -> None:
+def _count(name: str, launched: bool, *routes: str) -> None:
     keys = [name] if launched else [name + ":ref"]
-    if launched and route:
-        keys.append(f"{name}:{route}")
+    if launched:
+        keys += [f"{name}:{route}" for route in routes]
     with _KSTATS_LOCK:
         for key in keys:
             _KERNEL_STATS[key] = _KERNEL_STATS.get(key, 0) + 1
@@ -61,8 +63,8 @@ def _count(name: str, launched: bool, route: str | None = None) -> None:
 
 def kernel_stats() -> dict:
     """Per-wrapper call counts (``<name>`` kernel launched, ``<name>:ref``
-    plain version ran, ``<name>:bf16``/``<name>:f32`` the flash kernel's
-    launches by route)."""
+    plain version ran, ``<name>:bf16``/``<name>:f32`` the flash kernels'
+    launches by route, ``flash_attention_fwd:lse`` forwards with lse)."""
     with _KSTATS_LOCK:
         return dict(_KERNEL_STATS)
 
@@ -479,32 +481,13 @@ _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FLASH_ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int = 0,
-                        cap: float = 0.0, scale: float | None = None,
-                        q_offset: int = 0,
-                        use_kernel: bool | None = None) -> torch.Tensor:
-    """Fused attention forward, (B, H, S, D) layout.
-
-    q: (B, H, Sq, D); k, v: (B, H, Skv, D), the same H (the caller
-    repeats kv heads for GQA), float32 or bfloat16 alike; ``scale=None``
-    is 1/√D; ``q_offset`` is the absolute position of q's first row.
-    Returns (B, H, Sq, D) in q's dtype.  Any Sq and Skv: the kernel masks
-    the ragged kv edge itself.  The plain version takes any D; the kernels
-    take D in ``FLASH_HEAD_DIMS`` and any other D raises on the card.
-    Strided views are read and written in place as long as D is the unit
-    stride: the output is allocated (B, Sq, H, D) and returned as its
-    (B, H, Sq, D) view, so the caller's transpose back is free.
-
-    On the card, bfloat16 runs the tensor-core kernel (P rounded to bf16
-    for P·V; q, k and v need 16-byte aligned base pointers and (b, h, s)
-    strides) and float32 the scalar kernel, exact to 2e-5."""
-    name = "flash_attention_fwd"
+def _check_flash(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, window: int, cap: float) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name}: q, k, v must be (B, H, S, D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    B, H, Sq, D = q.shape
+    B, H, _, D = q.shape
     if (k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != D):
         raise ValueError(f"{name}: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} must be (B={B}, H={H}, Skv, "
@@ -518,19 +501,66 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{v.device}")
     if window < 0 or cap < 0:
         raise ValueError(f"{name}: window {window} and cap {cap} must be >= 0")
+
+
+def _cp_async_ok(x: torch.Tensor) -> bool:
+    """A bf16 operand the tensor-core kernels can copy 16 bytes at a time:
+    an aligned base pointer and (b, h, s) strides of whole 8-element
+    chunks."""
+    return x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3])
+
+
+def _kernel_operands(name: str, xs):
+    """The kernels' operands, D the unit stride (else a contiguous copy);
+    raises for a head dim no kernel takes."""
+    xs = [x if x.stride(-1) == 1 else x.contiguous() for x in xs]
+    D = xs[0].shape[-1]
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} not in {FLASH_HEAD_DIMS}")
+    return xs
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        cap: float = 0.0, scale: float | None = None,
+                        q_offset: int = 0, return_lse: bool = False,
+                        tile_bf16: bool = False,
+                        use_kernel: bool | None = None):
+    """Fused attention forward, (B, H, S, D) layout.
+
+    q: (B, H, Sq, D); k, v: (B, H, Skv, D), the same H (the caller
+    repeats kv heads for GQA), float32 or bfloat16 alike; ``scale=None``
+    is 1/√D; ``q_offset`` is the absolute position of q's first row.
+    Returns (B, H, Sq, D) in q's dtype, and with ``return_lse`` also the
+    (B, H, Sq) float32 log-sum-exp of each row's scores (-inf where no
+    key is visible), the FA-2 backward's residual.  Any Sq and Skv: the
+    kernel masks the ragged kv edge itself.  The plain version takes any
+    D; the kernels take D in ``FLASH_HEAD_DIMS`` and any other D raises
+    on the card.  Strided views are read and written in place as long as
+    D is the unit stride: the output is allocated (B, Sq, H, D) and
+    returned as its (B, H, Sq, D) view, so the caller's transpose back is
+    free.  ``tile_bf16`` rounds P and V to bfloat16 for P·V (the JAX
+    package's ``set_tile_dtype(bfloat16)``).
+
+    On the card, bfloat16 runs the tensor-core kernel (P always rounded
+    to bf16 for P·V; q, k and v need 16-byte aligned base pointers and
+    (b, h, s) strides) and float32 the scalar kernel, exact to 2e-5."""
+    name = "flash_attention_fwd"
+    _check_flash(name, q, k, v, window, cap)
+    B, H, Sq, D = q.shape
     if scale is None:
         scale = 1.0 / float(D) ** 0.5
     if not _on_kernel(q, use_kernel):
         _count(name, False)
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        cap=cap, scale=scale,
-                                       q_offset=q_offset)
-    if D not in FLASH_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} not in {FLASH_HEAD_DIMS}")
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+                                       q_offset=q_offset,
+                                       return_lse=return_lse,
+                                       tile_bf16=tile_bf16)
+    q, k, v = _kernel_operands(name, (q, k, v))
     if q.dtype == torch.bfloat16:      # the tensor-core kernel's cp.async
         for what, x in (("q", q), ("k", k), ("v", v)):
-            if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
+            if not _cp_async_ok(x):
                 raise ValueError(
                     f"{name}: bfloat16 {what} needs a 16-byte aligned base "
                     f"pointer and (b, h, s) strides (multiples of 8 "
@@ -538,13 +568,105 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     from . import _build
     out = torch.empty((B, Sq, H, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
     lib = _build.load_library()
     code = lib.flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq,
         k.shape[2], D, *strides, int(bool(causal)), int(window), float(cap),
-        float(scale), int(q_offset), _FLASH_DTYPES[q.dtype],
+        float(scale), int(q_offset), lse.data_ptr() if return_lse else None,
+        int(bool(tile_bf16)), _FLASH_DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, name)
+    _count(name, B * H * Sq > 0, _FLASH_ROUTES[q.dtype],
+           *(("lse",) if return_lse else ()))
+    return (out, lse) if return_lse else out
+
+
+def flash_bwd_args(q, k, v, out, lse, dout, *, causal: bool, window: int,
+                   cap: float, scale: float, q_offset: int, tile_bf16: bool):
+    """Allocate the backward kernel's outputs and scratch and return them
+    with the launcher's argument list (everything but ``passes`` and the
+    stream): dq in a (B, Sq, H, D) and dk, dv in (B, Skv, H, D)
+    allocations, returned as (B, H, S, D) views as the forward's output
+    is; delta a (B, H, Sq) float32 scratch."""
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+
+    def grad_like(S):
+        return torch.empty((B, S, H, D), dtype=q.dtype,
+                           device=q.device).transpose(1, 2)
+
+    dq, dk, dv = grad_like(Sq), grad_like(Skv), grad_like(Skv)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = [st for x in (q, k, v, out, dout, dq, dk, dv)
+               for st in x.stride()[:3]]
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, Sq, Skv, D, *strides,
+            int(bool(causal)), int(window), float(cap), float(scale),
+            int(q_offset), int(bool(tile_bf16)), _FLASH_DTYPES[q.dtype])
+    return (dq, dk, dv, delta), args
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, cap: float = 0.0,
+                        scale: float | None = None, q_offset: int = 0,
+                        tile_bf16: bool = False,
+                        use_kernel: bool | None = None):
+    """The FA-2 backward of ``flash_attention_fwd``, (B, H, S, D) layout.
+
+    q, k, v, ``causal``, ``window``, ``cap``, ``scale`` and ``q_offset``
+    as given to the forward; ``out`` and ``lse`` its outputs (the lse
+    float32 (B, H, Sq), from ``return_lse=True``); ``dout`` the output's
+    cotangent, shaped and typed as ``out``.  Returns (dq, dk, dv) in the
+    inputs' dtype, as (B, H, S, D) views of (B, S, H, D) allocations.
+    ``tile_bf16`` rounds P, dS and the operands they multiply to
+    bfloat16, as the forward's flag.
+
+    On the card, two launches of ``csrc/flash_attn_bwd.cu``: the dq pass
+    (which also writes delta = rowsum(dout·out)) and the dk/dv pass,
+    float32 sums, no atomics (the same bits every run).  bfloat16 runs
+    the tensor-core kernels (P and dS rounded to bf16 for their products,
+    as ``tile_bf16`` does; q, k, v and dout copied first where their
+    base or strides do not suit cp.async), float32 the scalar kernels.
+    One count per call.  On the CPU the plain
+    ``ref.flash_attention_bwd_ref``."""
+    name = "flash_attention_bwd"
+    _check_flash(name, q, k, v, window, cap)
+    B, H, Sq, D = q.shape
+    for what, x in (("out", out), ("dout", dout)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name}: {what} must be {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"{name}: lse must be ({B}, {H}, {Sq}) float32 on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype} "
+                         f"on {lse.device}")
+    if scale is None:
+        scale = 1.0 / float(D) ** 0.5
+    if not _on_kernel(q, use_kernel):
+        _count(name, False)
+        return ref.flash_attention_bwd_ref(
+            q, k, v, out, lse, dout, causal=causal, window=window, cap=cap,
+            scale=scale, q_offset=q_offset, tile_bf16=tile_bf16)
+    q, k, v, out, dout = _kernel_operands(name, (q, k, v, out, dout))
+    if q.dtype == torch.bfloat16:      # the tensor-core kernels' cp.async
+        q, k, v, dout = (x if _cp_async_ok(x) else x.clone()
+                         for x in (q, k, v, dout))
+    lse = lse.contiguous()
+    from . import _build
+    (dq, dk, dv, _), args = flash_bwd_args(
+        q, k, v, out, lse, dout, causal=causal, window=window, cap=cap,
+        scale=scale, q_offset=q_offset, tile_bf16=tile_bf16)
+    lib = _build.load_library()
+    code = lib.flash_attention_bwd_launch(
+        *args, 3, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, code, name)
     _count(name, B * H * Sq > 0, _FLASH_ROUTES[q.dtype])
-    return out
+    return dq, dk, dv

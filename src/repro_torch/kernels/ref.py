@@ -5,8 +5,9 @@ the port of the matching oracle in ``repro/kernels/ref.py``.  The CPU
 runs them in place of the kernels, and ``chip_smoke.py`` holds every
 kernel against them on the card.
 
-The flash-attention forward is the one float kernel: its plain version
-computes in float32 and is held to a tolerance, not to the bit.
+The flash-attention forward and its FA-2 backward are the float
+kernels: their plain versions compute in float32 and are held to a
+tolerance, not to the bit.
 
 Words are carried as int32 bit-views of the uint32 bit-plane words:
 torch has no popcount, its uint32 tensors have no ``>>`` and int32
@@ -225,10 +226,28 @@ def exact_rerank_ref(pay_vert: torch.Tensor, q_vert: torch.Tensor,
     return torch.where(surv != 0, score, -1.0)
 
 
+def _flash_mask(Sq: int, Skv: int, causal: bool, window: int,
+                q_offset: int, device) -> torch.Tensor:
+    """(Sq, Skv) visibility: query i at ``q_offset + i``, key j at j."""
+    q_pos = q_offset + torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window:
+        mask &= (q_pos - k_pos) < window
+    return mask
+
+
+def _tile(x: torch.Tensor, tile_bf16: bool) -> torch.Tensor:
+    """A float32 tile as the JAX package's ``TILE_DTYPE`` rounds it."""
+    return x.to(torch.bfloat16).to(torch.float32) if tile_bf16 else x
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, window: int = 0, cap: float = 0.0,
-                        scale: float | None = None,
-                        q_offset: int = 0) -> torch.Tensor:
+                        scale: float | None = None, q_offset: int = 0,
+                        return_lse: bool = False, tile_bf16: bool = False):
     """Attention forward, the specification of the flash kernel.
 
     q: (B, H, Sq, D); k, v: (B, H, Skv, D) (the caller repeats kv heads
@@ -238,7 +257,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset + i``, key j at j), softmax over the keys and the sum
     over v.  A row with no visible key gives 0, as the kernel's
     ``acc / max(l, 1e-30)`` does.  Returns (B, H, Sq, D) in q's dtype —
-    the port of the oracle of the JAX package's flash-kernel tests.
+    the port of the oracle of the JAX package's flash-kernel tests —
+    and with ``return_lse`` also the (B, H, Sq) float32 log-sum-exp of
+    the scores, ``m + log(max(l, 1e-30))``, -inf on a row with no
+    visible key (the residual of the FA-2 backward).  ``tile_bf16``
+    rounds P and V to bfloat16 before P·V (the JAX package's
+    ``set_tile_dtype(bfloat16)``; l sums P unrounded, as there).
     """
     D = q.shape[-1]
     if scale is None:
@@ -247,18 +271,67 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      k.to(torch.float32))
     if cap:
         s = torch.tanh(s / cap) * cap
-    q_pos = q_offset + torch.arange(q.shape[2], device=q.device)[:, None]
-    k_pos = torch.arange(k.shape[2], device=q.device)[None, :]
-    mask = torch.ones((q.shape[2], k.shape[2]), dtype=torch.bool,
-                      device=q.device)
-    if causal:
-        mask &= q_pos >= k_pos
-    if window:
-        mask &= (q_pos - k_pos) < window
+    mask = _flash_mask(q.shape[2], k.shape[2], causal, window, q_offset,
+                       q.device)
     s = torch.where(mask, s, -torch.inf)
     m = s.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, 0.0)
+    seen = torch.isfinite(m)
+    m = torch.where(seen, m, 0.0)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(torch.float32))
-    return (out / torch.clamp(l, min=1e-30)).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", _tile(p, tile_bf16),
+                       _tile(v.to(torch.float32), tile_bf16))
+    out = (out / torch.clamp(l, min=1e-30)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(seen, m + torch.log(torch.clamp(l, min=1e-30)),
+                      -torch.inf)
+    return out, lse[..., 0]
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool, window: int = 0, cap: float = 0.0,
+                            scale: float | None = None, q_offset: int = 0,
+                            tile_bf16: bool = False):
+    """The FA-2 backward, the specification of the backward kernel: the
+    JAX package's blockwise backward (``repro/models/flash.py``
+    ``_flash_bwd``) with one block over each axis — blocks change only
+    the order of the float32 sums.
+
+    q, out, dout: (B, H, Sq, D); k, v: (B, H, Skv, D); lse: (B, H, Sq)
+    float32 from the forward.  P is recomputed as ``exp(s_c − lse)``
+    (0 where masked or where lse is -inf), ``delta = rowsum(dout·out)``,
+    ``ds = P·(dout·vᵀ − delta)`` times ``1 − tanh²`` under a cap; then
+    ``dq = scale·ds·k``, ``dk = scale·dsᵀ·q``, ``dv = Pᵀ·dout``, each
+    product's operands rounded to bfloat16 first when ``tile_bf16``.
+    Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    f32 = torch.float32
+    D = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / float(D) ** 0.5
+    qs = q.to(f32) * scale
+    kf, vf, dof = k.to(f32), v.to(f32), dout.to(f32)
+    s = torch.einsum("bhqd,bhkd->bhqk", qs, kf)
+    dt = None
+    if cap:
+        t = torch.tanh(s / cap)
+        s = t * cap
+        dt = 1.0 - t * t
+    mask = _flash_mask(q.shape[2], k.shape[2], causal, window, q_offset,
+                       q.device)
+    fin = torch.isfinite(lse)[..., None]
+    lse_safe = torch.where(fin, lse[..., None], 0.0)
+    p = torch.where(mask & fin, torch.exp(s - lse_safe), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    delta = (dof * out.to(f32)).sum(dim=-1)
+    ds = p * (dp - delta[..., None])
+    if dt is not None:
+        ds = ds * dt
+    ds_t = _tile(ds, tile_bf16)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds_t, _tile(kf, tile_bf16)) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds_t, _tile(qs, tile_bf16))
+    dv = torch.einsum("bhqk,bhqd->bhkd", _tile(p, tile_bf16),
+                      _tile(dof, tile_bf16))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -177,21 +177,25 @@ def mlp_apply(params, x: torch.Tensor, act: str) -> torch.Tensor:
     return h @ params["w_down"]
 
 
-def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
+def normal(generator: torch.Generator | None, *shape) -> torch.Tensor:
+    """Standard normal draws from ``generator`` on its device; with no
+    generator, an empty tensor of that shape on the ``meta`` device (the
+    shapes of ``model.abstract_params``)."""
+    if generator is None:
+        return torch.empty(shape, device="meta")
+    return torch.randn(shape, generator=generator, device=generator.device)
+
+
+def mlp_init(generator: torch.Generator | None, d_model: int, d_ff: int,
              dtype) -> dict:
     """The gated MLP's three matrices, drawn from ``generator`` (on its
     device) as the JAX package scales them."""
-    dev = generator.device
     s_in = 1.0 / np.sqrt(d_model)
     s_out = 1.0 / np.sqrt(d_ff)
-
-    def normal(*shape):
-        return torch.randn(shape, generator=generator, device=dev)
-
     return {
-        "w_gate": (normal(d_model, d_ff) * s_in).to(dtype),
-        "w_up": (normal(d_model, d_ff) * s_in).to(dtype),
-        "w_down": (normal(d_ff, d_model) * s_out).to(dtype),
+        "w_gate": (normal(generator, d_model, d_ff) * s_in).to(dtype),
+        "w_up": (normal(generator, d_model, d_ff) * s_in).to(dtype),
+        "w_down": (normal(generator, d_ff, d_model) * s_out).to(dtype),
     }
 
 
@@ -200,7 +204,8 @@ class Params(nn.Module):
     ``"post_ln1" in p``.  Built from a nested dict of tensors (a list
     becomes a ``ModuleList``); the tensors become parameters without a
     copy.  The serving path holds no gradients, so they do not require
-    them."""
+    them; ``requires_grad_()`` makes them the trainable float32 masters
+    of a train step (``train.steps.make_train_step`` does)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -219,10 +224,14 @@ class Params(nn.Module):
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
 
-    def tree(self) -> dict:
-        """The nested dict of tensors this module holds."""
-        out = {name: p.data for name, p in self._parameters.items()}
+    def tree(self, detach: bool = True) -> dict:
+        """The nested dict of tensors this module holds (``detach=False``:
+        the parameters themselves, so what is computed from them is
+        differentiated back to them)."""
+        out = {name: p.data if detach else p
+               for name, p in self._parameters.items()}
         for name, mod in self._modules.items():
-            out[name] = ([u.tree() for u in mod]
-                         if isinstance(mod, nn.ModuleList) else mod.tree())
+            out[name] = ([u.tree(detach) for u in mod]
+                         if isinstance(mod, nn.ModuleList)
+                         else mod.tree(detach))
         return out

@@ -9,12 +9,15 @@ is a ``ModuleList`` of units, unit ``u`` holding ``l0 .. l{period-1}``);
 ``params_from_jax`` carries a JAX parameter pytree across, unstacking
 its ``(n_units, …)`` leading axis.
 
-Entry points: ``forward`` (full-sequence logits), ``prefill`` (forward +
-bf16 KV caches) and ``decode_step`` (one token against the caches).  The
-caches are a list over units of ``{"l{pos}": (k, v)}``, each
-(B, S_cache, Hkv, D); ``decode_step`` writes the new token's keys and
-values into them in place (saving a copy of every cache per token) and
-returns the same list.
+Entry points: ``forward`` (full-sequence logits, differentiable, with
+``remat`` per unit as the JAX package's ``jax.checkpoint``), ``loss_fn``
+(the masked mean next-token NLL of training), ``prefill`` (forward +
+bf16 KV caches) and ``decode_step`` (one token against the caches);
+``abstract_params`` gives the parameters' shapes and dtypes on the
+``meta`` device.  The caches are a list over units of
+``{"l{pos}": (k, v)}``, each (B, S_cache, Hkv, D); ``decode_step``
+writes the new token's keys and values into them in place (saving a
+copy of every cache per token) and returns the same list.
 
 One card, no mesh: the JAX package's ``constrain`` annotations and its
 sequence-sharded decode branch have no counterpart.  MoE
@@ -28,12 +31,14 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.hamming import resolve_device
 from .config import ModelConfig
 from .flash import flash_attention
 from .layers import (Params, apply_rope, blockwise_attention,
-                     decode_attention, mlp_apply, mlp_init, rms_norm, softcap)
+                     decode_attention, mlp_apply, mlp_init, normal, rms_norm,
+                     softcap)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -48,35 +53,52 @@ def check_supported(cfg: ModelConfig) -> None:
                         "the hybrid shared attention block")):
         if flag:
             raise NotImplementedError(
-                f"{cfg.arch_id}: {what} are not ported yet (ROADMAP Queue 1 "
-                "item 10)")
+                f"{cfg.arch_id}: {what} are not ported yet (ROADMAP Queue "
+                "1, items 1.11-1.12)")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _attn_layer_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+def _attn_layer_init(gen: Optional[torch.Generator], cfg: ModelConfig,
+                     dtype) -> dict:
     d, H, Kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     s = 1.0 / np.sqrt(d)
     so = 1.0 / np.sqrt(H * hd)
-
-    def normal(*shape):
-        return torch.randn(shape, generator=gen, device=gen.device)
-
+    dev = gen.device if gen is not None else torch.device("meta")
     p = {
-        "ln1": torch.zeros((d,), dtype=dtype, device=gen.device),
-        "wq": (normal(d, H, hd) * s).to(dtype),
-        "wk": (normal(d, Kv, hd) * s).to(dtype),
-        "wv": (normal(d, Kv, hd) * s).to(dtype),
-        "wo": (normal(H, hd, d) * so).to(dtype),
-        "ln2": torch.zeros((d,), dtype=dtype, device=gen.device),
+        "ln1": torch.zeros((d,), dtype=dtype, device=dev),
+        "wq": (normal(gen, d, H, hd) * s).to(dtype),
+        "wk": (normal(gen, d, Kv, hd) * s).to(dtype),
+        "wv": (normal(gen, d, Kv, hd) * s).to(dtype),
+        "wo": (normal(gen, H, hd, d) * so).to(dtype),
+        "ln2": torch.zeros((d,), dtype=dtype, device=dev),
         "mlp": mlp_init(gen, d, cfg.d_ff, dtype),
     }
     if cfg.post_norms:
-        p["post_ln1"] = torch.zeros((d,), dtype=dtype, device=gen.device)
-        p["post_ln2"] = torch.zeros((d,), dtype=dtype, device=gen.device)
+        p["post_ln1"] = torch.zeros((d,), dtype=dtype, device=dev)
+        p["post_ln2"] = torch.zeros((d,), dtype=dtype, device=dev)
     return p
+
+
+def _param_tree(gen: Optional[torch.Generator], cfg: ModelConfig) -> dict:
+    """The parameters' nested dict, drawn from ``gen`` on its device (on
+    the ``meta`` device, undrawn, when ``gen`` is None)."""
+    check_supported(cfg)
+    dtype = _DTYPES[cfg.param_dtype]
+    dev = gen.device if gen is not None else torch.device("meta")
+    tree: dict = {}
+    if not cfg.inputs_embeds:
+        tree["embed"] = normal(gen, cfg.vocab, cfg.d_model).to(dtype)
+    tree["units"] = [{f"l{pos}": _attn_layer_init(gen, cfg, dtype)
+                      for pos in range(cfg.period)}
+                     for _ in range(cfg.n_units)]
+    tree["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype, device=dev)
+    if not cfg.tie_embeddings or cfg.inputs_embeds:
+        tree["lm_head"] = (normal(gen, cfg.d_model, cfg.vocab)
+                           / np.sqrt(cfg.d_model)).to(dtype)
+    return tree
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, *,
@@ -86,22 +108,14 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     same weights for every ``device``) and moved to ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    dtype = _DTYPES[cfg.param_dtype]
-    gen = generator
-    tree: dict = {}
-    if not cfg.inputs_embeds:
-        tree["embed"] = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
-                                    device=gen.device).to(dtype)
-    tree["units"] = [{f"l{pos}": _attn_layer_init(gen, cfg, dtype)
-                      for pos in range(cfg.period)}
-                     for _ in range(cfg.n_units)]
-    tree["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
-                                     device=gen.device)
-    if not cfg.tie_embeddings or cfg.inputs_embeds:
-        tree["lm_head"] = (torch.randn((cfg.d_model, cfg.vocab),
-                                       generator=gen, device=gen.device)
-                           / np.sqrt(cfg.d_model)).to(dtype)
-    return Params(tree).to(dev)
+    return Params(_param_tree(generator, cfg)).to(dev)
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """``init_params``'s parameters as shapes and dtypes on the ``meta``
+    device (no memory, no draws): the structure a checkpoint is restored
+    into."""
+    return Params(_param_tree(None, cfg))
 
 
 def params_from_jax(params: dict, cfg: ModelConfig, *,
@@ -235,18 +249,45 @@ def _lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return softcap(logits.to(torch.float32), cfg.softcap_final)
 
 
-@torch.no_grad()
-def forward(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
-    """Full-sequence forward -> (B, S, vocab) f32 logits."""
+def forward(params, cfg: ModelConfig, batch: Dict, *,
+            remat: bool = False) -> torch.Tensor:
+    """Full-sequence forward -> (B, S, vocab) f32 logits, differentiable
+    in the parameters.  ``remat`` recomputes each unit's activations in
+    the backward (``torch.utils.checkpoint`` per unit, the JAX package's
+    ``jax.checkpoint`` around its scanned unit)."""
     check_supported(cfg)
     x = embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :]
-    for unit in params["units"]:
+
+    def unit_fn(h, unit):
         for pos in range(cfg.period):
-            x, _ = _attn_layer(unit[f"l{pos}"], x, cfg, _layer_kind(cfg, pos),
+            h, _ = _attn_layer(unit[f"l{pos}"], h, cfg, _layer_kind(cfg, pos),
                                positions=positions)
+        return h
+
+    for unit in params["units"]:
+        x = (checkpoint(unit_fn, x, unit, use_reentrant=False) if remat
+             else unit_fn(x, unit))
     return _lm_logits(params, cfg, x)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
+            remat: bool = False) -> torch.Tensor:
+    """Mean next-token (or frame-label) cross entropy, a float32 scalar.
+
+    LM batches: {"tokens" (B,S), "targets" (B,S)} — targets are the
+    pipeline-shifted next tokens; positions with target < 0 are masked.
+    Frontend-stub batches: {"embeds" (B,S,d), "targets" (B,S)}.
+    """
+    logits = forward(params, cfg, batch, remat=remat)
+    targets = batch["targets"]
+    mask = (targets >= 0).to(torch.float32)
+    t_safe = torch.clamp(targets, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t_safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,2 @@
-"""Step factories: the compute-dtype cast and the prefill / decode
-steps."""
+"""Step factories: the compute-dtype cast, the train and eval steps, and
+the prefill / decode steps."""

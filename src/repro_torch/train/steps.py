@@ -1,24 +1,37 @@
-"""Serve step factories — the port of the JAX package's ``train/steps.py``
-for the serving path: bf16 compute copies of f32 master parameters, and
-the prefill and decode steps.  The train and eval steps come with
-training (ROADMAP Queue 1 item 10).
+"""Train / serve step factories — the port of the JAX package's
+``train/steps.py``.
+
+``make_train_step``: microbatched gradient accumulation (a Python loop,
+float32 sums scaled by 1/n), per-unit remat inside the model, bf16
+compute from float32 master parameters: the cast runs inside the
+differentiated function, so the masters receive float32 gradients.
+The AdamW update (``optim.adamw``) then writes the masters and the
+moments in place.  ``make_eval_step``, ``make_prefill_step`` and
+``make_decode_step`` run the same cast without gradients.
+
+One card, no mesh: the JAX package's sharding annotations and its
+bf16-collective contract have no counterpart here.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..models.layers import Params
+from ..optim.adamw import AdamWState, Hyper, adamw_update
 
 
-def cast_for_compute(params: Params, dtype=torch.bfloat16) -> Params:
+def cast_for_compute(params: Params, dtype=torch.bfloat16):
     """f32 master -> ``dtype`` compute copies (matrices only; norms and
     vectors keep their dtype).  Returns ``params`` itself when nothing is
-    to be cast, so a step handed an already-cast copy does no work."""
+    to be cast, so a step handed an already-cast copy does no work.
+    Under autograd, with masters that require grad, the copy is a nested
+    dict of tensors (read like ``Params``) whose casts are differentiated
+    back to the masters; otherwise a ``Params`` of detached copies."""
     def cast(tree):
         if isinstance(tree, dict):
             return {k: cast(v) for k, v in tree.items()}
@@ -32,7 +45,74 @@ def cast_for_compute(params: Params, dtype=torch.bfloat16) -> Params:
             p.dtype == torch.float32 and p.dim() >= 2
             for p in params.parameters()):
         return params
+    if torch.is_grad_enabled() and any(p.requires_grad
+                                       for p in params.parameters()):
+        return cast(params.tree(detach=False))
     return Params(cast(params.tree()))
+
+
+def _split_microbatches(batch: Dict, num: int):
+    """The batch's leading axis cut into ``num`` equal microbatches."""
+    def split(x):
+        if x.shape[0] % num:
+            raise ValueError(f"batch {tuple(x.shape)} does not split into "
+                             f"{num} microbatches")
+        return x.reshape((num, x.shape[0] // num) + tuple(x.shape[1:]))
+    split_batch = {k: split(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in split_batch.items()} for i in range(num)]
+
+
+def make_train_step(cfg: ModelConfig, hyper: Hyper, *,
+                    num_microbatches: int = 1, remat: bool = True,
+                    compute_dtype=torch.bfloat16) -> Callable:
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics), ``params`` a ``Params`` of float32 masters (made trainable
+    here) and ``opt_state`` from ``optim.adamw_init``.  Both are updated
+    in place and returned; ``metrics`` holds 0-d device tensors
+    ``loss``, ``lr`` and ``grad_norm``."""
+
+    def loss_and_grads(params, leaves, mb):
+        with torch.enable_grad():
+            params_c = cast_for_compute(params, compute_dtype)
+            loss = M.loss_fn(params_c, cfg, mb, remat=remat)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(leaves, grads)]
+
+    def train_step(params: Params, opt_state: AdamWState, batch: Dict):
+        params.requires_grad_(True)
+        leaves = list(params.parameters())
+        if num_microbatches == 1:
+            loss, grads = loss_and_grads(params, leaves, batch)
+        else:
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device)
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in leaves]
+            for mb in _split_microbatches(batch, num_microbatches):
+                mb_loss, mb_grads = loss_and_grads(params, leaves, mb)
+                loss = loss + mb_loss
+                grads = [a + g.to(torch.float32)
+                         for a, g in zip(grads, mb_grads)]
+            inv = 1.0 / num_microbatches
+            loss = loss * inv
+            grads = [g * inv for g in grads]
+        params, opt_state, metrics = adamw_update(grads, opt_state, params,
+                                                  hyper)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig, *,
+                   compute_dtype=torch.bfloat16) -> Callable:
+    """eval_step(params, batch) -> the loss, a 0-d float32 tensor."""
+    @torch.no_grad()
+    def eval_step(params, batch):
+        params_c = cast_for_compute(params, compute_dtype)
+        return M.loss_fn(params_c, cfg, batch)
+    return eval_step
 
 
 def make_prefill_step(cfg: ModelConfig, *, s_max: Optional[int] = None,

@@ -23,7 +23,8 @@ from repro_torch.core import (HmSearch, LinearScan, MIH,
                               sharded_bst_from_numpy)
 from repro_torch.configs.registry import get_config
 from repro_torch.core.bst import index_from_numpy
-from repro_torch.launch import serve
+from repro_torch.data.pipeline import DataConfig, SketchDedupPipeline
+from repro_torch.launch import serve, train
 from repro_torch.models.model import init_cache, init_params, params_from_jax
 from repro_torch.serving import CollectionConfig, CollectionRegistry, Scheduler
 
@@ -50,7 +51,12 @@ def test_import_pulls_in_no_jax_and_no_repro():
                  "repro_torch.serving.collections",
                  "repro_torch.serving.metrics",
                  "repro_torch.serving.overload",
-                 "repro_torch.serving.batching"):
+                 "repro_torch.serving.batching",
+                 "repro_torch.data.pipeline", "repro_torch.optim.adamw",
+                 "repro_torch.distributed.checkpoint",
+                 "repro_torch.distributed.fault_tolerance",
+                 "repro_torch.distributed.compression",
+                 "repro_torch.launch.train"):
         assert name in names, name
     code = ("import importlib, sys\n"
             f"for name in ['repro_torch'] + {names!r}:\n"
@@ -106,6 +112,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
         init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SketchDedupPipeline(DataConfig(vocab=8, batch=1, seq=4))
     for entry in (CollectionRegistry, Scheduler,
                   lambda: CollectionRegistry.open("no-such-dir"),
                   lambda: CollectionConfig(L=8, b=2).create(),

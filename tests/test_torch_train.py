@@ -1,0 +1,194 @@
+"""The port's train step: the four invariants of
+``tests/test_train_invariants.py`` (microbatch count, remat, the compute
+cast's scope, loss masking) on the port, and one ``make_train_step`` of
+smollm-135m SMOKE and hubert-xlarge SMOKE held against the JAX
+package's from the same parameters (``params_from_jax``) and batch.
+
+Tolerances against JAX: both steps run in float32 on the CPU (the
+port's attention through the plain flash forward and backward); the
+loss within 1e-5 relative and the gradient norm within 1e-4 relative
+(the sums of 2 layers run in another order); the new parameters within
+1e-5 absolute, a hundredth of the step: the first AdamW step moves a
+weight by lr·g/(|g| + eps) with lr = 1e-3, which is ±lr wherever |g| is
+well above eps = 1e-8 but amplifies the sums' rounding where |g| is
+near eps (measured: one weight in a few thousand moves 2.4e-6 apart,
+the rest within 1e-6).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_config as jget_config
+from repro.models import model as JM
+from repro.optim.adamw import Hyper as JHyper
+from repro.optim.adamw import adamw_init as jadamw_init
+from repro.train.steps import make_train_step as jmake_train_step
+from repro_torch.configs.registry import get_config
+from repro_torch.kernels import ops
+from repro_torch.models import model as M
+from repro_torch.optim.adamw import Hyper, adamw_init
+from repro_torch.train.steps import (cast_for_compute, make_eval_step,
+                                     make_train_step)
+
+ARCH = "smollm-135m"
+
+
+def _batch(cfg, B=4, S=32, seed=0):
+    rng = np.random.default_rng(seed)
+    if cfg.inputs_embeds:
+        return {"embeds": rng.standard_normal((B, S, cfg.d_model),
+                                              dtype=np.float32),
+                "targets": rng.integers(0, cfg.vocab, (B, S)).astype(
+                    np.int32)}
+    toks = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1].copy(), "targets": toks[:, 1:].copy()}
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _setup():
+    cfg = get_config(ARCH, smoke=True)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    return cfg, params, _torch_batch(_batch(cfg))
+
+
+def _clone(params):
+    return type(params)(_copy_tree(params.tree()))
+
+
+def _copy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_tree(u) for u in tree]
+    return tree.clone()
+
+
+def test_microbatch_invariance():
+    """mb=1, 2, 4 produce the same updated params."""
+    cfg, params, batch = _setup()
+    hyper = Hyper(total_steps=10, warmup_steps=1)
+    results = []
+    for mb in (1, 2, 4):
+        step = make_train_step(cfg, hyper, num_microbatches=mb,
+                               compute_dtype=torch.float32)
+        p = _clone(params)
+        new_p, _, metrics = step(p, adamw_init(p), batch)
+        results.append((mb, new_p, float(metrics["loss"])))
+    _, p1, l1 = results[0]
+    for mb, pn, ln in results[1:]:
+        assert abs(l1 - ln) < 1e-4, (mb, l1, ln)
+        for a, b in zip(p1.parameters(), pn.parameters()):
+            np.testing.assert_allclose(a.detach().numpy(),
+                                       b.detach().numpy(), rtol=2e-4,
+                                       atol=2e-5, err_msg=f"mb={mb}")
+
+
+def test_remat_value_invariance():
+    """remat=True/False give identical losses and gradients (recompute,
+    same math)."""
+    cfg, params, batch = _setup()
+    params.requires_grad_(True)
+    leaves = list(params.parameters())
+    out = {}
+    for remat in (False, True):
+        loss = M.loss_fn(params, cfg, batch, remat=remat)
+        out[remat] = (float(loss.detach()),
+                      torch.autograd.grad(loss, leaves))
+    np.testing.assert_allclose(out[False][0], out[True][0], rtol=1e-6)
+    for a, b in zip(out[False][1], out[True][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_cast_for_compute_scope():
+    """Only float32 matrices are cast; norms keep their dtype; under
+    autograd the cast copy stays differentiable to the masters."""
+    cfg, params, _ = _setup()
+    cast = cast_for_compute(params, torch.bfloat16)
+    for (name, orig), new in zip(params.named_parameters(),
+                                 cast.parameters()):
+        if orig.dtype == torch.float32 and orig.dim() >= 2:
+            assert new.dtype == torch.bfloat16, name
+        else:
+            assert new.dtype == orig.dtype, name
+    params.requires_grad_(True)
+    tree = cast_for_compute(params, torch.bfloat16)
+    assert isinstance(tree, dict) and tree["embed"].requires_grad
+    assert tree["embed"].grad_fn is not None
+    assert tree["final_norm"] is params["final_norm"]
+
+
+def test_loss_masking():
+    """targets < 0 are excluded from the loss."""
+    cfg, params, batch = _setup()
+    full = float(M.loss_fn(params, cfg, batch))
+    masked_batch = dict(batch)
+    masked_batch["targets"] = batch["targets"].clone()
+    masked_batch["targets"][:, ::2] = -1
+    masked = float(M.loss_fn(params, cfg, masked_batch))
+    assert np.isfinite(masked) and masked != full
+    all_masked = dict(batch, targets=torch.full_like(batch["targets"], -1))
+    assert float(M.loss_fn(params, cfg, all_masked)) == 0.0
+
+
+def test_abstract_params_are_meta_shapes():
+    cfg, params, _ = _setup()
+    abstract = M.abstract_params(cfg)
+    got = [(n, tuple(p.shape), p.dtype, p.device.type)
+           for n, p in abstract.named_parameters()]
+    want = [(n, tuple(p.shape), p.dtype, "meta")
+            for n, p in params.named_parameters()]
+    assert got == want
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "hubert-xlarge"])
+def test_train_step_matches_jax(arch):
+    cfg = get_config(arch, smoke=True)
+    jcfg = jget_config(arch, smoke=True)
+    jparams = JM.init_params(jax.random.PRNGKey(1), jcfg)
+    batch = _batch(cfg, seed=2)
+    jhyper = JHyper(base_lr=1e-3, total_steps=10, warmup_steps=1)
+    jstep = jax.jit(jmake_train_step(jcfg, jhyper,
+                                     compute_dtype=jnp.float32))
+    j_new, _, j_metrics = jstep(jparams, jadamw_init(jparams),
+                                {k: jnp.asarray(v) for k, v in batch.items()})
+    params = M.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                               cfg, device="cpu")
+    step = make_train_step(cfg, Hyper(*jhyper), compute_dtype=torch.float32)
+    ops.reset_kernel_stats()
+    new, opt, metrics = step(params, adamw_init(params), _torch_batch(batch))
+    n_attn = cfg.num_layers
+    # remat: each layer's forward runs again in the backward
+    assert ops.kernel_stats() == {"flash_attention_fwd:ref": 2 * n_attn,
+                                  "flash_attention_bwd:ref": n_attn}
+    assert int(opt.step) == 1
+    np.testing.assert_allclose(float(metrics["loss"]),
+                               float(j_metrics["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["grad_norm"]),
+                               float(j_metrics["grad_norm"]), rtol=1e-4)
+    np.testing.assert_allclose(float(metrics["lr"]), float(j_metrics["lr"]),
+                               rtol=1e-7)
+    want = M.params_from_jax(jax.tree_util.tree_map(np.asarray, j_new), cfg,
+                             device="cpu")
+    for (name, a), b in zip(new.named_parameters(), want.parameters()):
+        np.testing.assert_allclose(a.detach().numpy(), b.numpy(), rtol=0,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_eval_step_is_the_loss():
+    cfg, params, batch = _setup()
+    got = make_eval_step(cfg, compute_dtype=torch.float32)(params, batch)
+    assert not got.requires_grad
+    assert float(got) == float(M.loss_fn(params, cfg, batch))
+    ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    np.testing.assert_allclose(float(M.loss_fn(params, ref_cfg, batch)),
+                               float(got), rtol=1e-5)
