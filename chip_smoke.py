@@ -101,8 +101,10 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      bit for bit against the CPU pipeline; (b) the FA-2 backward kernel
      against its plain version at smollm's train shape (f32 and bf16),
      hubert's and a windowed, capped D = 128 case, each twice for the
-     same bits, the forward's lse against the plain lse, both passes
-     timed beside SDPA's backward and the bound; (c) smollm-135m trained
+     same bits, the forward's lse against the plain lse, no ptxas spill
+     in any bf16 backward kernel, both passes timed at the D = 128 case
+     and at the train shape beside the bound, the latter also beside
+     SDPA's backward; (c) smollm-135m trained
      at full width through ``launch.train.main`` (--dedup batches of 8 x
      2,048 tokens, bf16 compute, remat, AdamW, 12 steps, a checkpoint
      every 4) with the flash forward's and backward's launches counted,
@@ -2695,9 +2697,11 @@ def dedup_pipeline(torch, args, ops) -> None:
 def check_flash_bwd(torch, ops, ref, dev, gen, err) -> dict:
     """Phase 12 (b): the FA-2 backward kernel against its plain version
     over BWD_CASES in float32 and bfloat16 (each run twice: the same
-    bits), the forward's lse against the plain lse; then both passes
-    timed at smollm's train shape (bf16) beside the plain version, SDPA's
-    backward and the bound.  Returns the two JSON rows' fields."""
+    bits), the forward's lse against the plain lse; ptxas's report of
+    every bf16 backward kernel (BWD_BF16_KERNELS) without a spill; then
+    both passes timed at the D = 128 case and at smollm's train shape
+    (bf16), each call beside its bound, the latter also beside the plain
+    version and SDPA's backward.  Returns the two JSON rows' fields."""
     import torch.nn.functional as F
     from repro_torch.kernels import _build
 
@@ -2750,23 +2754,55 @@ def check_flash_bwd(torch, ops, ref, dev, gen, err) -> dict:
                   f"{e_lse:.3g}, two runs bit-identical", flush=True)
             del q, k, v, do, out, lse, lse_r, got, again, want
 
-    B, H, S, D = BWD_CASES[0][:4]
+    kern = bf16_bwd_ptxas(_build)
+    check(set(kern) == BWD_BF16_KERNELS,
+          f"ptxas report: bf16 backward kernels {sorted(kern)}, want "
+          f"{sorted(BWD_BF16_KERNELS)}")
+    spilled = {k: v for k, v in kern.items() if v[1] or v[2]}
+    check(not spilled, f"ptxas spills in bf16 backward kernels: {spilled}")
+    print(f"ptxas: the {len(kern)} bf16 backward kernels spill nothing "
+          f"(registers {', '.join(f'{k} {v[0]}' for k, v in kern.items())})",
+          flush=True)
+
     bf16 = torch.bfloat16
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def passes_ms(args_):
+        def one_pass(passes):
+            code = lib.flash_attention_bwd_launch(*args_, passes, stream)
+            check(code == 0,
+                  f"flash_attention_bwd_launch passes={passes}: {code}")
+        return (time_ms(torch, lambda: one_pass(1)),
+                time_ms(torch, lambda: one_pass(2)))
+
+    # the windowed, capped D = 128 case of BWD_CASES beside its bound
+    B, H, S, D, kw = BWD_CASES[2]
+    q, k, v, do = (torch.randn((B, H, S, D), device=dev, generator=gen)
+                   .to(bf16) for _ in range(4))
+    out, lse = ops.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    _, args_ = ops.flash_bwd_args(q, k, v, out, lse, do, scale=D ** -0.5,
+                                  q_offset=0, tile_bf16=False, **kw)
+    d128_dq, d128_dkdv = passes_ms(args_)
+    d128_ms = time_ms(torch, lambda: ops.flash_attention_bwd(
+        q, k, v, out, lse, do, **kw))
+    pairs = B * H * sum(min(i + 1, kw["window"]) for i in range(S))
+    d128_bound, d128_by = max_bound(10 * pairs * D,
+                                    2 * 8 * B * H * S * D + 4 * B * H * S)
+    print(f"flash_attention_bwd (B={B} H={H} S={S} D={D} bf16 {kw}): "
+          f"{d128_ms:.4f} ms a call (dq pass {d128_dq:.4f} ms, dk/dv pass "
+          f"{d128_dkdv:.4f} ms), bound {d128_bound:.4f} ms ({d128_by}), "
+          f"{10 * pairs * D / d128_ms / 1e9:.1f} TFLOP/s", flush=True)
+    del q, k, v, do, out, lse
+
+    B, H, S, D = BWD_CASES[0][:4]
     q, k, v, do = (torch.randn((B, H, S, D), device=dev, generator=gen)
                    .to(bf16) for _ in range(4))
     out, lse = ops.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
-    lib = _build.load_library()
     _, args_ = ops.flash_bwd_args(q, k, v, out, lse, do, causal=True,
                                   window=0, cap=0.0, scale=D ** -0.5,
                                   q_offset=0, tile_bf16=False)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def one_pass(passes):
-        code = lib.flash_attention_bwd_launch(*args_, passes, stream)
-        check(code == 0, f"flash_attention_bwd_launch passes={passes}: {code}")
-
-    dq_ms = time_ms(torch, lambda: one_pass(1))
-    dkdv_ms = time_ms(torch, lambda: one_pass(2))
+    dq_ms, dkdv_ms = passes_ms(args_)
     bwd_ms = time_ms(torch, lambda: ops.flash_attention_bwd(
         q, k, v, out, lse, do, causal=True))
     bwd_plain = time_ms(torch, lambda: ref.flash_attention_bwd_ref(
@@ -2787,6 +2823,14 @@ def check_flash_bwd(torch, ops, ref, dev, gen, err) -> dict:
     sdpa_total = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qq, kk, vv, is_causal=True).backward(do))
     sdpa_bwd = sdpa_total - sdpa_fwd_ag
+    # the same two, 20 calls queued back to back: the device's time with
+    # the host's share of a call hidden (the step queues its calls)
+    bwd_queued = queued_ms(torch, lambda: ops.flash_attention_bwd(
+        q, k, v, out, lse, do, causal=True))
+    sdpa_bwd_queued = queued_ms(torch, lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, is_causal=True).backward(do)) - queued_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=True))
     with torch.no_grad():
         sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True))
@@ -2804,7 +2848,9 @@ def check_flash_bwd(torch, ops, ref, dev, gen, err) -> dict:
           f"{sdpa_bwd:.3f} ms ({sdpa_total:.3f} forward under autograd and "
           f"backward, {sdpa_fwd_ag:.3f} the forward; its dq/dk/dv "
           f"{'/'.join(f'{e:.3g}' for e in sdpa_err)} from the plain "
-          "version)", flush=True)
+          f"version); queued: {bwd_queued:.4f} ms a call "
+          f"({10 * pairs * D / bwd_queued / 1e9:.1f} TFLOP/s), SDPA's "
+          f"backward {sdpa_bwd_queued:.4f} ms", flush=True)
     print(f"flash_attention_fwd with lse (same shape): {lse_ms:.4f} ms, "
           f"without {fwd_ms:.4f} ms (the serving launch), bound "
           f"{lse_bound:.4f} ms ({lse_by}); plain {lse_plain:.3f} ms; "
@@ -2813,10 +2859,38 @@ def check_flash_bwd(torch, ops, ref, dev, gen, err) -> dict:
     torch.cuda.empty_cache()
     return {"bwd": {"ms": bwd_ms, "dq_ms": dq_ms, "dkdv_ms": dkdv_ms,
                     "plain_ms": bwd_plain, "bound_ms": bwd_bound,
-                    "bound_by": bwd_by, "library_ms": sdpa_bwd},
+                    "bound_by": bwd_by, "library_ms": sdpa_bwd,
+                    "queued_ms": bwd_queued,
+                    "library_queued_ms": sdpa_bwd_queued,
+                    "d128": {"ms": d128_ms, "dq_ms": d128_dq,
+                             "dkdv_ms": d128_dkdv, "bound_ms": d128_bound,
+                             "bound_by": d128_by},
+                    "ptxas": {k: list(v) for k, v in kern.items()}},
             "lse": {"ms": lse_ms, "serving_ms": fwd_ms, "plain_ms": lse_plain,
                     "bound_ms": lse_bound, "bound_by": lse_by,
                     "library_ms": sdpa_fwd}}
+
+
+# the bf16 backward kernels by head dim: the wgmma kernels at D 64 and 128,
+# the mma.sync ones at D 16 and 80 (an 80-wide row is 160 bytes, past the
+# 128-byte swizzle span of the TMA tiles)
+BWD_BF16_KERNELS = {f"flash_bwd_{p}_{k}_kernel<{d}>"
+                    for p in ("dq", "dkdv")
+                    for k, ds in (("wg", (64, 128)), ("tc", (16, 80)))
+                    for d in ds}
+
+
+def bf16_bwd_ptxas(_build) -> dict:
+    """ptxas's (registers, spill store bytes, spill load bytes) of each
+    bf16 backward kernel in the last build's report, by a short name."""
+    import re
+    out = {}
+    for name, v in _build.ptxas_kernels(_build.BUILD_INFO["report"]).items():
+        m = re.search(r"(flash_bwd_(?:dq|dkdv)_(?:wg|tc)_kernel)ILi(\d+)E",
+                      name)
+        if m:
+            out[f"{m.group(1)}<{m.group(2)}>"] = v
+    return out
 
 
 def max_bound(flops: float, nbytes: float):
@@ -3064,6 +3138,9 @@ def main() -> int:
     for line in _build.BUILD_INFO["report"].splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    for name, (regs, st, ld) in bf16_bwd_ptxas(_build).items():
+        print(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, "
+              f"{ld} bytes spill loads")
     phase_done("1 (device and build)")
 
     # -- 2. kernels against their plain versions ---------------------------

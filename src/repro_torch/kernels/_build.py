@@ -5,9 +5,10 @@ process per source, all started together — and links the objects into
 one shared library with a plain C interface, which ``ctypes`` loads.
 The library lands in ``build/repro_torch_kernels/`` at the root of the
 checkout, named by a hash of the sources, their headers and the flags,
-so an edited source is rebuilt and a stale library is never loaded.  Nothing is
-built when the module is imported: the CPU tests import it on machines
-without nvcc.
+so an edited source is rebuilt and a stale library is never loaded; nvcc's
+report (ptxas's registers and spills of every kernel) is kept beside it.
+Nothing is built when the module is imported: the CPU tests import it on
+machines without nvcc.
 """
 
 from __future__ import annotations
@@ -110,7 +111,12 @@ def load_library() -> ctypes.CDLL:
             digest.update(src.read_bytes())
         path = BUILD_DIR / f"libkernels_{digest.hexdigest()[:16]}.so"
         t0 = time.perf_counter()
-        report = "" if path.exists() else _compile(path)
+        notes = path.with_suffix(".ptxas.txt")   # nvcc's report, kept beside
+        if path.exists():
+            report = notes.read_text() if notes.exists() else ""
+        else:
+            report = _compile(path)
+            notes.write_text(report)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -129,3 +135,22 @@ def check(lib: ctypes.CDLL, code: int, name: str) -> None:
     if code != 0:
         msg = lib.hamming_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({code}: {msg})")
+
+
+def ptxas_kernels(report: str) -> dict:
+    """Each kernel's (registers, spill store bytes, spill load bytes) from
+    nvcc's ``-Xptxas -v`` report, by mangled name."""
+    out, name, spills = {}, None, (0, 0)
+    for line in report.splitlines():
+        if "Function properties for " in line:
+            name = line.split("Function properties for ", 1)[1].strip()
+            spills = (0, 0)
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spills = (nums[1], nums[2])
+        elif name and "Used " in line and " registers" in line:
+            regs = int(line.split("Used ", 1)[1].split()[0])
+            out[name] = (regs, *spills)
+            name = None
+    return out

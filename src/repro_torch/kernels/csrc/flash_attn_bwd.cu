@@ -22,35 +22,60 @@
 // through (b, h, s) element strides with a unit stride along D, so the
 // model's (B, S, H, D) tensors are read and written as (B, H, S, D) views.
 //
-// Two passes, as FA-2 and the JAX code: a dq pass, one CTA per (b·h, 64 q
-// rows), loops over the kv tiles its rows can see and also writes delta;
-// a dk/dv pass, one CTA per (b·h, 64 keys), launched after it on the same
-// stream, loops over the q tiles that can see its keys and reads that
-// delta.  Tiles past the causal diagonal or outside the window are
-// skipped whole.  Every output element is summed by one thread in a fixed
-// order: no atomics, so the gradient is the same bits on every run (the
-// restart drill compares losses bit for bit).
+// Two passes, as FA-2 and the JAX code: a dq pass, one CTA per (b·h, a
+// tile of q rows), loops over the kv tiles its rows can see and also
+// writes delta; a dk/dv pass, one CTA per (b·h, a tile of keys), launched
+// after it on the same stream, loops over the q tiles that can see its
+// keys and reads that delta.  Tiles past the causal diagonal or outside
+// the window are skipped whole, and under a causal mask the CTAs with the
+// most tiles are launched first (the last q tiles, the first key tiles),
+// so the grid does not end in a tail of long CTAs.  Every output element
+// is summed by one thread in a fixed order: no atomics, so the gradient
+// is the same bits on every run (the restart drill compares losses bit
+// for bit).
 //
 // Bound on this card: operations.  At smollm-135m's train shape (B 8,
 // H 9, S 2048, D 64, causal) the backward needs 2·B·H·(S(S+1)/2)·D·5 ≈
 // 9.7e10 flops (five products of the visible pairs: s recomputed, dp, dq,
 // dk, dv), 0.098 ms at the 989 TFLOP/s of the bf16 tensor cores, while
-// its tensors move ≈ 0.15 GB (0.045 ms at 3.35 TB/s).
+// its tensors move ≈ 0.15 GB (0.045 ms at 3.35 TB/s).  The two passes do
+// seven products (S and dP in both) and two exponentials a score, so the
+// design's own floor is 1.4x that bound.
 //
-// bfloat16: flash_bwd_dq_tc_kernel and flash_bwd_dkdv_tc_kernel, the
-// forward's tensor-core structure (flash_attn.cu; primitives in
-// flash_mma.cuh).  4 warps of 16 rows a CTA; the streamed side comes in a
-// 2-stage cp.async ring of 64-row tiles; every product is mma.sync
-// m16n8k16 with float32 sums and the same fragment patterns as the
-// forward's: S = Q·Kᵀ and dP = dO·Vᵀ (dq pass) or Sᵀ = K·Qᵀ and
-// dPᵀ = V·dOᵀ (dk/dv pass) from ldmatrix, and P (Pᵀ) and dS (dSᵀ) fed
-// from the accumulators as A operands, rounded to bf16, against
-// ldmatrix.trans fragments of K (dq += dS·K), dO (dV += Pᵀ·dO) and Q
-// (dK += dSᵀ·Q).  The rows' own operands (Q and dO; K and V) stay in
-// registers for the whole loop.  Rounding P and dS to bf16 is the one
-// numeric difference from the float32 tiles of the plain version, as P's
-// is in the forward; with bf16 inputs it is what the JAX package's
+// bfloat16 at D = 64 and 128: flash_bwd_dq_wg_kernel and
+// flash_bwd_dkdv_wg_kernel, warp-specialised for Hopper (primitives in
+// sm90.cuh).  A CTA owns 128 rows (q rows, or keys) and has three
+// warpgroups: a producer warp that TMA-loads the CTA's own two operands
+// once (Q and dO, or K and V: they stay in shared memory for the CTA's
+// life) and then keeps the other side's 64-row tiles (K and V, or Q and
+// dO with their rows' lse·log2(e) and delta) in flight in a 2-stage ring
+// on mbarriers; and two consumer warpgroups of 64 rows each (setmaxnreg:
+// 24 registers for the producer, 240 for the consumers) that run wgmma
+// m64nNk16 with float32 sums: S = Q·Kᵀ and dP = dO·Vᵀ (dq pass) or
+// Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (dk/dv pass), both operands read from
+// shared memory; then dQ += dS·K, or dV += Pᵀ·dO and dK += dSᵀ·Q, with P
+// (Pᵀ) and dS (dSᵀ) rounded to bf16 as register A operands and the
+// streamed tile as the MN-major B.  Each group is issued before the
+// element work it overlaps: P is made while dP runs, dS while dV runs.
+// Tiles are the TMA's 128-byte swizzle (a D = 128 operand is two 64-
+// column blocks), the layout the wgmma descriptors name.  What bounds the
+// kernels now: the element work between the products (an exponential a
+// score, a MUFU op at 16 a clock an SM, besides the masks and the bf16
+// packing) serialises with each warpgroup's own products, and the two
+// warpgroups overlap each other's only in part; the dq pass recomputes S
+// and dP (the seven products above).  Rounding P and dS to bf16 is the
+// one numeric difference from the float32 tiles of the plain version, as
+// P's is in the forward; with bf16 inputs it is what the JAX package's
 // set_tile_dtype(bfloat16) does, so the tile flag changes nothing here.
+//
+// bfloat16 at D = 16 and 80: flash_bwd_dq_tc_kernel and
+// flash_bwd_dkdv_tc_kernel, the forward's tensor-core structure
+// (flash_attn.cu; primitives in flash_mma.cuh), as TMA tiles with the
+// 128-byte swizzle cannot hold an 80-wide row (160 bytes) and D = 16
+// (the SMOKE configs) would need a third swizzle mode.  4 warps of 16
+// rows a CTA, 64 rows a tile; the streamed side comes in a 2-stage
+// cp.async ring; every product is mma.sync m16n8k16 from ldmatrix
+// fragments, K's and V's (dk/dv pass) loaded again for each tile.
 //
 // float32: flash_bwd_dq_kernel and flash_bwd_dkdv_kernel, scalar FMAs on
 // the CUDA cores as the float32 forward: 4 threads own one row and split
@@ -60,14 +85,18 @@
 // version.  tile_bf16 rounds p, ds and the operands they multiply to
 // bfloat16 first, as repro/models/flash.py's TILE_DTYPE does.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "flash_mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -386,7 +415,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core kernels (mma.sync m16n8k16, ldmatrix, cp.async)
+// bfloat16 at D = 16 and 80: tensor-core kernels (mma.sync m16n8k16,
+// ldmatrix, cp.async)
 // ---------------------------------------------------------------------------
 
 constexpr int kTcWarps = 4;
@@ -647,8 +677,8 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 t);
 }
 
-// pass 2: dk and dv, one CTA per (b·h, 64 keys); K and V fragments in
-// registers, Q and dO tiles (with their rows' lse and delta) streamed
+// pass 2: dk and dv, one CTA per (b·h, 64 keys); K and V in shared memory,
+// Q and dO tiles (with their rows' lse and delta) streamed
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
@@ -715,7 +745,6 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_commit();
 
-  uint32_t kf[D / 16][4], vf[D / 16][4];
   float dk_acc[kDB][4], dv_acc[kDB][4];
 #pragma unroll
   for (int i = 0; i < kDB; ++i) {
@@ -741,10 +770,6 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (it == 0) {
-      load_a_frags<D>(kf, sK, warp, lane);
-      load_a_frags<D>(vf, sV, warp, lane);
-    }
     const int st = it & 1;
     const uint32_t stage = st * kTileBytes;
     float s[kNB][4], dp[kNB][4];
@@ -753,8 +778,14 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
       s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
       dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
     }
-    mma_abt<D>(s, kf, sQ + stage, lane);           // Sᵀ = K·Qᵀ
-    mma_abt<D>(dp, vf, sDO + stage, lane);         // dPᵀ = V·dOᵀ
+    {    // K's and V's fragments again each tile: held across the loop
+         // they spill at D = 80
+      uint32_t f[D / 16][4];
+      load_a_frags<D>(f, sK, warp, lane);
+      mma_abt<D>(s, f, sQ + stage, lane);          // Sᵀ = K·Qᵀ
+      load_a_frags<D>(f, sV, warp, lane);
+      mma_abt<D>(dp, f, sDO + stage, lane);        // dPᵀ = V·dOᵀ
+    }
     const bool cut = (kw + 16 > Skv) || (q0 + kTcTile > Sq)
         || (causal && kw + 15 > q_offset + q0)
         || (window > 0 && q_offset + q0 + kTcTile - 1 - kw >= window);
@@ -783,6 +814,641 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 at D = 64 and 128: warp-specialised wgmma kernels (TMA,
+// mbarriers, setmaxnreg)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;      // a producer warpgroup, two consumers
+constexpr int kWgRows = 128;         // the rows a CTA owns, 64 a consumer
+constexpr int kWgTile = 64;          // rows of a streamed tile
+constexpr int kWgStages = 2;         // the ring of streamed tiles
+constexpr int kBox = 64;             // TMA boxes: 64 rows x 64 columns
+constexpr int kProducerRegs = 24;    // 128 x 24 + 256 x 240 <= 65,536
+constexpr int kConsumerRegs = 240;
+constexpr int kEmptyArrivals = 8;    // one a consumer warp
+
+// Shared memory, from a 1024-byte aligned base: the CTA's own two operands
+// (128 rows each: K and V, or Q and dO), a ring of kWgStages pairs of
+// streamed tiles (kWgTile rows each: Q and dO, or K and V), each operand
+// D / 64 swizzled blocks of 64 columns (128-byte rows); then 2 x kWgTile
+// floats a stage (the dk/dv pass's lse·log2(e) and delta of the tile's q
+// rows; the dq pass keeps its rows' delta there) and the mbarriers:
+// full[stage], empty[stage] and one for the own operands.
+template <int D>
+struct BwdWg {
+  static_assert(D == 64 || D == 128, "the wgmma kernels take D 64 and 128");
+  static constexpr int kBlocks = D / 64;
+  static constexpr uint32_t kOwnBlock = kWgRows * 128;
+  static constexpr uint32_t kOwn = kBlocks * kOwnBlock;       // one operand
+  static constexpr uint32_t kTileBlock = kWgTile * 128;
+  static constexpr uint32_t kTile = kBlocks * kTileBlock;     // one operand
+  static constexpr uint32_t kRing = 2 * kOwn;
+  static constexpr uint32_t kVec = kRing + kWgStages * 2 * kTile;
+  static constexpr uint32_t kBar = kVec + kWgStages * 2 * kWgTile * 4;
+  static constexpr uint32_t kBytes = kBar + (2 * kWgStages + 1) * 8;
+  static constexpr int kLaunchBytes = (int)kBytes + 1024;   // + alignment
+  static constexpr uint32_t kOwnTx = 2 * kWgRows * D * 2;   // bytes by TMA
+  static constexpr uint32_t kTileTx = 2 * kWgTile * D * 2;
+};
+
+// A K-major operand of 64 rows x 16 columns (depth step kk) from row `row`
+// of a swizzled operand whose blocks are `block` bytes apart
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, uint32_t block,
+                                           int row, int kk) {
+  return wgmma_desc(base + (kk >> 2) * block + row * 128 + (kk & 3) * 32, 16,
+                    1024);
+}
+
+// An MN-major operand of 16 rows (depth step kq) x D columns of a
+// streamed tile whose blocks are `block` bytes apart
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, uint32_t block,
+                                            int kq) {
+  return wgmma_desc(tile + kq * 16 * 128, block, 1024);
+}
+
+// d += A · B with B (16 x N) MN-major: n64 or n128
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, b, 1);
+  } else {
+    wgmma_rs_n128(d, a, b, 1);
+  }
+}
+
+// x = A·Bᵀ of a consumer's 64 own rows (operand `own`) against a streamed
+// kWgTile-row tile (operand `tile`), issued as one wgmma group
+template <int D>
+__device__ __forceinline__ void wg_issue_scores(float (&x)[kWgTile / 2],
+                                                uint32_t own, uint32_t tile,
+                                                int w) {
+  using Cfg = BwdWg<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(x, desc_k(own, Cfg::kOwnBlock, 64 * w, kk),
+                 desc_k(tile, Cfg::kTileBlock, 0, kk), kk > 0);
+  wgmma_commit();
+}
+
+// The softmax constants of a call: scale·log2(e) (no cap), or scale / cap
+// and cap·log2(e) (under a cap)
+struct WgSoft {
+  float sl, sc, cl;
+  __device__ __forceinline__ WgSoft(float scale, float cap)
+      : sl(scale * kLog2e), sc(cap > 0.f ? scale / cap : 0.f),
+        cl(cap * kLog2e) {}
+};
+
+// p of one score and p·dt (dt = 1 - tanh² under a cap, else 1), from its
+// raw dot product s = q·k; lse2 is its row's lse·log2(e) (+inf where the
+// row sees no key, so that p is 0); both 0 where !ok.  CAP and MASK are
+// the tile's, so the loops over a tile carry no branch.
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void wg_p(float s, float lse2, bool ok,
+                                     const WgSoft& k, float& p, float& pdt) {
+  if (CAP) {
+    const float th = tanhf(s * k.sc);
+    p = ex2(fmaf(th, k.cl, -lse2));
+    if (MASK) p = ok ? p : 0.f;
+    pdt = p * (1.f - th * th);
+  } else {
+    p = ex2(fmaf(s, k.sl, -lse2));
+    if (MASK) p = ok ? p : 0.f;
+    pdt = p;
+  }
+}
+
+// The dk/dv pass's Pᵀ fragments (bf16) of a 64-key x kWgTile-q tile, and
+// s := p·dt in place: key row kr0 + 8·r, q row q0 + c in the tile
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void wg_pt_tile(float (&s)[kWgTile / 2],
+                                           uint32_t (&pa)[kWgTile / 16][4],
+                                           uint32_t lse_s, const WgSoft& k,
+                                           int q0, int kr0, int t, int Sq,
+                                           int Skv, int q_offset, int causal,
+                                           int window) {
+#pragma unroll
+  for (int kq = 0; kq < kWgTile / 16; ++kq) {
+    float p[8];
+#pragma unroll
+    for (int nb = 2 * kq; nb < 2 * kq + 2; ++nb) {   // n8 blocks of q rows
+      const float2 l2 = lds_f2(lse_s + (8 * nb + 2 * t) * 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * nb + e;
+        const int c = 8 * nb + 2 * t + (e & 1);
+        bool ok = true;
+        if (MASK)
+          ok = q0 + c < Sq && visible(q_offset + q0 + c, kr0 + 8 * (e >> 1),
+                                      Skv, causal, window);
+        wg_p<CAP, MASK>(s[i], (e & 1) ? l2.y : l2.x, ok, k, p[i - 8 * kq],
+                        s[i]);
+      }
+    }
+    pa[kq][0] = pack_bf16(p[0], p[1]);
+    pa[kq][1] = pack_bf16(p[2], p[3]);
+    pa[kq][2] = pack_bf16(p[4], p[5]);
+    pa[kq][3] = pack_bf16(p[6], p[7]);
+  }
+}
+
+// The dq pass's s := p·dt in place over a 64-q x kWgTile-key tile: q row
+// qr0 + 8·r (lse2[r]), key k0 + column
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void wg_p_tile(float (&s)[kWgTile / 2],
+                                          const float (&lse2)[2],
+                                          const WgSoft& k, int qr0, int k0,
+                                          int t, int Sq, int Skv,
+                                          int q_offset, int causal,
+                                          int window) {
+#pragma unroll
+  for (int i = 0; i < kWgTile / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    bool ok = true;
+    if (MASK) {
+      const int qi = qr0 + 8 * r;
+      ok = qi < Sq && visible(q_offset + qi,
+                              k0 + (i >> 2) * 8 + 2 * t + (i & 1), Skv,
+                              causal, window);
+    }
+    float p;
+    wg_p<CAP, MASK>(s[i], lse2[r], ok, k, p, s[i]);
+  }
+}
+
+// f(CAP, MASK) with both as std::integral_constant, so that the element
+// loop of each kind of tile is compiled without branches
+template <typename F>
+__device__ __forceinline__ void tile_kind(bool cap, bool mask, F&& f) {
+  using Y = std::true_type;
+  using N = std::false_type;
+  if (cap) {
+    if (mask) f(Y{}, Y{}); else f(Y{}, N{});
+  } else {
+    if (mask) f(N{}, Y{}); else f(N{}, N{});
+  }
+}
+
+// lse·log2(e), +inf for a row that sees no key (lse -inf) or lies past Sq
+__device__ __forceinline__ float lse_log2(float lse, bool valid) {
+  return valid && lse != -INFINITY ? lse * kLog2e : INFINITY;
+}
+
+// rows g and g + 8 of a warp's 16 x D share of a wgmma accumulator, times
+// `mul`, as bf16 pairs through the (b, h, s) strides; rows at or past
+// `limit` skipped
+template <int D>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* base, long long s,
+                                          int row0, int limit,
+                                          const float (&c)[D / 2], float mul,
+                                          int g, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= limit) continue;
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<uint32_t*>(&base[(long long)row * s + nb * 8 + 2 * t]) =
+          pack_bf16(c[4 * nb + 2 * r] * mul, c[4 * nb + 2 * r + 1] * mul);
+  }
+}
+
+// The producer warp: the CTA's own rows of two operands (maps own0 and
+// own1 from row own_row), then n_tiles streamed kWgTile-row tiles of two
+// operands (maps t0 and t1 from row tile_row) through the ring; with LSE
+// also the tile's rows' lse·log2(e) and delta (+inf and 0 past Sq).
+template <int D, bool LSE>
+__device__ __forceinline__ void wg_produce(
+    uint32_t base, const CUtensorMap* own0, const CUtensorMap* own1,
+    const CUtensorMap* t0, const CUtensorMap* t1, int own_row, int tile_row,
+    int n_tiles, int h, int b, const float* lse_row, const float* dlt_row,
+    int Sq, int lane) {
+  using Cfg = BwdWg<D>;
+  const uint32_t bar = base + Cfg::kBar;
+  const uint32_t own_bar = bar + 16 * kWgStages;
+  if (n_tiles == 0) return;
+  if (lane == 0) {
+    mbar_expect_tx(own_bar, Cfg::kOwnTx);
+#pragma unroll
+    for (int j = 0; j < Cfg::kBlocks; ++j)
+#pragma unroll
+      for (int r = 0; r < kWgRows; r += kBox) {
+        const uint32_t off = j * Cfg::kOwnBlock + r * 128;
+        tma_load_4d(base + off, own0, own_bar, 64 * j, own_row + r, h, b);
+        tma_load_4d(base + Cfg::kOwn + off, own1, own_bar, 64 * j,
+                    own_row + r, h, b);
+      }
+    mbar_arrive(own_bar);
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kWgStages;
+    const uint32_t phase = (it / kWgStages) & 1;
+    const int r0 = tile_row + it * kWgTile;
+    mbar_wait(bar + 8 * (kWgStages + st), phase ^ 1);   // the stage is free
+    const uint32_t full = bar + 8 * st;
+    const uint32_t tile = base + Cfg::kRing + st * 2 * Cfg::kTile;
+    if (lane == 0) {
+      mbar_expect_tx(full, Cfg::kTileTx);
+#pragma unroll
+      for (int j = 0; j < Cfg::kBlocks; ++j)
+#pragma unroll
+        for (int r = 0; r < kWgTile; r += kBox) {
+          const uint32_t off = j * Cfg::kTileBlock + r * 128;
+          tma_load_4d(tile + off, t0, full, 64 * j, r0 + r, h, b);
+          tma_load_4d(tile + Cfg::kTile + off, t1, full, 64 * j, r0 + r, h,
+                      b);
+        }
+    }
+    if (LSE) {
+      float* vec = reinterpret_cast<float*>(
+          __cvta_shared_to_generic(base + Cfg::kVec)) + st * 2 * kWgTile;
+#pragma unroll
+      for (int r = lane; r < kWgTile; r += 32) {
+        const int qi = r0 + r;
+        vec[r] = lse_log2(qi < Sq ? lse_row[qi] : 0.f, qi < Sq);
+        vec[kWgTile + r] = qi < Sq ? dlt_row[qi] : 0.f;
+      }
+    }
+    mbar_arrive(full);                 // 32 arrivals: lane 0's after its TMA
+  }
+}
+
+// The barriers of the ring and of the own operands, by thread 0
+__device__ __forceinline__ void wg_init_barriers(uint32_t bar) {
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kWgStages; ++st) {
+      mbar_init(bar + 8 * st, 32);
+      mbar_init(bar + 8 * (kWgStages + st), kEmptyArrivals);
+    }
+    mbar_init(bar + 16 * kWgStages, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// pass 1: dq and delta, one CTA per (b·h, 128 q rows).  Q and dO stay in
+// shared memory; K and V stream through the ring in 64-row tiles.  Each
+// consumer warpgroup owns 64 q rows: S = Q·Kᵀ and dP = dO·Vᵀ (wgmma, both
+// operands in shared memory; P is made while dP runs), then dQ += dS·K
+// (dS a register operand).
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv,
+                       const __grid_constant__ CUtensorMap mdo,
+                       const __nv_bfloat16* __restrict__ out,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int H, int Sq,
+                       int Skv, Strides so, Strides sdo, Strides sdq,
+                       int causal, int window, float cap, float scale,
+                       int q_offset) {
+  using Cfg = BwdWg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar = base + Cfg::kBar;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int n_qt = gridDim.y;
+  const int qt = causal ? (n_qt - 1 - (int)blockIdx.y) : (int)blockIdx.y;
+  const int q0 = qt * kWgRows;         // causal: the last (most work) first
+  int k_lo = 0;
+  int k_hi = Skv;
+  if (window > 0) k_lo = max(0, q_offset + q0 - window + 1);
+  if (causal) k_hi = min(Skv, max(0, q_offset + q0 + kWgRows));
+  k_lo = (k_lo / kWgTile) * kWgTile;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kWgTile - 1) / kWgTile : 0;
+  wg_init_barriers(bar);
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  if (wg == 0) {                       // the producer warpgroup
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x < 32)
+      wg_produce<D, false>(base, &mq, &mdo, &mk, &mv, q0, k_lo, n_tiles, h,
+                           b, nullptr, nullptr, Sq, lane);
+    return;
+  }
+  regs_inc<kConsumerRegs>();
+  const int w = wg - 1;                // the consumer: q rows q0 + 64w ..
+  const int ct = threadIdx.x - 128 * wg;
+  const int warp = ct >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int qa = q0 + 64 * w;
+  const int w_row = qa + 16 * warp;    // the warp's first row
+
+  // delta of the consumer's 64 rows: two threads a row, 16-byte loads
+  float* s_dlt = reinterpret_cast<float*>(
+      __cvta_shared_to_generic(base + Cfg::kVec)) + 64 * w;
+  {
+    const int r = ct >> 1;
+    const int half = ct & 1;
+    const int qi = qa + r;
+    float acc = 0.f;
+    if (qi < Sq) {
+      const __nv_bfloat16* o_row =
+          out + b * so.b + h * so.h + (long long)qi * so.s + half * (D / 2);
+      const __nv_bfloat16* d_row =
+          dout + b * sdo.b + h * sdo.h + (long long)qi * sdo.s + half * (D / 2);
+      uint4 ov[D / 16], dv[D / 16];
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        ov[c] = reinterpret_cast<const uint4*>(o_row)[c];
+        dv[c] = reinterpret_cast<const uint4*>(d_row)[c];
+      }
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov[c]);
+        const auto* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv[c]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]);
+          const float2 df = __bfloat1622float2(d2[e]);
+          acc = fmaf(df.x, of.x, acc);
+          acc = fmaf(df.y, of.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      s_dlt[r] = acc;
+      if (qi < Sq) delta[(long long)bh * Sq + qi] = acc;
+    }
+  }
+  named_sync(1 + w, 128);
+  float dlt[2], lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = w_row + g + 8 * r;
+    dlt[r] = s_dlt[16 * warp + g + 8 * r];
+    lse2[r] = lse_log2(qi < Sq ? lse[(long long)bh * Sq + qi] : 0.f, qi < Sq);
+  }
+
+  const WgSoft soft(scale, cap);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if (n_tiles > 0) mbar_wait(bar + 16 * kWgStages, 0);   // Q and dO landed
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kWgStages;
+    const int k0 = k_lo + it * kWgTile;
+    const uint32_t tile = base + Cfg::kRing + st * 2 * Cfg::kTile;
+    mbar_wait(bar + 8 * st, (it / kWgStages) & 1);
+    const bool skip = qa >= Sq || (causal && k0 > q_offset + qa + 63)
+        || (window > 0 && q_offset + qa - (k0 + kWgTile - 1) >= window);
+    if (!skip) {
+      float s[kWgTile / 2], dp[kWgTile / 2];
+#pragma unroll    // defined before the fence: no definition may sit
+                  // between it and the wgmma (ptxas then serialises)
+      for (int i = 0; i < kWgTile / 2; ++i) s[i] = dp[i] = 0.f;
+      wgmma_fence();
+      wg_issue_scores<D>(s, base, tile, w);                      // S = Q·Kᵀ
+      wg_issue_scores<D>(dp, base + Cfg::kOwn, tile + Cfg::kTile, w);  // dP
+      const bool cut = (k0 + kWgTile > Skv) || (w_row + 16 > Sq)
+          || (causal && k0 + kWgTile - 1 > q_offset + w_row)
+          || (window > 0 && q_offset + w_row + 15 - k0 >= window);
+      wgmma_wait<1>();
+      fence_regs(s);
+      // s := p·dt, while dP runs
+      tile_kind(cap > 0.f, cut, [&](auto c, auto m) {
+        wg_p_tile<decltype(c)::value, decltype(m)::value>(
+            s, lse2, soft, w_row + g, k0, t, Sq, Skv, q_offset, causal,
+            window);
+      });
+      wgmma_wait<0>();
+      fence_regs(dp);
+      uint32_t da[kWgTile / 16][4];
+#pragma unroll
+      for (int kq = 0; kq < kWgTile / 16; ++kq) {
+        float ds[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int i = 8 * kq + j;
+          ds[j] = s[i] * (dp[i] - dlt[(j >> 1) & 1]);
+        }
+        da[kq][0] = pack_bf16(ds[0], ds[1]);
+        da[kq][1] = pack_bf16(ds[2], ds[3]);
+        da[kq][2] = pack_bf16(ds[4], ds[5]);
+        da[kq][3] = pack_bf16(ds[6], ds[7]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kq = 0; kq < kWgTile / 16; ++kq)             // dQ += dS·K
+        wgmma_rs<D>(acc, da[kq], desc_mn(tile, Cfg::kTileBlock, kq));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar + 8 * (kWgStages + st));
+  }
+  store_acc<D>(dq + b * sdq.b + h * sdq.h, sdq.s, w_row, Sq, acc, scale, g,
+               t);
+}
+
+// pass 2: dk and dv, one CTA per (b·h, 128 keys).  K and V stay in shared
+// memory; Q and dO stream through the ring in kWgTile-row tiles with their
+// rows' lse and delta.  Each consumer warpgroup owns 64 keys: Sᵀ = K·Qᵀ
+// and dPᵀ = V·dOᵀ (wgmma, both operands in shared memory), then
+// dV += Pᵀ·dO, issued while dSᵀ is made, and dK += dSᵀ·Q (Pᵀ and dSᵀ
+// register operands).
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap mq,
+                         const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv,
+                         const __grid_constant__ CUtensorMap mdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int H, int Sq,
+                         int Skv, Strides sdk, Strides sdv, int causal,
+                         int window, float cap, float scale, int q_offset) {
+  using Cfg = BwdWg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar = base + Cfg::kBar;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * kWgRows;   // key tile 0 (most work) first
+  int q_lo = 0;
+  int q_hi = Sq;
+  if (causal) q_lo = max(0, k0 - q_offset);
+  if (window > 0) q_hi = min(Sq, max(0, k0 + kWgRows - 1 + window - q_offset));
+  q_lo = (q_lo / kWgTile) * kWgTile;
+  const int n_tiles = q_hi > q_lo ? (q_hi - q_lo + kWgTile - 1) / kWgTile : 0;
+  wg_init_barriers(bar);
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  if (wg == 0) {                       // the producer warpgroup
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x < 32)
+      wg_produce<D, true>(
+          base, &mk, &mv, &mq, &mdo, k0, q_lo, n_tiles, h, b,
+          lse + (long long)bh * Sq, delta + (long long)bh * Sq, Sq, lane);
+    return;
+  }
+  regs_inc<kConsumerRegs>();
+  const int w = wg - 1;                // the consumer: keys k0 + 64w ..
+  const int ct = threadIdx.x - 128 * wg;
+  const int warp = ct >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int ka = k0 + 64 * w;
+  const int kw = ka + 16 * warp;       // the warp's first key
+
+  const WgSoft soft(scale, cap);
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  if (n_tiles > 0) mbar_wait(bar + 16 * kWgStages, 0);   // K and V landed
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kWgStages;
+    const int q0 = q_lo + it * kWgTile;
+    const uint32_t tile = base + Cfg::kRing + st * 2 * Cfg::kTile;
+    mbar_wait(bar + 8 * st, (it / kWgStages) & 1);
+    const bool skip = ka >= Skv || (causal && ka > q_offset + q0 + kWgTile - 1)
+        || (window > 0 && q_offset + q0 - (ka + 63) >= window);
+    if (!skip) {
+      const uint32_t lse_s = base + Cfg::kVec + st * 2 * kWgTile * 4;
+      const uint32_t dlt_s = lse_s + kWgTile * 4;
+      float s[kWgTile / 2], dp[kWgTile / 2];
+#pragma unroll    // defined before the fence: no definition may sit
+                  // between it and the wgmma (ptxas then serialises)
+      for (int i = 0; i < kWgTile / 2; ++i) s[i] = dp[i] = 0.f;
+      wgmma_fence();
+      wg_issue_scores<D>(s, base, tile, w);                      // Sᵀ
+      wg_issue_scores<D>(dp, base + Cfg::kOwn, tile + Cfg::kTile, w);  // dPᵀ
+      const bool cut = (kw + 16 > Skv) || (q0 + kWgTile > Sq)
+          || (causal && kw + 15 > q_offset + q0)
+          || (window > 0 && q_offset + q0 + kWgTile - 1 - kw >= window);
+      wgmma_wait<1>();
+      fence_regs(s);
+      // Pᵀ's fragments and s := p·dt, while dPᵀ runs
+      uint32_t pa[kWgTile / 16][4];
+      tile_kind(cap > 0.f, cut, [&](auto c, auto m) {
+        wg_pt_tile<decltype(c)::value, decltype(m)::value>(
+            s, pa, lse_s, soft, q0, kw + g, t, Sq, Skv, q_offset, causal,
+            window);
+      });
+      wgmma_fence();
+#pragma unroll
+      for (int kq = 0; kq < kWgTile / 16; ++kq)             // dV += Pᵀ·dO
+        wgmma_rs<D>(dv_acc, pa[kq],
+                    desc_mn(tile + Cfg::kTile, Cfg::kTileBlock, kq));
+      wgmma_commit();
+      wgmma_wait<1>();                                   // dPᵀ landed
+      fence_regs(dp);
+      uint32_t da[kWgTile / 16][4];
+#pragma unroll
+      for (int kq = 0; kq < kWgTile / 16; ++kq) {
+        float ds[8];
+#pragma unroll
+        for (int nb = 2 * kq; nb < 2 * kq + 2; ++nb) {
+          const float2 d2 = lds_f2(dlt_s + (8 * nb + 2 * t) * 4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * nb + e;
+            ds[i - 8 * kq] = s[i] * (dp[i] - ((e & 1) ? d2.y : d2.x));
+          }
+        }
+        da[kq][0] = pack_bf16(ds[0], ds[1]);
+        da[kq][1] = pack_bf16(ds[2], ds[3]);
+        da[kq][2] = pack_bf16(ds[4], ds[5]);
+        da[kq][3] = pack_bf16(ds[6], ds[7]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kq = 0; kq < kWgTile / 16; ++kq)             // dK += dSᵀ·Q
+        wgmma_rs<D>(dk_acc, da[kq], desc_mn(tile, Cfg::kTileBlock, kq));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar + 8 * (kWgStages + st));
+  }
+  store_acc<D>(dk + b * sdk.b + h * sdk.h, sdk.s, kw, Skv, dk_acc, scale, g,
+               t);
+  store_acc<D>(dv + b * sdv.b + h * sdv.h, sdv.s, kw, Skv, dv_acc, 1.f, g, t);
+}
+
+// ---------------------------------------------------------------------------
+// tensor maps: the driver's cuTensorMapEncodeTiled, fetched through the
+// runtime (the library links no libcuda)
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static std::atomic<EncodeTiledFn> fn{nullptr};
+  EncodeTiledFn f = fn.load(std::memory_order_acquire);
+  if (f != nullptr) return f;
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t e = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t e = cudaGetDriverEntryPoint(
+      "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+  if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+  f = reinterpret_cast<EncodeTiledFn>(p);
+  fn.store(f, std::memory_order_release);
+  return f;
+}
+
+// A (B, H, S, D) bf16 operand (unit stride along D, (b, h, s) element
+// strides `st`) as a 4-d tensor map {D, S, H, B} of 64 x 64 boxes with the
+// 128-byte swizzle; rows past S read as zeros.  A dimension of size 1 is
+// never stepped, so its stride is replaced by a packed one.  TMA needs a
+// 16-byte aligned base and strides (ops.py copies an operand that has
+// not).  S = 0: a zeroed map that is never read.
+cudaError_t bf16_map(CUtensorMap* m, const void* base, int B, int H, int S,
+                     int D, Strides st) {
+  memset(m, 0, sizeof(*m));
+  if (S <= 0) return cudaSuccess;
+  const long long ss = S > 1 ? st.s : D;
+  const long long sh = H > 1 ? st.h : ss * S;
+  const long long sb = B > 1 ? st.b : sh * H;
+  if ((uintptr_t)base % 16 != 0 || ss <= 0 || sh <= 0 || sb <= 0
+      || ss % 8 != 0 || sh % 8 != 0 || sb % 8 != 0)
+    return cudaErrorInvalidValue;
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)kBox, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -791,7 +1457,7 @@ struct BwdArgs {
   const float* lse;
   float* delta;
   void *dq, *dk, *dv;
-  int H, Sq, Skv;
+  int B, H, Sq, Skv;
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   int causal, window;
   float cap, scale;
@@ -821,6 +1487,49 @@ int launch_f32(const BwdArgs& a, long long bh, int passes, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_wg(const BwdArgs& a, long long bh, int passes, cudaStream_t s) {
+  using Bf = __nv_bfloat16;
+  constexpr int kBytes = BwdWg<D>::kLaunchBytes;
+  static std::atomic<unsigned long long> raised_dq{0}, raised_dkdv{0};
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e = bf16_map(&mq, a.q, a.B, a.H, a.Sq, D, a.sq);
+  if (e == cudaSuccess) e = bf16_map(&mk, a.k, a.B, a.H, a.Skv, D, a.sk);
+  if (e == cudaSuccess) e = bf16_map(&mv, a.v, a.B, a.H, a.Skv, D, a.sv);
+  if (e == cudaSuccess) e = bf16_map(&mdo, a.dout, a.B, a.H, a.Sq, D, a.sdo);
+  if (e != cudaSuccess) return (int)e;
+  // the dq pass reads out's rows with 16-byte loads for delta
+  if ((uintptr_t)a.out % 16 != 0
+      || (a.B > 1 && a.so.b % 8 != 0) || (a.H > 1 && a.so.h % 8 != 0)
+      || (a.Sq > 1 && a.so.s % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (passes & 1) {
+    const long long n_qt = (a.Sq + kWgRows - 1) / kWgRows;
+    if (n_qt > 65535) return (int)cudaErrorInvalidValue;
+    auto kernel = flash_bwd_dq_wg_kernel<D>;
+    e = raise_smem_limit(kernel, kBytes, raised_dq);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3((unsigned)bh, (unsigned)n_qt), kWgThreads, kBytes, s>>>(
+        mq, mk, mv, mdo, (const Bf*)a.out, (const Bf*)a.dout, a.lse, a.delta,
+        (Bf*)a.dq, a.H, a.Sq, a.Skv, a.so, a.sdo, a.sdq, a.causal, a.window,
+        a.cap, a.scale, a.q_offset);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if ((passes & 2) && a.Skv > 0) {
+    const long long n_kt = (a.Skv + kWgRows - 1) / kWgRows;
+    if (n_kt > 65535) return (int)cudaErrorInvalidValue;
+    auto kernel = flash_bwd_dkdv_wg_kernel<D>;
+    e = raise_smem_limit(kernel, kBytes, raised_dkdv);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3((unsigned)bh, (unsigned)n_kt), kWgThreads, kBytes, s>>>(
+        mq, mk, mv, mdo, a.lse, a.delta, (Bf*)a.dk, (Bf*)a.dv, a.H, a.Sq,
+        a.Skv, a.sdk, a.sdv, a.causal, a.window, a.cap, a.scale, a.q_offset);
+  }
+  return (int)cudaGetLastError();
+}
+
+// D 16 and 80: the mma.sync kernels
 template <int D>
 int launch_tc(const BwdArgs& a, long long bh, int passes, cudaStream_t s) {
   using Bf = __nv_bfloat16;
@@ -862,7 +1571,11 @@ int launch_tc(const BwdArgs& a, long long bh, int passes, cudaStream_t s) {
 template <int D>
 int launch_d(const BwdArgs& a, int tile_bf16, int dtype, long long bh,
              int passes, cudaStream_t s) {
-  if (dtype == 1) return launch_tc<D>(a, bh, passes, s);
+  if constexpr (D == 64 || D == 128) {
+    if (dtype == 1) return launch_wg<D>(a, bh, passes, s);
+  } else {
+    if (dtype == 1) return launch_tc<D>(a, bh, passes, s);
+  }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   return tile_bf16 ? launch_f32<D, true>(a, bh, passes, s)
                    : launch_f32<D, false>(a, bh, passes, s);
@@ -872,14 +1585,18 @@ int launch_d(const BwdArgs& a, int tile_bf16, int dtype, long long bh,
 
 extern "C" {
 
+
 // q, out, dout, dq (B, H, Sq, D) and k, v, dk, dv (B, H, Skv, D), each
 // given by its (b, h, s) element strides with a unit stride along D; lse
 // (the forward's) and delta (scratch, written by pass 1) contiguous
 // (B, H, Sq) float32.  dtype: 0 float32, 1 bfloat16 (all eight alike;
-// q, k, v and dout then with 16-byte aligned base pointers and (b, h, s)
-// strides, for cp.async).  D in {16, 64, 80, 128}.  tile_bf16: the float32
-// kernels' rounding (the bfloat16 ones always round).  passes: 1 the dq
-// pass (with delta), 2 the dk/dv pass (reads delta), 3 both in that order.
+// q, k, v, out and dout then with 16-byte aligned base pointers and
+// (b, h, s) strides of whole 16 bytes wherever the dimension has more
+// than one index: TMA tensor maps at D 64 and 128, which refuse another
+// layout with cudaErrorInvalidValue, cp.async at D 16 and 80).  D in
+// {16, 64, 80, 128}.  tile_bf16: the float32 kernels' rounding (the
+// bfloat16 ones always round).  passes: 1 the dq pass (with delta), 2 the
+// dk/dv pass (reads delta), 3 both in that order.
 int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -897,7 +1614,7 @@ int flash_attention_bwd_launch(
   const long long bh = (long long)B * H;
   if (bh > 65535) return (int)cudaErrorInvalidValue;
   const BwdArgs a{q, k, v, out, dout, (const float*)lse, (float*)delta,
-                  dq, dk, dv, H, Sq, Skv,
+                  dq, dk, dv, B, H, Sq, Skv,
                   {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss},
                   {osb, osh, oss}, {dosb, dosh, doss}, {dqsb, dqsh, dqss},
                   {dksb, dksh, dkss}, {dvsb, dvsh, dvss},

@@ -504,10 +504,29 @@ def _check_flash(name: str, q: torch.Tensor, k: torch.Tensor,
 
 
 def _cp_async_ok(x: torch.Tensor) -> bool:
-    """A bf16 operand the tensor-core kernels can copy 16 bytes at a time:
-    an aligned base pointer and (b, h, s) strides of whole 8-element
-    chunks."""
+    """A bf16 operand the forward's tensor-core kernel can copy 16 bytes
+    at a time: an aligned base pointer and (b, h, s) strides of whole
+    8-element chunks."""
     return x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3])
+
+
+def _tma_ok(x: torch.Tensor) -> bool:
+    """A bf16 operand the backward kernels can read through a TMA tensor
+    map (and cp.async, or 16-byte loads): a 16-byte aligned base pointer
+    and positive (b, h, s) strides of whole 8-element chunks wherever the
+    dimension has more than one index (a size-1 dimension is never
+    stepped: its stride does not matter)."""
+    return x.data_ptr() % 16 == 0 and all(
+        n == 1 or (st > 0 and st % 8 == 0)
+        for n, st in zip(x.shape[:3], x.stride()[:3]))
+
+
+def _tma_operands(xs):
+    """The bf16 backward's operands as its tensor maps read them: each that
+    fails ``_tma_ok`` replaced by a contiguous copy (never sent to a plain
+    path)."""
+    return [x if _tma_ok(x) else x.clone(memory_format=torch.contiguous_format)
+            for x in xs]
 
 
 def _kernel_operands(name: str, xs):
@@ -631,9 +650,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (which also writes delta = rowsum(dout·out)) and the dk/dv pass,
     float32 sums, no atomics (the same bits every run).  bfloat16 runs
     the tensor-core kernels (P and dS rounded to bf16 for their products,
-    as ``tile_bf16`` does; q, k, v and dout copied first where their
-    base or strides do not suit cp.async), float32 the scalar kernels.
-    One count per call.  On the CPU the plain
+    as ``tile_bf16`` does): at D 64 and 128 the warp-specialised wgmma
+    kernels, which read q, k, v and dout through TMA tensor maps, at D 16
+    and 80 the mma.sync ones; q, k, v, out and dout are copied first where
+    their base or strides fail ``_tma_ok``.  float32 runs the scalar
+    kernels.  One count per call.  On the CPU the plain
     ``ref.flash_attention_bwd_ref``."""
     name = "flash_attention_bwd"
     _check_flash(name, q, k, v, window, cap)
@@ -656,9 +677,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q, k, v, out, lse, dout, causal=causal, window=window, cap=cap,
             scale=scale, q_offset=q_offset, tile_bf16=tile_bf16)
     q, k, v, out, dout = _kernel_operands(name, (q, k, v, out, dout))
-    if q.dtype == torch.bfloat16:      # the tensor-core kernels' cp.async
-        q, k, v, dout = (x if _cp_async_ok(x) else x.clone()
-                         for x in (q, k, v, dout))
+    if q.dtype == torch.bfloat16:      # TMA tensor maps and 16-byte loads
+        q, k, v, out, dout = _tma_operands((q, k, v, out, dout))
     lse = lse.contiguous()
     from . import _build
     (dq, dk, dv, _), args = flash_bwd_args(

@@ -154,9 +154,105 @@ def test_bwd_wrapper_refuses_bad_residuals():
 
 
 # ---------------------------------------------------------------------------
+# the wrapper's host side: what the kernels are handed (on the CPU)
+# ---------------------------------------------------------------------------
+
+def _bshd_view(B, S, H, D, dtype=torch.bfloat16):
+    """A (B, H, S, D) view of a (B, S, H, D) allocation, as the model's."""
+    return torch.randn(B, S, H, D).to(dtype).transpose(1, 2)
+
+
+def test_tma_ok_takes_the_models_views():
+    x = _bshd_view(2, 50, 9, 64)
+    assert ops._tma_ok(x)
+    assert ops._tma_ok(torch.randn(2, 3, 50, 128).bfloat16())
+
+
+def test_tma_ok_refuses_what_a_tensor_map_cannot_address():
+    flat = torch.zeros(2 * 3 * 10 * 64 + 1, dtype=torch.bfloat16)
+    off = flat[1:].view(2, 3, 10, 64)            # base 2 bytes past 16
+    assert off.data_ptr() % 16 == 2 and not ops._tma_ok(off)
+    odd = torch.zeros(2, 3, 10, 68, dtype=torch.bfloat16)[..., :64]
+    assert odd.stride()[2] == 68 and not ops._tma_ok(odd)   # 136-byte rows
+    rep = torch.zeros(2, 1, 10, 64, dtype=torch.bfloat16).expand(2, 3, 10, 64)
+    assert rep.stride()[1] == 0 and not ops._tma_ok(rep)
+
+
+def test_tma_ok_ignores_the_strides_of_size_one_dims():
+    x = torch.zeros(1, 1, 10, 64, dtype=torch.bfloat16).as_strided(
+        (1, 1, 10, 64), (3, 5, 64, 1))
+    assert ops._tma_ok(x)
+    y = torch.zeros(2, 3, 1, 64, dtype=torch.bfloat16).as_strided(
+        (2, 3, 1, 64), (192, 64, 7, 1))
+    assert ops._tma_ok(y)
+
+
+def test_tma_operands_copy_only_what_needs_it():
+    good = _bshd_view(2, 20, 3, 64)
+    flat = torch.randn(2 * 3 * 20 * 64 + 8).bfloat16()
+    bad = flat[3:3 + 2 * 3 * 20 * 64].view(2, 3, 20, 64)
+    kept, copied = ops._tma_operands((good, bad))
+    assert kept is good
+    assert copied.data_ptr() != bad.data_ptr() and ops._tma_ok(copied)
+    assert copied.is_contiguous() and torch.equal(copied, bad)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(100, 257), (1, 40)])
+def test_flash_bwd_args_layout(Sq, Skv):
+    """The gradients come back as (B, H, S, D) views of (B, S, H, D)
+    allocations, delta a contiguous (B, H, Sq) float32 scratch, and the
+    argument list matches the launcher's signature but its last two
+    (passes, stream)."""
+    from repro_torch.kernels import _build
+    B, H, D = 2, 3, 64
+    q, out, dout = (_bshd_view(B, Sq, H, D) for _ in range(3))
+    k, v = _bshd_view(B, Skv, H, D), _bshd_view(B, Skv, H, D)
+    lse = torch.zeros(B, H, Sq)
+    (dq, dk, dv, delta), args = ops.flash_bwd_args(
+        q, k, v, out, lse, dout, causal=True, window=0, cap=0.0, scale=0.125,
+        q_offset=0, tile_bf16=False)
+    assert dq.shape == (B, H, Sq, D) and dk.shape == dv.shape == (B, H, Skv, D)
+    for x, S in ((dq, Sq), (dk, Skv), (dv, Skv)):
+        assert x.dtype == torch.bfloat16
+        assert x.stride() == (S * H * D, D, H * D, 1)
+    assert delta.shape == (B, H, Sq) and delta.dtype == torch.float32
+    assert delta.is_contiguous()
+    sig = _build._SIGNATURES["flash_attention_bwd_launch"]
+    assert len(args) == len(sig) - 2
+    assert args[10:15] == (B, H, Sq, Skv, D)
+    assert args[-1] == 1                          # bfloat16
+
+
+PTXAS_REPORT = """\
+ptxas info    : Compiling entry function '_Z3fooILi64EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooILi64EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : (C7511) Potential Performance Loss: wgmma.mma_async ...
+ptxas info    : Compiling entry function '_Z3barILi80EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z3barILi80EEvv
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 8 bytes cumulative stack size
+"""
+
+
+def test_ptxas_report_parse():
+    """The build's report read per kernel: registers and spill bytes, the
+    numbers the chip smoke test holds every bf16 backward kernel to."""
+    from repro_torch.kernels import _build
+    assert _build.ptxas_kernels(PTXAS_REPORT) == {
+        "_Z3fooILi64EEvv": (168, 0, 0), "_Z3barILi80EEvv": (255, 4, 8)}
+    assert _build.ptxas_kernels("") == {}
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernel against its plain version (on the card only)
 # ---------------------------------------------------------------------------
 
+# (B, H, Sq, Skv); the last four are the edges of the wgmma kernels' tiles
+# (a CTA owns 128 rows, a streamed tile holds 64): Sq and Skv off both,
+# with Skv < 64; one q row at an offset; a window narrower than a tile;
+# a cap without a window
 CUDA_CASES = [(dtype, D, kw, shape)
               for dtype in (torch.float32, torch.bfloat16)
               for D in ops.FLASH_HEAD_DIMS
@@ -164,7 +260,11 @@ CUDA_CASES = [(dtype, D, kw, shape)
                   (dict(causal=True), (2, 3, 130, 130)),
                   (dict(causal=False), (2, 3, 100, 257)),
                   (dict(causal=True, window=96, cap=30.0, q_offset=500),
-                   (2, 3, 200, 700)))]
+                   (2, 3, 200, 700)),
+                  (dict(causal=False), (2, 3, 300, 40)),
+                  (dict(causal=True, q_offset=332), (2, 3, 1, 333)),
+                  (dict(causal=True, window=20), (2, 3, 257, 257)),
+                  (dict(causal=True, cap=50.0), (2, 3, 190, 190)))]
 
 
 @pytest.fixture
@@ -211,6 +311,36 @@ def test_cuda_bwd_kernel_matches_plain(cuda_device, dtype, D, kw, shape):
         assert torch.equal(a, b), f"{name} differs between two runs"
         assert a.dtype == dtype and a.shape == w.shape
         _close(a, w, dtype, f"{name} {dtype} D={D} {kw}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_cuda_bwd_kernel_copies_what_tma_cannot_read(cuda_device, D):
+    """bf16 operands at a base 2 bytes past 16 (and `out` among them) go
+    through contiguous copies to the wgmma kernels: the same gradients as
+    from aligned copies of the same values, bit for bit."""
+    B, H, S = 2, 3, 150
+    g = torch.Generator(device=cuda_device).manual_seed(D)
+    n = B * H * S * D
+
+    def shifted():
+        flat = torch.randn(n + 1, device=cuda_device, generator=g).bfloat16()
+        return flat[1:].view(B, H, S, D)
+
+    q, k, v, dout = (shifted() for _ in range(4))
+    # the forward refuses such views: it runs on aligned copies
+    out, lse = ops.flash_attention_fwd(*(x.clone() for x in (q, k, v)),
+                                       return_lse=True, causal=True)
+    out_s = torch.empty(n + 1, device=cuda_device,
+                        dtype=torch.bfloat16)[1:].view(B, H, S, D)
+    out_s.copy_(out)
+    assert not any(ops._tma_ok(x) for x in (q, k, v, out_s, dout))
+    got = ops.flash_attention_bwd(q, k, v, out_s, lse, dout, causal=True)
+    want = ops.flash_attention_bwd(*(x.contiguous().clone() for x in
+                                     (q, k, v, out_s)), lse,
+                                   dout.contiguous().clone(), causal=True)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), f"{name} differs from the aligned call"
 
 
 @pytest.mark.cuda

@@ -1,10 +1,10 @@
-"""Time the arena verifies, the exact re-rank and the flash-attention
-forward of the port on one GPU, at the shapes of ``chip_smoke.py``'s
-main paths.
+"""Time the arena verifies, the exact re-rank, the flash-attention
+forward and backward and the train step of the port on one GPU, at the
+shapes of ``chip_smoke.py``'s main paths.
 
     python3 tools/bench_hot_kernels.py [--src DIR] [--seed 0] [--iters 10]
-                                       [--only packed,plane,rerank,flash,hubert,rows]
-                                       [--slab-q 4|8|16]
+        [--only packed,plane,rerank,flash,hubert,rows,bwd,step]
+        [--slab-q 4|8|16]
 
 ``--src`` is the ``src/`` directory whose ``repro_torch`` is imported
 (default: this checkout's), so that two trees — say a parent commit
@@ -56,6 +56,24 @@ per slab pass (a variant; by default the wrapper picks it from T).
     verify over 4 shards of 3,220,448 leaves (queries shared) and the
     scan over 64 candidate sets of 78,660 columns, one query each.
 
+  * bwd: the FA-2 backward (``ops.flash_attention_bwd``) at smollm-135m's
+    train shape (B 8, H 9, S 2,048, D 64, causal, bf16, the model's
+    strided views) and at the windowed, capped D = 128 case of
+    ``chip_smoke.py``'s BWD_CASES, checked against the plain version
+    (2^-7 of each gradient's largest magnitude); the wrapper, its dq and
+    dk/dv passes alone (queued), the wrapper's host time a call (queued,
+    without waiting), the bound (operations: five products of the
+    visible pairs) and, at the train shape,
+    ``scaled_dot_product_attention``'s backward (forward and backward
+    less the forward, queued).
+
+  * step: one smollm-135m train step at full size (8 x 2,048 random
+    tokens, bf16 compute, remat, AdamW; random weights from the seed),
+    the step alone as ``chip_smoke.py`` phase 12 (c) times it: the
+    median of ``--iters`` synchronised steps after two warm-ups, with
+    the flash kernels' launches a step. Host-bound, so compare trees
+    only in turns.
+
 Needs CUDA; prints the card's name and power limit first, then one line
 per measurement and a JSON line of the times.
 """
@@ -67,6 +85,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -105,6 +124,19 @@ def queued_ms(fn, calls: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / calls
+
+
+def host_us(fn, calls: int = 20) -> float:
+    """Mean host time of one call of ``fn`` in microseconds: the wrapper's
+    work and its launches, queued without waiting for the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def both(fn, iters: int) -> dict:
@@ -414,6 +446,121 @@ def bench_rows(ops, ref, gen, iters: int) -> dict:
     return out
 
 
+def bench_bwd(ops, ref, gen, iters: int) -> dict:
+    """The FA-2 backward at smollm-135m's train shape (B 8, H 9, S 2,048,
+    D 64, causal, bf16; the model's (B, S, H, D) views), each pass alone
+    through the launcher's ``passes`` argument, beside
+    ``scaled_dot_product_attention``'s backward and the bound; then the
+    D = 128 case of ``chip_smoke.py``'s BWD_CASES (B 2, H 4, S 1,024,
+    window 256, cap 50)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda")
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for key, (B, H, S, D, kw) in (
+            ("smollm", (8, 9, 2048, 64, dict(causal=True))),
+            ("d128", (2, 4, 1024, 128, dict(causal=True, window=256,
+                                            cap=50.0)))):
+        q, k, v, do = (torch.randn((B, S, H, D), device=dev, generator=gen)
+                       .bfloat16().transpose(1, 2) for _ in range(4))
+        o, lse = ops.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           tile_bf16=True, **kw)
+        for a, w, name in zip(got, want, ("dq", "dk", "dv")):
+            e = float((a.float() - w.float()).abs().max())
+            if not e <= 2 ** -7 * float(w.float().abs().max()):
+                raise SystemExit(f"flash backward {name} max err {e}")
+        del got, want
+        full = dict(causal=False, window=0, cap=0.0, scale=D ** -0.5,
+                    q_offset=0, tile_bf16=False)
+        full.update(kw)
+        _, args = ops.flash_bwd_args(q, k, v, o, lse, do, **full)
+
+        def one_pass(passes):
+            code = lib.flash_attention_bwd_launch(*args, passes, stream)
+            if code:
+                raise SystemExit(f"flash_attention_bwd_launch: {code}")
+
+        r = {"bwd": both(lambda: ops.flash_attention_bwd(
+                 q, k, v, o, lse, do, **kw), iters),
+             "host_us": host_us(lambda: ops.flash_attention_bwd(
+                 q, k, v, o, lse, do, **kw)),
+             "dq_pass": queued_ms(lambda: one_pass(1)),
+             "dkdv_pass": queued_ms(lambda: one_pass(2))}
+        window = kw.get("window", 0)
+        pairs = sum(min(i + 1, window) if window else i + 1
+                    for i in range(S)) * B * H
+        flops = 10 * pairs * D
+        t = r["bwd"]["queued"]
+        msg = ""
+        if key == "smollm":
+            qq, kk, vv = (x.detach().clone().requires_grad_(True)
+                          for x in (q, k, v))
+            fwd = queued_ms(lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, is_causal=True))
+            both_ = queued_ms(lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, is_causal=True).backward(do))
+            r["sdpa_bwd"] = both_ - fwd
+            msg = (f"; scaled_dot_product_attention backward "
+                   f"{r['sdpa_bwd']:.4f} ms ({both_:.4f} forward and "
+                   f"backward, {fwd:.4f} the forward)")
+        print(f"flash backward {key} (B={B} H={H} S={S} D={D} {kw}, "
+              f"{flops / 1e9:.1f} GFLOP of five products): wrapper "
+              f"{r['bwd']['wrapper']:.4f} ms, queued {t:.4f} ms "
+              f"({flops / t / 1e9:.1f} TFLOP/s); dq pass "
+              f"{r['dq_pass']:.4f} ms, dk/dv pass {r['dkdv_pass']:.4f} ms; "
+              f"host {r['host_us']:.1f} us a call; "
+              f"bound {flops / PEAK_BF16_FLOPS * 1e3:.4f} ms "
+              f"(operations){msg}", flush=True)
+        out[key] = r
+    return out
+
+
+def bench_step(ops, ref, gen, iters: int) -> dict:
+    """One smollm-135m train step at full size, the step alone as
+    ``chip_smoke.py`` phase 12 (c) times it: random weights from the
+    seed, 8 x 2,048 random tokens, bf16 compute, remat, AdamW; two
+    warm-up steps, then the host clock around ``iters`` synchronised
+    steps (median), beside the flash kernels' launches a step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import Hyper, adamw_init
+    from repro_torch.train.steps import make_train_step
+    cfg = get_config("smollm-135m")
+    B, S = 8, 2048
+    params = M.init_params(torch.Generator().manual_seed(gen.initial_seed()),
+                           cfg, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), device="cuda",
+                         generator=gen, dtype=torch.int64).to(torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "targets": toks[:, 1:].contiguous()}
+    step = make_train_step(cfg, Hyper(warmup_steps=2, total_steps=100))
+    opt = adamw_init(params)
+    for _ in range(2):
+        step(params, opt, batch)
+    torch.cuda.synchronize()
+    ops.reset_kernel_stats()
+    step(params, opt, batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.kernel_stats().items()
+                if k.startswith("flash")}
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    print(f"train step smollm-135m ({B} x {S} tokens, bf16, remat): "
+          f"{ms:.1f} ms median of {iters} {[round(t, 1) for t in times]}, "
+          f"{B * S / ms * 1e3:.0f} tokens/s; flash launches a step "
+          f"{launches}", flush=True)
+    return {"ms": ms, "times": times}
+
+
 def check_flash(ops, ref, x, causal: bool = True) -> None:
     got = ops.flash_attention_fwd(*x, causal=causal)
     want = ref.flash_attention_ref(*x, causal=causal)
@@ -453,7 +600,8 @@ def main() -> int:
     only = args.only.split(",")
     benches = {"packed": bench_packed, "plane": bench_plane,
                "rerank": bench_rerank, "flash": bench_flash,
-               "hubert": bench_hubert, "rows": bench_rows}
+               "hubert": bench_hubert, "rows": bench_rows, "bwd": bench_bwd,
+               "step": bench_step}
     for key in only:
         out[key] = benches[key](ops, ref, gen, args.iters)
         torch.cuda.empty_cache()
