@@ -112,6 +112,17 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      tokens/s, peak memory and a profiled step; then the restart drill
      (--fail-at 6 returns 13, the rerun resumes at step 4 and ends on
      the uninterrupted run's losses and checkpoint bit for bit).
+ 13. the MoE, SSM and hybrid families served (granite-moe-3b-a800m,
+     mamba2-1.3b, zamba2-2.7b at full width and depth, deepseek-moe-16b
+     at full width cut to 4 layers with bf16 parameters; 8 x 2,000 prompt
+     tokens, 48 greedy): flash launches counted a prefill, the flash
+     wrapper held against its plain version at each family's attention
+     shape, the prefill against the plain and f32 paths, MoE routing
+     differences and drops, prefill-then-decode against the forward,
+     prefill and decode times, peak memory.
+ 14. the port's tools on the card, each a process: eval_recall --check,
+     capacity, recovery and the overload tool's full burst must return
+     0; the overload tool's --smoke burst is printed, not gated.
 
 Phase 2 also sweeps the batched launches (grid.z over the batch) of the
 scan and the verify: batch 1, 3, 4 and 64, ragged n and m, shared and
@@ -303,6 +314,41 @@ BWD_CASES = [(8, 9, 2048, 64, dict(causal=True)),        # smollm, training
 # gradient norm sums every weight's square, so both sit far inside that:
 # the loss within 2^-7 and the gradient norm within 2^-5, relative.
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 2 ** -7, 2 ** -5
+# Phase 13, the model families past the dense ones, served as phase 7
+# serves smollm-135m (8 requests of 2,000 prompt tokens, 48 greedy
+# tokens, random weights from --seed, f32 masters, bf16 compute):
+# granite-moe-3b-a800m, mamba2-1.3b and zamba2-2.7b at their published
+# width and depth; deepseek-moe-16b at full width with its depth cut to
+# FAMILY_DEEPSEEK_LAYERS of 28 and bf16 parameters (its 16.4 B weights
+# are 66 GB as f32 masters, past the card with a bf16 copy beside them).
+# Each prefill is held against the plain attn_impl="ref" path under
+# phase 7's second rule, and prefill-then-decode against the full
+# forward at the next position on one request, the JAX package's own
+# check (tests/test_models_smoke.py: 2e-2, float32 compute), with the
+# caches in float32 too so that the check reads the caches' handling and
+# not bf16's rounding of them.  The MoE models run that check at the
+# lossless capacity factor E / top_k, as their SMOKE configs do: at 1.25
+# the forward drops (token, slot) pairs of the last position that the
+# one-token decode keeps (cap = max(⌈k/E · 1.25⌉, k)), so the two differ
+# by design (granite-moe at full width on an H100: 44.6 at logits of 370).
+FAMILIES = ["granite-moe-3b-a800m", "mamba2-1.3b", "zamba2-2.7b",
+            "deepseek-moe-16b"]
+FAMILY_DEEPSEEK_LAYERS = 4
+FAMILY_CONSISTENCY_TOL = 2e-2
+# Phase 14, the port's tools on the card at their own default sizes, each
+# a process of its own that must return 0.  The overload tool runs its
+# full burst (160 requests against 2 x 30 co-tenant ones): at --smoke's
+# 120 the victim's 15 batches of 40 ms fit inside its 800 ms deadline on
+# the port (on the CPU too), so the burst's deadline gate has nothing to
+# cancel there (ROADMAP Queue 3, F9).
+TOOLS = [("tools/eval_recall_torch.py", ["--check"]),
+         ("tools/capacity_smoke_torch.py", []),
+         ("tools/recovery_smoke_torch.py", []),
+         ("tools/overload_smoke_torch.py", [])]
+# ... and the --smoke burst the tool's own docs name, run and printed but
+# not gated, so that F9 shows in every run.
+TOOLS_UNGATED = [("tools/overload_smoke_torch.py", ["--smoke"])]
+TOOL_TIMEOUT_S = 300
 
 
 def fail(msg: str) -> None:
@@ -3081,6 +3127,273 @@ def train_smollm(torch, args, ops) -> dict:
     return launches
 
 
+def record_routes(fn):
+    """Run ``fn`` with every MoE routing recorded: the (1, T, k) expert
+    indices of each layer, in order."""
+    from repro_torch.models import moe
+    routes, route = [], moe._route
+
+    def recording(router_w, x, top_k):
+        gates, idx = route(router_w, x, top_k)
+        routes.append(idx)
+        return gates, idx
+
+    moe._route = recording
+    try:
+        out = fn()
+    finally:
+        moe._route = route
+    return out, routes
+
+
+def check_family_flash(torch, dev, cfg, arch: str, seed: int,
+                       err: dict) -> None:
+    """The flash wrapper the model calls (``models/flash.py``) at the
+    family's prefill shape, B SERVE_BATCH x S SERVE_PROMPT with its heads,
+    kv heads and head dim, causal, on random bf16 tensors, against the
+    port's plain ``blockwise_attention``: allclose at 2e-2 and row by row
+    (FLASH_BF16_ROW_RTOL), as phase 7a holds smollm's GQA path."""
+    from repro_torch.models.flash import flash_attention
+    from repro_torch.models.layers import blockwise_attention
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, S, H, Hkv, D = (SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.n_kv,
+                       cfg.head_dim)
+    windows = ({0} if cfg.ssm else
+               {cfg.window if k == "local" else 0 for k in cfg.attn_kinds})
+    for window in sorted(windows):
+        q = torch.randn((B, S, H, D), device=dev, generator=gen).bfloat16()
+        k, v = (torch.randn((B, S, Hkv, D), device=dev, generator=gen)
+                .bfloat16() for _ in range(2))
+        kw = dict(causal=cfg.causal, window=window, cap=cfg.softcap_attn)
+        got = flash_attention(q, k, v, **kw)
+        want = blockwise_attention(q, k, v, **kw)
+        e = float((got.float() - want.float()).abs().max())
+        r = row_rel_err(got, want)
+        err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e)
+        what = (f"{arch}: models/flash.py at B {B}, S {S}, heads {H}/{Hkv} x "
+                f"{D}, {kw}")
+        print(f"{what} against blockwise_attention: max err {e:.4g}, row "
+              f"error {r:.4g} (limits 2e-2, {FLASH_BF16_ROW_RTOL})",
+              flush=True)
+        check(got.shape == q.shape and bool(torch.isfinite(got).all())
+              and torch.allclose(got.float(), want.float(), rtol=2e-2,
+                                 atol=2e-2), f"{what}: max err {e}")
+        check(r <= FLASH_BF16_ROW_RTOL, f"{what}: row error {r:.4g}")
+        del q, k, v, got, want
+
+
+def serve_family(torch, args, dev, ops, arch: str, err: dict) -> int:
+    """Phase 13, one model: SERVE_BATCH requests of SERVE_PROMPT tokens and
+    SERVE_GEN greedy ones through ``launch.serve.generate`` with the flash
+    launches counted; the flash wrapper against its plain version at the
+    family's attention shape; the kernel path's prefill against the plain
+    path;
+    for MoE, the routings in which the two paths differ and the dropped
+    (token, slot) pairs; prefill-then-decode against the full forward;
+    prefill and decode times and the peak memory.  Returns the flash
+    launches of one prefill."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import _capacity_plan
+    from repro_torch.train.steps import cast_for_compute, make_decode_step
+
+    cfg = get_config(arch)
+    cut = ""
+    if arch == "deepseek-moe-16b":
+        cfg = dataclasses.replace(cfg, num_layers=FAMILY_DEEPSEEK_LAYERS,
+                                  param_dtype="bfloat16")
+        cut = (f"; depth cut to {FAMILY_DEEPSEEK_LAYERS} of 28 layers, bf16 "
+               "parameters")
+    B, S, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    s_max = S + G
+    bf16, f32 = torch.bfloat16, torch.float32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    params = M.init_params(torch.Generator(device=dev).manual_seed(args.seed),
+                           cfg, device="cuda")
+    rng = np.random.default_rng(args.seed + 13)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
+                               .astype(np.int32)).to(dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    n_attn = M.n_attention_layers(cfg)
+    print(f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"attention layers a prefill {n_attn} (heads {cfg.n_heads}/"
+          f"{cfg.n_kv} x {cfg.head_dim}), experts {cfg.n_experts} top-"
+          f"{cfg.top_k} shared {cfg.n_shared}, ssm {cfg.ssm}, vocab "
+          f"{cfg.vocab}: {n_params} parameters ({cfg.param_dtype}{cut}); "
+          f"{B} requests x {S} prompt tokens + {G} greedy", flush=True)
+
+    ops.reset_kernel_stats()                       # the main path's window
+    t0 = time.perf_counter()
+    tokens, logits = generate(params, cfg, prompts, G, s_max=s_max,
+                              compute_dtype=bf16)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = ops.kernel_stats()
+    print(f"serving path: {serve_s:.2f} s (first call), launches "
+          f"{launches}", flush=True)
+    want = ({"flash_attention_fwd": n_attn,
+             "flash_attention_fwd:bf16": n_attn} if n_attn else {})
+    check(launches == want, f"{arch}: launches per prefill {launches}, want "
+          f"{want} (every attention layer through the bf16 kernel)")
+    check(tokens.shape == (B, G) and bool(((tokens >= 0)
+                                           & (tokens < cfg.vocab)).all()),
+          f"{arch}: generated tokens {tuple(tokens.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"{arch}: logits not finite")
+    if n_attn:
+        check_family_flash(torch, dev, cfg, arch, args.seed + 130, err)
+
+    # the kernel path against the plain path (phase 7's second rule)
+    params_c = cast_for_compute(params, bf16)
+    ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    (lk, _, _), r_k = record_routes(lambda: M.prefill(
+        params_c, cfg, {"tokens": prompts}, s_max=s_max))
+    ops.reset_kernel_stats()
+    (lr, _, _), r_r = record_routes(lambda: M.prefill(
+        params_c, ref_cfg, {"tokens": prompts}, s_max=s_max))
+    check(ops.kernel_stats() == {}, f"{arch}: the ref path launched "
+          f"{ops.kernel_stats()}")
+    params32 = (params if cfg.param_dtype == "float32"   # f32 compute
+                else copy.deepcopy(params).float())
+    l32 = M.prefill(params32, ref_cfg, {"tokens": prompts},
+                    s_max=s_max)[0]
+    tol = LOGIT_RTOL * float(lr.abs().max())
+    to32_k = float((lk - l32).abs().max())
+    to32_r = float((lr - l32).abs().max())
+    print(f"prefill logits: max|logit| {float(lr.abs().max()):.3f}; max "
+          f"|diff| to the f32 plain path: kernel path {to32_k:.4f}, bf16 "
+          f"plain path {to32_r:.4f} (rule: <= max({tol:.4f}, 1.5 x "
+          f"{to32_r:.4f})); kernel vs plain path "
+          f"{float((lk - lr).abs().max()):.4f}", flush=True)
+    check(to32_k <= max(tol, 1.5 * to32_r),
+          f"{arch}: the kernel path is farther from the f32 plain path "
+          "than bf16 compute explains")
+    if not n_attn:                          # no attention: the same ops
+        check(torch.equal(lk, lr), f"{arch}: with no attention layer the "
+              "kernel and plain paths differ")
+    same = torch.argmax(lk, -1) == torch.argmax(lr, -1)
+    print(f"greedy first tokens equal on the two paths: {int(same.sum())}/"
+          f"{B}", flush=True)
+    if cfg.n_experts:
+        E, k = cfg.n_experts, cfg.top_k
+        differ = dropped = 0
+        for a, b in zip(r_k, r_r):
+            oh_a = torch.nn.functional.one_hot(a, E).sum(-2)
+            oh_b = torch.nn.functional.one_hot(b, E).sum(-2)
+            differ += int((oh_a - oh_b).abs().sum()) // 2
+            dropped += int((~_capacity_plan(a, E,
+                                            cfg.capacity_factor)[0]).sum())
+        pairs = len(r_k) * B * S * k
+        check(len(r_k) == len(r_r) == cfg.num_layers,
+              f"{arch}: {len(r_k)} routings recorded, want {cfg.num_layers}")
+        print(f"MoE routing: {differ} of {pairs} (token, slot) routings "
+              f"differ between the kernel and plain paths "
+              f"({differ / pairs:.4%}); {dropped} pairs dropped a prefill "
+              f"({dropped / pairs:.4%}) at capacity factor "
+              f"{cfg.capacity_factor}", flush=True)
+    del lr, l32, r_k, r_r
+
+    # prefill-then-decode against the full forward, f32 compute, request 0
+    one = prompts[:1]
+    ccfg = (dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                / cfg.top_k) if cfg.n_experts else cfg)
+    _, cache, n1 = M.prefill(params32, ccfg, {"tokens": one[:, :-1]},
+                             s_max=S + 1, cache_dtype=f32)
+    dec_logits, _ = M.decode_step(params32, ccfg, one[:, -1:], cache, n1)
+    with torch.no_grad():
+        full = M.forward(params32, ccfg, {"tokens": one})[:, -1]
+    diff = (dec_logits - full).abs()
+    lim = FAMILY_CONSISTENCY_TOL * (1 + full.abs())
+    lossless = (f", capacity factor {ccfg.capacity_factor}"
+                if cfg.n_experts else "")
+    print(f"prefill {S - 1} + decode 1 vs the full forward (f32{lossless})"
+          f": max |diff| "
+          f"{float(diff.max()):.3g}, max |logit| {float(full.abs().max()):.3f}"
+          f", worst diff / (2e-2 + 2e-2 |logit|) "
+          f"{float((diff / lim).max()):.3f}", flush=True)
+    check(bool((diff <= lim).all()), f"{arch}: prefill-then-decode differs "
+          "from the full forward by more than 2e-2 + 2e-2 |logit|")
+    del cache, dec_logits, full, params32
+
+    # times
+    dec = make_decode_step(cfg, compute_dtype=bf16)
+
+    def prefill_once():
+        return M.prefill(params_c, cfg, {"tokens": prompts}, s_max=s_max)
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill_once()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms = statistics.median(times)
+    _, cache, n = prefill_once()
+    tok = tokens[:, :1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(G - 1):
+        lg, cache = dec(params_c, tok, cache, n + i)
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (G - 1)
+    del cache
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    print(f"prefill ({B} x {S} tokens): {prefill_ms:.2f} ms median of 3 "
+          f"({sorted(round(x, 2) for x in times)}), "
+          f"{B * S / prefill_ms * 1e3:.0f} prompt tokens/s; decode "
+          f"{decode_ms:.3f} ms per step (batch {B}, {G - 1} steps); peak "
+          f"{peak / 2**30:.3f} GiB above the {base_mem / 2**30:.3f} GiB held "
+          f"before it", flush=True)
+    profile_window(torch, f"{arch} prefill", prefill_once, calls=1)
+    del params, params_c, tokens, logits, lk
+    torch.cuda.empty_cache()
+    return n_attn
+
+
+def model_families(torch, args, dev, ops, err: dict) -> dict:
+    """Phase 13: the MoE, SSM and hybrid families served on the card.
+    Returns each model's flash launches a prefill."""
+    out = {}
+    for arch in FAMILIES:
+        t0 = time.perf_counter()
+        out[arch] = serve_family(torch, args, dev, ops, arch, err)
+        print(f"({arch}: {time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
+
+
+def tools_on_card() -> None:
+    """Phase 14: the port's tools, each in a process of its own on the
+    card (``--device`` left at its default, cuda): TOOLS must return 0,
+    TOOLS_UNGATED are printed with their exit codes."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    for script, argv in TOOLS + TOOLS_UNGATED:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / script), *argv],
+                              cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=TOOL_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        tail = proc.stdout.strip().splitlines()[-6:]
+        print(f"{script} {' '.join(argv)}: rc {proc.returncode} in "
+              f"{secs:.1f} s", flush=True)
+        for line in tail:
+            print(f"  {line}", flush=True)
+        if (script, argv) in TOOLS_UNGATED:
+            print(f"  (not gated: {script} {' '.join(argv)} returned "
+                  f"{proc.returncode}; ROADMAP Queue 3, F9)", flush=True)
+            continue
+        check(proc.returncode == 0, f"{script} returned {proc.returncode}: "
+              f"{proc.stderr.strip()[-2000:]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3439,6 +3752,12 @@ def main() -> int:
     trained = train_smollm(torch, args, ops)
     phase_done("12 (the dedup-fed trainer)")
 
+    # -- 13. the MoE, SSM and hybrid families; 14. the tools -------------
+    families = model_families(torch, args, dev, ops, err)
+    phase_done("13 (the MoE, SSM and hybrid families)")
+    tools_on_card()
+    phase_done("14 (the port's tools on the card)")
+
     kernels = [
         {"name": "sparse_verify_batch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming.cu",
@@ -3477,7 +3796,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn_kernel.py:93",
          "max_abs_err": err["flash_attention_fwd"], **flash,
-         "head_dims": list(ops.FLASH_HEAD_DIMS), "d80_hubert": hubert},
+         "head_dims": list(ops.FLASH_HEAD_DIMS), "d80_hubert": hubert,
+         "family_launches": families},
         {"name": "flash_attention_fwd_lse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn_kernel.py:93",

@@ -1,9 +1,14 @@
-"""The dense-attention model: the port of the JAX package's
-``models/model.py`` for the families with no experts and no SSM.
+"""Unified model: the port of the JAX package's ``models/model.py`` —
+every architecture of the registry is one ``ModelConfig`` interpreted by
+the same apply functions.
 
-Structure: an embedding, ``n_units`` repeating *units* (``period``
-consecutive attention layers, global or sliding-window, each followed by
-a gated MLP), a final norm and a (tied) LM head.  The parameters are a
+Structure: an embedding (or frontend-supplied embeds), ``n_units``
+repeating *units*, a final norm and a (tied) LM head.  A unit is
+``period`` consecutive layers — attention (global or sliding-window)
+followed by a gated MLP or a Mixture-of-Experts block (``moe.py``), or a
+Mamba2 SSD block (``ssm.py``); Zamba2-style hybrids also run a *shared*
+attention block (``params["shared"]``, the same parameters at every
+invocation) at the end of each unit.  The parameters are a
 ``layers.Params`` module read like the JAX pytree (``params["units"]``
 is a ``ModuleList`` of units, unit ``u`` holding ``l0 .. l{period-1}``);
 ``params_from_jax`` carries a JAX parameter pytree across, unstacking
@@ -15,14 +20,17 @@ Entry points: ``forward`` (full-sequence logits, differentiable, with
 bf16 KV caches) and ``decode_step`` (one token against the caches);
 ``abstract_params`` gives the parameters' shapes and dtypes on the
 ``meta`` device.  The caches are a list over units of
-``{"l{pos}": (k, v)}``, each (B, S_cache, Hkv, D); ``decode_step``
-writes the new token's keys and values into them in place (saving a
-copy of every cache per token) and returns the same list.
+``{"l{pos}": (k, v)}``, each (B, S_cache, Hkv, D), or an
+``ssm.SSMCache`` (conv windows in the cache dtype, the state in float32)
+for an SSM layer, plus ``"shared": (k, v)`` for the hybrid's shared
+block; ``decode_step`` writes the new token's keys and values into the
+KV caches in place (saving a copy of every cache per token), replaces
+the SSM caches, and returns the same list.
 
-One card, no mesh: the JAX package's ``constrain`` annotations and its
-sequence-sharded decode branch have no counterpart.  MoE
-(``n_experts``), SSM (``ssm``) and hybrid (``shared_attn_every``)
-configurations raise ``NotImplementedError``.
+One card, no mesh: the JAX package's ``constrain`` annotations, its
+sequence-sharded decode branch and its expert-parallel MoE dispatch
+(``moe_sharded.py``) have no counterpart, and MoE dispatch runs as one
+group (the JAX package's ``moe_groups=1``).
 """
 
 from __future__ import annotations
@@ -39,22 +47,31 @@ from .flash import flash_attention
 from .layers import (Params, apply_rope, blockwise_attention,
                      decode_attention, mlp_apply, mlp_init, normal, rms_norm,
                      softcap)
+from .moe import moe_apply, moe_init
+from .ssm import (SSMCache, SSMConfig, ssm_apply, ssm_cache_init,
+                  ssm_decode_step, ssm_init, ssm_prefill_cache)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-Cache = List[Dict[str, Tuple[torch.Tensor, torch.Tensor]]]
+Cache = List[Dict[str, object]]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the families this port does not run yet."""
-    for flag, what in ((cfg.n_experts, "MoE layers (n_experts)"),
-                       (cfg.ssm, "Mamba2 SSD layers (ssm)"),
-                       (cfg.shared_attn_every,
-                        "the hybrid shared attention block")):
-        if flag:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: {what} are not ported yet (ROADMAP Queue "
-                "1, items 1.11-1.12)")
+def ssm_cfg(cfg: ModelConfig) -> SSMConfig:
+    return SSMConfig(d_model=cfg.d_model, d_inner=cfg.d_inner,
+                     d_state=cfg.d_state, head_dim=cfg.ssm_head_dim,
+                     d_conv=cfg.d_conv, chunk=cfg.chunk)
+
+
+def _has_shared(cfg: ModelConfig) -> bool:
+    return bool(cfg.ssm and cfg.shared_attn_every)
+
+
+def n_attention_layers(cfg: ModelConfig) -> int:
+    """Attention layers a forward or prefill runs: every layer of an
+    attention stack, the hybrid's shared block once a unit, none in an
+    SSM."""
+    return (0 if cfg.ssm else cfg.num_layers) + (
+        cfg.n_units if _has_shared(cfg) else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -74,26 +91,39 @@ def _attn_layer_init(gen: Optional[torch.Generator], cfg: ModelConfig,
         "wv": (normal(gen, d, Kv, hd) * s).to(dtype),
         "wo": (normal(gen, H, hd, d) * so).to(dtype),
         "ln2": torch.zeros((d,), dtype=dtype, device=dev),
-        "mlp": mlp_init(gen, d, cfg.d_ff, dtype),
     }
+    if cfg.n_experts:
+        p["moe"] = moe_init(gen, d, cfg.n_experts, cfg.moe_d_ff,
+                            cfg.n_shared, dtype)
+    else:
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, dtype)
     if cfg.post_norms:
         p["post_ln1"] = torch.zeros((d,), dtype=dtype, device=dev)
         p["post_ln2"] = torch.zeros((d,), dtype=dtype, device=dev)
     return p
 
 
+def _ssm_layer_init(gen: Optional[torch.Generator], cfg: ModelConfig,
+                    dtype) -> dict:
+    dev = gen.device if gen is not None else torch.device("meta")
+    return {"ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+            "ssm": ssm_init(gen, ssm_cfg(cfg), dtype)}
+
+
 def _param_tree(gen: Optional[torch.Generator], cfg: ModelConfig) -> dict:
     """The parameters' nested dict, drawn from ``gen`` on its device (on
     the ``meta`` device, undrawn, when ``gen`` is None)."""
-    check_supported(cfg)
     dtype = _DTYPES[cfg.param_dtype]
     dev = gen.device if gen is not None else torch.device("meta")
+    layer_init = _ssm_layer_init if cfg.ssm else _attn_layer_init
     tree: dict = {}
     if not cfg.inputs_embeds:
         tree["embed"] = normal(gen, cfg.vocab, cfg.d_model).to(dtype)
-    tree["units"] = [{f"l{pos}": _attn_layer_init(gen, cfg, dtype)
+    tree["units"] = [{f"l{pos}": layer_init(gen, cfg, dtype)
                       for pos in range(cfg.period)}
                      for _ in range(cfg.n_units)]
+    if _has_shared(cfg):
+        tree["shared"] = _attn_layer_init(gen, cfg, dtype)
     tree["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype, device=dev)
     if not cfg.tie_embeddings or cfg.inputs_embeds:
         tree["lm_head"] = (normal(gen, cfg.d_model, cfg.vocab)
@@ -106,7 +136,6 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     """Random parameters with the JAX package's shapes and scales, drawn
     from ``generator`` (on its own device, so a CPU generator gives the
     same weights for every ``device``) and moved to ``device``."""
-    check_supported(cfg)
     dev = resolve_device(device)
     return Params(_param_tree(generator, cfg)).to(dev)
 
@@ -122,19 +151,33 @@ def params_from_jax(params: dict, cfg: ModelConfig, *,
                     device="cuda") -> Params:
     """A JAX parameter pytree (nested dicts of numpy arrays, units stacked
     along a leading ``n_units`` axis) as the port's ``Params`` on
-    ``device``."""
-    check_supported(cfg)
+    ``device``, every leaf under its own name:
+
+      * top level: ``embed``, ``final_norm``, ``lm_head``, and the
+        hybrid's ``shared`` block (an attention layer, not stacked);
+      * ``units[u]["l{pos}"]`` of an attention layer: ``ln1``, ``wq``,
+        ``wk``, ``wv``, ``wo``, ``ln2``, ``post_ln1`` / ``post_ln2``,
+        and either ``mlp.{w_gate, w_up, w_down}`` or ``moe.{router,
+        w_gate, w_up, w_down}`` (routed experts stacked (E, d, ff)) with
+        ``moe.shared.{w_gate, w_up, w_down}`` where there are shared
+        experts;
+      * of an SSM layer: ``ln1`` and ``ssm.{wz, wx, wB, wC, wdt,
+        out_proj, conv_x, conv_bx, conv_B, conv_bB, conv_C, conv_bC,
+        A_log, D, dt_bias, norm}``.
+    """
     dev = resolve_device(device)
 
     def tensor(a):
         return torch.from_numpy(np.array(a)).to(dev)
 
-    def unstack(tree, u):
-        return {k: unstack(v, u) if isinstance(v, dict) else tensor(v[u])
+    def tree_of(tree, u=None):
+        return {k: tree_of(v, u) if isinstance(v, dict)
+                else tensor(v if u is None else v[u])
                 for k, v in tree.items()}
 
-    tree = {k: tensor(v) for k, v in params.items() if k != "units"}
-    tree["units"] = [unstack(params["units"], u) for u in range(cfg.n_units)]
+    tree = tree_of({k: v for k, v in params.items() if k != "units"})
+    tree["units"] = [tree_of(params["units"], u)
+                     for u in range(cfg.n_units)]
     return Params(tree)
 
 
@@ -151,14 +194,18 @@ def _project_qkv(p, h: torch.Tensor):
 
 def _attn_decode_tail(p, x: torch.Tensor, cfg: ModelConfig,
                       attn: torch.Tensor) -> torch.Tensor:
-    """Output projection, residual, MLP and residual of one layer (the
-    prefill layer shares it)."""
+    """Output projection, residual, MLP (or MoE) and residual of one
+    layer (the prefill layer shares it)."""
     out = torch.einsum("bshk,hkd->bsd", attn, p["wo"])
     if cfg.post_norms:
         out = rms_norm(out, p["post_ln1"], cfg.norm_eps)
     x = x + out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    m = mlp_apply(p["mlp"], h2, cfg.act)
+    if cfg.n_experts:
+        m = moe_apply(p["moe"], h2, top_k=cfg.top_k, act=cfg.act,
+                      capacity_factor=cfg.capacity_factor)
+    else:
+        m = mlp_apply(p["mlp"], h2, cfg.act)
     if cfg.post_norms:
         m = rms_norm(m, p["post_ln2"], cfg.norm_eps)
     return x + m
@@ -215,7 +262,31 @@ def _attn_layer_decode(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     return _attn_decode_tail(p, x, cfg, attn)
 
 
+def _ssm_layer(p, x: torch.Tensor, cfg: ModelConfig, *,
+               cache_dtype: Optional[torch.dtype] = None):
+    """One SSM layer; given a ``cache_dtype``, also its ``SSMCache``
+    (conv windows in that dtype, the state in float32)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cache_dtype is None:
+        return x + ssm_apply(p["ssm"], h, ssm_cfg(cfg),
+                             norm_eps=cfg.norm_eps), None
+    out, state = ssm_apply(p["ssm"], h, ssm_cfg(cfg), norm_eps=cfg.norm_eps,
+                           return_state=True)
+    return x + out, ssm_prefill_cache(p["ssm"], h, state, ssm_cfg(cfg),
+                                      dtype=cache_dtype)
+
+
+def _ssm_layer_decode(p, x: torch.Tensor, cfg: ModelConfig, *,
+                      cache: SSMCache):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    out, new_cache = ssm_decode_step(p["ssm"], h, cache, ssm_cfg(cfg),
+                                     norm_eps=cfg.norm_eps)
+    return x + out, new_cache
+
+
 def _layer_kind(cfg: ModelConfig, pos: int) -> str:
+    if cfg.ssm:
+        return "ssm"
     return cfg.attn_kinds[pos % len(cfg.attn_kinds)]
 
 
@@ -255,14 +326,20 @@ def forward(params, cfg: ModelConfig, batch: Dict, *,
     in the parameters.  ``remat`` recomputes each unit's activations in
     the backward (``torch.utils.checkpoint`` per unit, the JAX package's
     ``jax.checkpoint`` around its scanned unit)."""
-    check_supported(cfg)
     x = embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :]
 
     def unit_fn(h, unit):
         for pos in range(cfg.period):
-            h, _ = _attn_layer(unit[f"l{pos}"], h, cfg, _layer_kind(cfg, pos),
+            kind = _layer_kind(cfg, pos)
+            if kind == "ssm":
+                h, _ = _ssm_layer(unit[f"l{pos}"], h, cfg)
+            else:
+                h, _ = _attn_layer(unit[f"l{pos}"], h, cfg, kind,
+                                   positions=positions)
+        if _has_shared(cfg):
+            h, _ = _attn_layer(params["shared"], h, cfg, "global",
                                positions=positions)
         return h
 
@@ -297,19 +374,28 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                dtype=torch.bfloat16, *, device="cuda") -> Cache:
     """Empty per-unit caches."""
-    check_supported(cfg)
     dev = resolve_device(device)
 
-    def kv(pos):
+    def kv(kind):
         # local layers: rolling window cache
-        s_c = (min(cfg.window, s_max) if _layer_kind(cfg, pos) == "local"
-               else s_max)
+        s_c = min(cfg.window, s_max) if kind == "local" else s_max
         shape = (batch, s_c, cfg.n_kv, cfg.head_dim)
         return (torch.zeros(shape, dtype=dtype, device=dev),
                 torch.zeros(shape, dtype=dtype, device=dev))
 
-    return [{f"l{pos}": kv(pos) for pos in range(cfg.period)}
-            for _ in range(cfg.n_units)]
+    def layer(pos):
+        kind = _layer_kind(cfg, pos)
+        if kind == "ssm":
+            return ssm_cache_init(batch, ssm_cfg(cfg), dtype, device=dev)
+        return kv(kind)
+
+    def unit():
+        caches = {f"l{pos}": layer(pos) for pos in range(cfg.period)}
+        if _has_shared(cfg):
+            caches["shared"] = kv("global")
+        return caches
+
+    return [unit() for _ in range(cfg.n_units)]
 
 
 @torch.no_grad()
@@ -317,7 +403,6 @@ def prefill(params, cfg: ModelConfig, batch: Dict, *,
             s_max: Optional[int] = None, cache_dtype=torch.bfloat16):
     """Forward + emit caches.  Returns (last-position logits (B, vocab)
     f32, cache, cache_len)."""
-    check_supported(cfg)
     x = embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
     s_max = s_max or S
@@ -346,9 +431,17 @@ def prefill(params, cfg: ModelConfig, batch: Dict, *,
         caches = {}
         for pos in range(cfg.period):
             kind = _layer_kind(cfg, pos)
+            if kind == "ssm":
+                x, caches[f"l{pos}"] = _ssm_layer(unit[f"l{pos}"], x, cfg,
+                                                  cache_dtype=cache_dtype)
+                continue
             x, kv = _attn_layer(unit[f"l{pos}"], x, cfg, kind,
                                 positions=positions, emit_cache=True)
             caches[f"l{pos}"] = pad_kv(kv, kind)
+        if _has_shared(cfg):
+            x, kv = _attn_layer(params["shared"], x, cfg, "global",
+                                positions=positions, emit_cache=True)
+            caches["shared"] = pad_kv(kv, "global")
         cache.append(caches)
     logits = _lm_logits(params, cfg, x[:, -1:])
     return logits[:, 0], cache, S
@@ -359,16 +452,24 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Cache, cache_len: int):
     """One decode step.  tokens: (B, 1) int (or embeds (B, 1, d));
     ``cache_len``: the position the new token takes.  Returns (logits
-    (B, vocab) f32, cache), the cache updated in place."""
-    check_supported(cfg)
+    (B, vocab) f32, cache), the KV caches updated in place and the SSM
+    caches replaced in the same list."""
     cache_len = int(cache_len)
     batch = {"tokens": tokens} if not cfg.inputs_embeds else {"embeds": tokens}
     x = embed_inputs(params, cfg, batch)
     for unit, ucache in zip(params["units"], cache):
         for pos in range(cfg.period):
-            x = _attn_layer_decode(unit[f"l{pos}"], x, cfg,
-                                   _layer_kind(cfg, pos),
-                                   cache=ucache[f"l{pos}"],
+            kind = _layer_kind(cfg, pos)
+            if kind == "ssm":
+                x, ucache[f"l{pos}"] = _ssm_layer_decode(
+                    unit[f"l{pos}"], x, cfg, cache=ucache[f"l{pos}"])
+            else:
+                x = _attn_layer_decode(unit[f"l{pos}"], x, cfg, kind,
+                                       cache=ucache[f"l{pos}"],
+                                       cache_len=cache_len)
+        if _has_shared(cfg):
+            x = _attn_layer_decode(params["shared"], x, cfg, "global",
+                                   cache=ucache["shared"],
                                    cache_len=cache_len)
     logits = _lm_logits(params, cfg, x)
     return logits[:, 0], cache

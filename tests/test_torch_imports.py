@@ -1,9 +1,11 @@
 """The port stands alone: importing it (its ``obs``, ``store`` and
 ``serving`` copies included) pulls in neither jax nor the JAX package,
-no source of it names ``repro``, its entry points refuse a missing CUDA
+no source of it (nor of its tools and examples) names ``repro``, its
+entry points (and those of its tools and examples) refuse a missing CUDA
 device instead of running on the CPU, and ``chip_smoke.py`` fails
 without a card."""
 
+import importlib.util
 import os
 import pkgutil
 import re
@@ -25,11 +27,23 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.bst import index_from_numpy
 from repro_torch.data.pipeline import DataConfig, SketchDedupPipeline
 from repro_torch.launch import serve, train
-from repro_torch.models.model import init_cache, init_params, params_from_jax
+from repro_torch.models.model import (init_cache, init_params,
+                                      params_from_jax, ssm_cfg)
+from repro_torch.models.ssm import ssm_cache_init
 from repro_torch.serving import CollectionConfig, CollectionRegistry, Scheduler
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+# the port's tools and examples: every *_torch.py beside a JAX one
+TOOLS = sorted((ROOT / "tools").glob("*_torch.py"))
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+
+
+def _load(path: Path):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def test_import_pulls_in_no_jax_and_no_repro():
@@ -37,6 +51,7 @@ def test_import_pulls_in_no_jax_and_no_repro():
                                                    "repro_torch.")]
     assert "repro_torch.core.search" in names and "repro_torch.kernels.ops" in names
     for name in ("repro_torch.models.model", "repro_torch.models.flash",
+                 "repro_torch.models.moe", "repro_torch.models.ssm",
                  "repro_torch.configs.registry", "repro_torch.train.steps",
                  "repro_torch.launch.serve", "repro_torch.obs",
                  "repro_torch.obs.trace", "repro_torch.obs.explain",
@@ -76,7 +91,8 @@ _JAX_IMPORT = re.compile(r"^\s*(import|from)\s+jax\b", re.MULTILINE)
 
 
 def test_no_source_imports_repro_or_jax():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + TOOLS + EXAMPLES)
     assert len(files) > 10
     for f in files:
         text = f.read_text()
@@ -111,6 +127,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ssm_cache_init(1, ssm_cfg(get_config("mamba2-1.3b", smoke=True)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--smoke"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--smoke", "--steps", "1"])
@@ -123,6 +141,42 @@ def test_default_device_raises_without_cuda(monkeypatch):
                   lambda: serve.main(["--retrieval", "--smoke"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             entry()
+
+
+def test_tools_and_examples_pull_in_no_jax():
+    names = {p.name for p in TOOLS + EXAMPLES}
+    for want in ("eval_recall_torch.py", "capacity_smoke_torch.py",
+                 "recovery_smoke_torch.py", "overload_smoke_torch.py",
+                 "retrieval_serve_torch.py", "train_smollm_torch.py"):
+        assert want in names, want
+    code = ("import importlib.util, sys\n"
+            f"for path in {[str(p) for p in TOOLS + EXAMPLES]!r}:\n"
+            "    spec = importlib.util.spec_from_file_location('m', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("script,argv", [
+    ("tools/eval_recall_torch.py", ["--smoke"]),
+    ("tools/capacity_smoke_torch.py", ["64"]),
+    ("tools/recovery_smoke_torch.py", ["64"]),
+    ("tools/overload_smoke_torch.py", ["--smoke"]),
+    ("examples/retrieval_serve_torch.py", []),
+    ("examples/train_smollm_torch.py", ["--smoke", "--steps", "1"]),
+])
+def test_tools_and_examples_default_to_cuda(monkeypatch, script, argv):
+    """``--device`` defaults to cuda: without a card each one raises
+    instead of running on the CPU."""
+    mod = _load(ROOT / script)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -1,4 +1,6 @@
-"""The port's model serving path against the JAX package, at SMOKE sizes.
+"""The port's model serving path against the JAX package, at SMOKE sizes:
+the dense families, the MoE families (granite-moe, deepseek-moe), the
+Mamba2 SSM and the hybrid (zamba2, with its shared attention block).
 
 The JAX package draws the parameters (``init_params`` from a PRNG key);
 ``params_from_jax`` carries them across; the same numpy prompts go
@@ -10,8 +12,12 @@ through both.  Tolerances and why:
   * the KV caches: bf16 (both sides round the same float32 keys and
     values to bf16; one that lies on a rounding boundary may land one
     bf16 ulp apart), so 1e-2;
+  * the SSM caches: the conv windows bf16 (1e-2, as the KV caches), the
+    state float32 (1e-4, as the logits);
   * decode logits read those bf16 caches: 2e-2, the tolerance of the
-    JAX package's own prefill/decode test; greedy tokens equal.
+    JAX package's own prefill/decode test; greedy tokens equal; so is
+    prefill-then-decode against the full forward at the next position
+    (the JAX package's ``test_prefill_decode_consistency``).
 """
 
 import dataclasses
@@ -39,6 +45,10 @@ from repro_torch.train.steps import (cast_for_compute, make_decode_step,
 DENSE = [a for a in ARCH_IDS
          if not (get_config(a).n_experts or get_config(a).ssm
                  or get_config(a).inputs_embeds)]
+# the families with experts, an SSM or the hybrid's shared block
+NEW = ["granite-moe-3b-a800m", "deepseek-moe-16b", "mamba2-1.3b",
+       "zamba2-2.7b"]
+TOKEN_ARCHS = DENSE + NEW
 B, S, GEN = 2, 12, 3
 
 
@@ -55,6 +65,11 @@ def close(got, want, tol):
 def test_dense_archs_are_the_five():
     assert DENSE == ["gemma2-27b", "command-r-35b", "smollm-135m", "yi-9b",
                      "chameleon-34b"]
+
+
+def test_new_families_are_the_four():
+    assert sorted(set(ARCH_IDS) - set(DENSE) - {"hubert-xlarge"}) == \
+        sorted(NEW)
 
 
 def test_configs_are_copies():
@@ -121,7 +136,7 @@ def test_mlp_apply_matches_jax(act):
           JL.mlp_apply(p, jnp.asarray(x), act), 1e-4)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", TOKEN_ARCHS)
 def test_init_params_shapes_match_jax(arch):
     """The port's random init has the JAX package's tree, shapes, dtypes
     and (roughly) scales; the numbers differ (another generator)."""
@@ -158,7 +173,7 @@ def _both(arch, attn_impl):
     return jcfg, cfg, jparams, params, toks.astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", TOKEN_ARCHS)
 def test_forward_matches_jax(arch):
     jcfg, cfg, jparams, params, toks = _both(arch, "flash")
     want = JM.forward(jparams, jcfg, {"tokens": jnp.asarray(toks)})
@@ -191,11 +206,11 @@ def test_hubert_forward_head_dim_80_matches_jax(attn_impl):
 
 
 @pytest.mark.parametrize("attn_impl", ["flash", "ref"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", TOKEN_ARCHS)
 def test_prefill_decode_match_jax(arch, attn_impl):
     """Prefill logits and caches, then GEN greedy decode steps.  gemma2's
     SMOKE window (8) is below the prompt (12), so its local layers use
-    the rolling cache."""
+    the rolling cache; zamba2's units also hold the shared block's."""
     jcfg, cfg, jparams, params, toks = _both(arch, attn_impl)
     s_max = S + GEN + 1
     jpre = jax.jit(jprefill_step(jcfg, s_max=s_max,
@@ -210,13 +225,18 @@ def test_prefill_decode_match_jax(arch, attn_impl):
     assert tlen == int(jlen) == S
     close(tl, jl, 1e-4)
     flash_calls = ops.kernel_stats().get("flash_attention_fwd:ref", 0)
-    assert flash_calls == (cfg.num_layers if attn_impl == "flash" else 0)
+    assert flash_calls == (TM.n_attention_layers(cfg) if attn_impl == "flash" else 0)
     for u, ucache in enumerate(tcache):
-        for pos in range(cfg.period):
-            for got, want in zip(ucache[f"l{pos}"], jcache[f"l{pos}"]):
-                assert got.dtype == torch.bfloat16
+        assert ucache.keys() == jcache.keys()
+        for name, layer in ucache.items():
+            for got, want in zip(layer, jcache[name]):
                 assert got.shape == want.shape[1:]
-                close(got, want[u], 1e-2)
+                if got.dtype == torch.float32:      # an SSM state
+                    assert cfg.ssm and got.dim() == 4
+                    close(got, want[u], 1e-4)
+                else:
+                    assert got.dtype == torch.bfloat16
+                    close(got, want[u], 1e-2)
     if arch == "gemma2-27b":
         assert tcache[0]["l0"][0].shape[1] == cfg.window < s_max
 
@@ -228,6 +248,71 @@ def test_prefill_decode_match_jax(arch, attn_impl):
         close(tl, jl, 2e-2)
         tok = jnp.argmax(jl, axis=-1).astype(jnp.int32)[:, None]
         assert torch.equal(torch.argmax(tl, dim=-1), t(tok[:, 0]).long())
+
+
+@pytest.mark.parametrize("arch", TOKEN_ARCHS)
+def test_prefill_decode_consistency(arch):
+    """The JAX package's own check (``test_models_smoke.py``) on the port,
+    with its inputs (JAX's parameters from key 0, 2 x 32 tokens from
+    numpy seed 0): prefill all but the last token, decode it, and the
+    logits match the full-sequence forward at that position (2e-2,
+    float32 compute, bf16 caches)."""
+    _, cfg, _, params, _ = _both(arch, "flash")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 32)).astype(
+        np.int32)
+    pre = make_prefill_step(cfg, s_max=32 + 4, compute_dtype=torch.float32)
+    dec = make_decode_step(cfg, compute_dtype=torch.float32)
+    _, cache, n = pre(params, {"tokens": t(toks[:, :-1])})
+    got, _ = dec(params, t(toks[:, -1:]), cache, n)
+    want = TM.forward(params, cfg, {"tokens": t(toks)})[:, -1]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_abstract_params_match_concrete(arch):
+    """``abstract_params`` is ``init_params``'s tree on the meta device,
+    and its leaves are JAX's ``abstract_params``' (units unstacked)."""
+    cfg = get_config(arch, smoke=True)
+    abstract = TM.abstract_params(cfg)
+    concrete = TM.init_params(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    got = [(n, tuple(p.shape), p.dtype) for n, p in
+           abstract.named_parameters()]
+    assert all(p.device.type == "meta" for p in abstract.parameters())
+    assert got == [(n, tuple(p.shape), p.dtype)
+                   for n, p in concrete.named_parameters()]
+    want = {"/".join(str(k.key) for k in path): (leaf.shape, str(leaf.dtype))
+            for path, leaf in jax.tree_util.tree_leaves_with_path(
+                JM.abstract_params(jget_config(arch, smoke=True)))}
+    mine = {}
+    for n, p in abstract.named_parameters():
+        parts = n.split(".")
+        if parts[0] == "units":                  # JAX stacks the units
+            key, shape = "/".join(["units"] + parts[2:]), (cfg.n_units,)
+        else:
+            key, shape = "/".join(parts), ()
+        mine.setdefault(key, (shape + tuple(p.shape),
+                              str(p.dtype).split(".")[-1]))
+    assert mine == want
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "deepseek-moe-16b"])
+def test_moe_forward_with_drops_matches_jax(arch):
+    """At capacity factor 1.0 the SMOKE forward drops (token, slot)
+    pairs; the port's one-group dispatch drops the JAX package's
+    (``moe_groups=1``), so the logits agree at the forward's 1e-4."""
+    jcfg, cfg, jparams, params, toks = _both(arch, "flash")
+    jcfg = dataclasses.replace(jcfg, capacity_factor=1.0)
+    lossless = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                   / cfg.top_k)
+    cfg = dataclasses.replace(cfg, capacity_factor=1.0)
+    got = TM.forward(params, cfg, {"tokens": t(toks)})
+    close(got, JM.forward(jparams, jcfg, {"tokens": jnp.asarray(toks)},
+                          moe_groups=1), 1e-4)
+    keep_all = TM.forward(params, lossless, {"tokens": t(toks)})
+    assert (got - keep_all).abs().max() > 1e-3      # pairs were dropped
 
 
 def test_cast_for_compute_casts_matrices_once():
@@ -246,14 +331,6 @@ def test_cast_for_compute_casts_matrices_once():
     assert cache[0]["l0"][0].shape == (1, 8, cfg.n_kv, cfg.head_dim)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-1.3b",
-                                  "zamba2-2.7b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_params(torch.Generator(), get_config(arch, smoke=True),
-                       device="cpu")
-
-
 def test_serve_main_runs_on_cpu(capsys):
     assert serve.main(["--smoke", "--device", "cpu", "--batch", "2",
                        "--prompt-len", "9", "--gen-len", "4"]) == 0
@@ -270,3 +347,11 @@ def test_serve_main_runs_on_cpu(capsys):
         assert serve.main(["--smoke", "--device", "cpu", "--index-size",
                            "256", flag]) == 0
         assert line in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_serve_main_serves_the_new_families(arch, capsys):
+    assert serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "9",
+                       "--gen-len", "4"]) == 0
+    assert "served 2 requests x 4 tokens on cpu" in capsys.readouterr().out

@@ -1,8 +1,9 @@
 """The port's train step: the four invariants of
 ``tests/test_train_invariants.py`` (microbatch count, remat, the compute
 cast's scope, loss masking) on the port, and one ``make_train_step`` of
-smollm-135m SMOKE and hubert-xlarge SMOKE held against the JAX
-package's from the same parameters (``params_from_jax``) and batch.
+smollm-135m, hubert-xlarge and the four MoE, SSM and hybrid SMOKE
+configs held against the JAX package's from the same parameters
+(``params_from_jax``) and batch.
 
 Tolerances against JAX: both steps run in float32 on the CPU (the
 port's attention through the plain flash forward and backward); the
@@ -12,7 +13,16 @@ loss within 1e-5 relative and the gradient norm within 1e-4 relative
 weight by lr·g/(|g| + eps) with lr = 1e-3, which is ±lr wherever |g| is
 well above eps = 1e-8 but amplifies the sums' rounding where |g| is
 near eps (measured: one weight in a few thousand moves 2.4e-6 apart,
-the rest within 1e-6).
+the rest within 1e-6).  smollm and hubert are held so, every weight.
+For the four new families only, two exemptions: where the clipped |g|
+is within ten eps that amplification can pass 1e-5 (a few weights of
+the MoE and hybrid SMOKE steps, whose rarely routed experts and shared
+block see clipped gradients of 1e-8), and those weights are held at
+their gradients instead, within 1e-5 of the tensor's largest gradient;
+and the reference decays the per-layer vectors (F8, ROADMAP Queue 3:
+the SSM's ``A_log``, ``D`` and ``dt_bias`` start away from 0), so the
+comparison adds that decay to the port's step.  The dense families'
+vectors are norm scales that start at 0, where that decay is 0.
 """
 
 import dataclasses
@@ -150,7 +160,12 @@ def test_abstract_params_are_meta_shapes():
     assert got == want
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "hubert-xlarge"])
+NEW_FAMILIES = ("granite-moe-3b-a800m", "deepseek-moe-16b", "mamba2-1.3b",
+                "zamba2-2.7b")
+
+
+@pytest.mark.parametrize("arch", ("smollm-135m", "hubert-xlarge")
+                         + NEW_FAMILIES)
 def test_train_step_matches_jax(arch):
     cfg = get_config(arch, smoke=True)
     jcfg = jget_config(arch, smoke=True)
@@ -166,10 +181,11 @@ def test_train_step_matches_jax(arch):
     step = make_train_step(cfg, Hyper(*jhyper), compute_dtype=torch.float32)
     ops.reset_kernel_stats()
     new, opt, metrics = step(params, adamw_init(params), _torch_batch(batch))
-    n_attn = cfg.num_layers
+    n_attn = M.n_attention_layers(cfg)
     # remat: each layer's forward runs again in the backward
-    assert ops.kernel_stats() == {"flash_attention_fwd:ref": 2 * n_attn,
-                                  "flash_attention_bwd:ref": n_attn}
+    assert ops.kernel_stats() == ({"flash_attention_fwd:ref": 2 * n_attn,
+                                   "flash_attention_bwd:ref": n_attn}
+                                  if n_attn else {})
     assert int(opt.step) == 1
     np.testing.assert_allclose(float(metrics["loss"]),
                                float(j_metrics["loss"]), rtol=1e-5)
@@ -179,9 +195,51 @@ def test_train_step_matches_jax(arch):
                                rtol=1e-7)
     want = M.params_from_jax(jax.tree_util.tree_map(np.asarray, j_new), cfg,
                              device="cpu")
-    for (name, a), b in zip(new.named_parameters(), want.parameters()):
-        np.testing.assert_allclose(a.detach().numpy(), b.numpy(), rtol=0,
-                                   atol=1e-5, err_msg=name)
+    old = M.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg,
+                            device="cpu")
+    exempt = arch in NEW_FAMILIES
+    grads = None
+    lr, wd = float(metrics["lr"]), jhyper.weight_decay
+    clip = min(1.0, jhyper.clip_norm / float(j_metrics["grad_norm"]))
+    for (name, a), b, p0 in zip(new.named_parameters(), want.parameters(),
+                                old.parameters()):
+        got = a.detach()
+        if exempt and name.startswith("units.") and got.dim() == 1:
+            # F8 (ROADMAP Queue 3): the reference's unit stack gives each
+            # layer's vectors a leading axis, so its matrices-only weight
+            # decay reaches them; the port's does not
+            got = got - lr * wd * p0
+        off = ((got - b).abs() > 1e-5) & exempt
+        if off.any():
+            # Adam's first step is ill-conditioned where the clipped |g|
+            # is near eps: lr·g/(|g| + eps) moves by lr·eps/(|g| + eps)²
+            # ≈ 3e4 times the gradient's rounding there.  Such weights are
+            # held at the gradient instead, within 1e-5 of the tensor's
+            # largest gradient.
+            grads = grads or _grads_both(jcfg, jparams, cfg, batch)
+            gt, gj = grads[0][name], grads[1][name]
+            assert (gj[off].abs() * clip < 10 * jhyper.eps).all(), (name, gj)
+            np.testing.assert_allclose(gt[off].numpy(), gj[off].numpy(),
+                                       rtol=0, atol=1e-5 * float(
+                                           gj.abs().max()), err_msg=name)
+        np.testing.assert_allclose(got[~off].numpy(), b[~off].numpy(),
+                                   rtol=0, atol=1e-5, err_msg=name)
+
+
+def _grads_both(jcfg, jparams, cfg, batch):
+    """The float32 loss gradients of both packages, by the port's
+    parameter names."""
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jg = jax.grad(lambda p: JM.loss_fn(p, jcfg, jb, remat=True))(jparams)
+    jg = M.params_from_jax(jax.tree_util.tree_map(np.asarray, jg), cfg,
+                           device="cpu")
+    params = M.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                               cfg, device="cpu").requires_grad_(True)
+    names = [n for n, _ in params.named_parameters()]
+    loss = M.loss_fn(params, cfg, _torch_batch(batch), remat=True)
+    tg = torch.autograd.grad(loss, list(params.parameters()))
+    return (dict(zip(names, tg)),
+            dict(zip(names, (g.detach() for g in jg.parameters()))))
 
 
 def test_eval_step_is_the_loss():
