@@ -121,8 +121,27 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      differences and drops, prefill-then-decode against the forward,
      prefill and decode times, peak memory.
  14. the port's tools on the card, each a process: eval_recall --check,
-     capacity, recovery and the overload tool's full burst must return
-     0; the overload tool's --smoke burst is printed, not gated.
+     capacity, recovery and the overload tool's full and --smoke bursts
+     must return 0;
+ 15. the mesh layer on torch.distributed process groups, each rank a
+     process of its own, after the flash wrapper is held at yi-9b's
+     prefill shape as phase 13 holds each family's: (a) one rank
+     (nccl), mesh (1, 1):
+     granite-moe-3b-a800m through the expert-parallel MoE and yi-9b
+     through the sequence-parallel decode at full width and depth (bf16
+     parameters, 8 x 2,000 prompt tokens + 48 greedy) against the same
+     models with no mesh — kept (token, slot) masks, the second rule of
+     phase 7, greedy tokens where the margin is sure, 32 / 48 flash
+     launches a prefill; (b) two ranks sharing the card (gloo), mesh
+     (1, 2): half the experts and half the cache slots a rank, held to
+     (a)'s rules against (a), the new K/V on the owner rank only, the
+     collectives' bytes and seconds, which collectives gloo runs on CUDA
+     tensors; (c) two data ranks on the card: granite's prefill with one
+     MoE group over both ranks' rows keeps one rank's mask, and
+     ``launch.serve`` (smollm-135m, phase 7's requests) under
+     torch.distributed.run prints one rank's tokens, its ranks' rows of
+     the prefill's and the last step's logits one rank's within 2^-5 of
+     the largest.
 
 Phase 2 also sweeps the batched launches (grid.z over the batch) of the
 scan and the verify: batch 1, 3, 4 and 64, ragged n and m, shared and
@@ -336,18 +355,15 @@ FAMILIES = ["granite-moe-3b-a800m", "mamba2-1.3b", "zamba2-2.7b",
 FAMILY_DEEPSEEK_LAYERS = 4
 FAMILY_CONSISTENCY_TOL = 2e-2
 # Phase 14, the port's tools on the card at their own default sizes, each
-# a process of its own that must return 0.  The overload tool runs its
-# full burst (160 requests against 2 x 30 co-tenant ones): at --smoke's
-# 120 the victim's 15 batches of 40 ms fit inside its 800 ms deadline on
-# the port (on the CPU too), so the burst's deadline gate has nothing to
-# cancel there (ROADMAP Queue 3, F9).
+# a process of its own that must return 0: the overload tool both at its
+# full burst (160 requests against 2 x 30 co-tenant ones) and at --smoke's
+# 120, whose victim dispatches stall 80 ms so that its deadline gate bites
+# whatever the card's dispatch time (ROADMAP Queue 3, F9).
 TOOLS = [("tools/eval_recall_torch.py", ["--check"]),
          ("tools/capacity_smoke_torch.py", []),
          ("tools/recovery_smoke_torch.py", []),
-         ("tools/overload_smoke_torch.py", [])]
-# ... and the --smoke burst the tool's own docs name, run and printed but
-# not gated, so that F9 shows in every run.
-TOOLS_UNGATED = [("tools/overload_smoke_torch.py", ["--smoke"])]
+         ("tools/overload_smoke_torch.py", []),
+         ("tools/overload_smoke_torch.py", ["--smoke"])]
 TOOL_TIMEOUT_S = 300
 
 
@@ -3282,13 +3298,9 @@ def serve_family(torch, args, dev, ops, arch: str, err: dict) -> int:
           f"{B}", flush=True)
     if cfg.n_experts:
         E, k = cfg.n_experts, cfg.top_k
-        differ = dropped = 0
-        for a, b in zip(r_k, r_r):
-            oh_a = torch.nn.functional.one_hot(a, E).sum(-2)
-            oh_b = torch.nn.functional.one_hot(b, E).sum(-2)
-            differ += int((oh_a - oh_b).abs().sum()) // 2
-            dropped += int((~_capacity_plan(a, E,
-                                            cfg.capacity_factor)[0]).sum())
+        differ = routing_differences(torch, r_k, r_r, E)
+        dropped = sum(int((~_capacity_plan(a, E, cfg.capacity_factor)[0])
+                          .sum()) for a in r_k)
         pairs = len(r_k) * B * S * k
         check(len(r_k) == len(r_r) == cfg.num_layers,
               f"{arch}: {len(r_k)} routings recorded, want {cfg.num_layers}")
@@ -3370,12 +3382,11 @@ def model_families(torch, args, dev, ops, err: dict) -> dict:
 
 def tools_on_card() -> None:
     """Phase 14: the port's tools, each in a process of its own on the
-    card (``--device`` left at its default, cuda): TOOLS must return 0,
-    TOOLS_UNGATED are printed with their exit codes."""
+    card (``--device`` left at its default, cuda): each must return 0."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
         "PYTHONPATH", "")
-    for script, argv in TOOLS + TOOLS_UNGATED:
+    for script, argv in TOOLS:
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, str(ROOT / script), *argv],
                               cwd=ROOT, env=env, capture_output=True,
@@ -3386,18 +3397,715 @@ def tools_on_card() -> None:
               f"{secs:.1f} s", flush=True)
         for line in tail:
             print(f"  {line}", flush=True)
-        if (script, argv) in TOOLS_UNGATED:
-            print(f"  (not gated: {script} {' '.join(argv)} returned "
-                  f"{proc.returncode}; ROADMAP Queue 3, F9)", flush=True)
-            continue
         check(proc.returncode == 0, f"{script} returned {proc.returncode}: "
               f"{proc.stderr.strip()[-2000:]}")
+
+
+# Phase 15, the mesh layer (launch/mesh.py, distributed/sharding.py,
+# models/io.py, models/moe_sharded.py, models/decode_sp.py) on
+# torch.distributed process groups, each rank a process of its own that
+# the script starts (``chip_smoke.py --mesh-child``) or that
+# torch.distributed.run starts, with PYTHONHASHSEED fixed so that every
+# rank draws the same ``synthetic_batch`` (ROADMAP F10).  The requests
+# are phase 7's: 8 prompts of 2,000 tokens (``synthetic_batch``, step 0)
+# and 48 greedy tokens, bf16 parameters drawn from --seed: yi-9b's 8.8 B
+# weights are 17.6 GB in bf16, where f32 masters beside a bf16 copy
+# would take ≈ 53 GB, and (b)'s two ranks each hold a copy on the one
+# card.  (a) one rank, nccl, mesh (1, 1) over ("data", "model"):
+# granite-moe-3b-a800m (its MoE blocks through moe_apply_sharded) and
+# yi-9b (its decode through decode_attention_seq_sharded) at full width
+# and depth, against the same model with no mesh: the kept (token, slot)
+# masks those of one rank's plan on the same routings, the prefill
+# logits within phase 7's second rule against an f32 plain path, the
+# greedy tokens equal wherever the no-mesh path's top-2 margin exceeds
+# LOGIT_RTOL of its largest logit (48 steps, the no-mesh path fed the
+# mesh path's tokens), the flash launches of a prefill 32 and 48.
+# (b) two ranks sharing the card (gloo, which NCCL's one-rank-a-card rule
+# leaves), mesh (1, 2): 20 of granite's 40 experts and 1,024 of yi-9b's
+# 2,048 cache slots a rank, (a)'s tokens fed, (a)'s rules against (a)'s
+# no-mesh run; the new K/V on the owner rank only at every decode step;
+# the collectives' bytes and seconds of a prefill and a decode step.
+# (c) data parallelism over two ranks on the card: granite's prefill at
+# two data ranks (capacity 1.25, one MoE group over both ranks' rows)
+# keeps one rank's (token, slot) mask and meets (a)'s rules on its
+# logits; the serve CLI under torch.distributed.run prints the greedy
+# tokens of one rank.
+MESH_ARCHS = ["granite-moe-3b-a800m", "yi-9b"]
+MESH_HASH_SEED = "0"
+MESH_TIMEOUT_S = 480          # a part's ranks, build-free (phase 1 built)
+MESH_GROUP_TIMEOUT_S = 180    # a collective that waits longer fails
+MESH_OWNER_LAYERS = (0, -1)   # yi-9b layers whose slices are checked a step
+SERVE_CLI_ARGV = ["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
+                  "--prompt-len", str(SERVE_PROMPT), "--gen-len",
+                  str(SERVE_GEN)]       # phase 7's requests
+
+
+def mesh_env() -> dict:
+    env = dict(os.environ, PYTHONHASHSEED=MESH_HASH_SEED)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(var, None)
+    return env
+
+
+def mesh_spawn(torch, args, part: str, world: int, work: Path) -> list:
+    """Phase 15 part ``part`` in ``world`` ranks, each a process of its
+    own; rank 0's output is printed.  Fails on any rank's nonzero exit or
+    on MESH_TIMEOUT_S (every rank killed).  Returns the ranks' results."""
+    procs, logs = [], []
+    for r in range(world):
+        spec = json.dumps({"part": part, "rank": r, "world": world,
+                           "dir": str(work), "seed": args.seed})
+        logs.append(open(work / f"{part}{r}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-child",
+             spec], cwd=ROOT, env=mesh_env(), stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for line in (work / f"{part}0.log").read_text().splitlines():
+        print(f"  {line}", flush=True)
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"phase 15 ({part}) rank {r} exited "
+              f"{p.returncode}:\n{(work / f'{part}{r}.log').read_text()[-4000:]}")
+    return [torch.load(work / f"{part}_rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def mesh_child(spec: dict) -> int:
+    """A rank of phase 15: starts the process group (file rendezvous
+    under the part's directory), runs its part and saves the result."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+
+    work, part = Path(spec["dir"]), spec["part"]
+    init_distributed("cuda", init_method=f"file://{work}/group_{part}",
+                     rank=spec["rank"], world_size=spec["world"],
+                     timeout_s=MESH_GROUP_TIMEOUT_S)
+    try:
+        out = {"a": mesh_part_a, "b": mesh_part_b}[part](torch, spec, work)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, work / f"{part}_rank{spec['rank']}.pt")
+    return 0
+
+
+def mesh_model(torch, arch: str, seed: int):
+    """(cfg with bf16 parameters, parameters on the card, prompts) of
+    phase 15: the prompts are ``synthetic_batch``'s step 0."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.io import synthetic_batch
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16")
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                           cfg, device="cuda")
+    prompts = synthetic_batch(cfg, SERVE_BATCH, SERVE_PROMPT, 0,
+                              with_targets=False)["tokens"]
+    return cfg, params, prompts
+
+
+def batch_digest(torch, prompts) -> int:
+    """A 62-bit digest of the prompts (the same on every rank that drew
+    the same batch)."""
+    w = torch.arange(1, prompts.numel() + 1, device=prompts.device,
+                     dtype=torch.int64)
+    return int((prompts.reshape(-1).to(torch.int64) * w % 1_000_000_007
+                * 7919).sum() % (1 << 62))
+
+
+def recorded_plans(fn):
+    """Run ``fn`` with every MoE capacity plan recorded: the sharded path's
+    (routings (t, k), kept (t·k,), first expert, experts) and the
+    data-parallel path's (routings (1, t, k), kept (1, t, k))."""
+    from repro_torch.models import moe, moe_sharded
+    plans, local, plan = [], moe_sharded._local_plan, moe._capacity_plan
+
+    def local_rec(idx, lo, e_loc, cap):
+        keep, rel, pos = local(idx, lo, e_loc, cap)
+        plans.append(("sharded", idx, keep, lo, e_loc))
+        return keep, rel, pos
+
+    def plan_rec(idx, n_experts, capacity_factor, *, mesh=None):
+        out = plan(idx, n_experts, capacity_factor, mesh=mesh)
+        plans.append(("grouped", idx, out[0]))
+        return out
+
+    moe_sharded._local_plan, moe._capacity_plan = local_rec, plan_rec
+    try:
+        out = fn()
+    finally:
+        moe_sharded._local_plan, moe._capacity_plan = local, plan
+    return out, plans
+
+
+def sharded_plan_mismatches(torch, plans, cfg) -> tuple:
+    """(pairs whose kept bit differs from one rank's plan on the same
+    routings, pairs kept) over the sharded path's recorded plans: a rank
+    keeps exactly the pairs of its own experts that one rank keeps."""
+    from repro_torch.models.moe import _capacity_plan
+    bad = kept = 0
+    for _, idx, keep, lo, e_loc in plans:
+        want = _capacity_plan(idx[None], cfg.n_experts,
+                              cfg.capacity_factor)[0].reshape(-1)
+        flat = idx.reshape(-1)
+        own = (flat >= lo) & (flat < lo + e_loc)
+        bad += int((keep != (want & own)).sum())
+        kept += int(keep.sum())
+    return bad, kept
+
+
+def routing_differences(torch, a, b, n_experts: int) -> int:
+    """(token, slot) routings that differ between two runs' per-layer
+    expert indices (..., k)."""
+    differ = 0
+    for x, y in zip(a, b):
+        oh_x = torch.nn.functional.one_hot(x.long(), n_experts).sum(-2)
+        oh_y = torch.nn.functional.one_hot(y.long(), n_experts).sum(-2)
+        differ += int((oh_x - oh_y).abs().sum()) // 2
+    return differ
+
+
+def mesh_generate(torch, cfg, params, prompts, mesh, fed=None) -> dict:
+    """Prefill ``prompts`` and decode SERVE_GEN - 1 tokens (``fed``'s when
+    given, else the greedy ones) under ``mesh`` (None: no mesh), the MoE
+    plans of the prefill recorded: per-step logits (B, V) on the card,
+    the tokens, the prefill's flash launches, the prefill and decode
+    times and collective stats."""
+    import contextlib
+
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    s_max = SERVE_PROMPT + SERVE_GEN
+    ctx = use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    stats = {}
+    with ctx:
+        torch.cuda.synchronize()
+        if mesh is not None:
+            mesh.stats.clear()
+        ops.reset_kernel_stats()
+        t0 = time.perf_counter()
+        (logits, cache, n), plans = recorded_plans(lambda: M.prefill(
+            params, cfg, {"tokens": prompts}, s_max=s_max))
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = ops.kernel_stats()
+        if mesh is not None:
+            stats["prefill"] = {k: list(v) for k, v in mesh.stats.items()}
+        steps = [logits]
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        tokens = [tok if fed is None else fed[:, :1]]
+        t0 = time.perf_counter()
+        for i in range(SERVE_GEN - 1):
+            if mesh is not None and i == 0:
+                mesh.stats.clear()
+            logits, cache = M.decode_step(params, cfg, tokens[-1], cache,
+                                          n + i)
+            if mesh is not None and i == 0:
+                torch.cuda.synchronize()
+                stats["decode"] = {k: list(v) for k, v in mesh.stats.items()}
+            steps.append(logits)
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            tokens.append(tok if fed is None else fed[:, i + 1:i + 2])
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (SERVE_GEN - 1)
+    return {"logits": steps, "tokens": torch.cat(tokens, 1), "plans": plans,
+            "launches": launches, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "stats": stats, "cache": cache}
+
+
+def hold_steps(torch, got, want, what: str) -> str:
+    """(a)'s token rule at every step: the greedy tokens of ``got`` equal
+    ``want``'s wherever ``want``'s top-2 margin exceeds LOGIT_RTOL of its
+    largest logit.  Returns a summary line."""
+    worst = sure_n = same_n = 0
+    for step, (g, w) in enumerate(zip(got, want)):
+        tol = LOGIT_RTOL * float(w.abs().max())
+        top2 = torch.topk(w, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > tol
+        same = torch.argmax(g, -1) == torch.argmax(w, -1)
+        check(bool(same[sure].all()), f"{what}: greedy tokens differ at step "
+              f"{step} where the margin exceeds {tol:.4f}")
+        worst = max(worst, float((g - w).abs().max()) / tol)
+        sure_n += int(sure.sum())
+        same_n += int(same.sum())
+    n = len(got) * got[0].shape[0]
+    return (f"{what}: greedy tokens equal {same_n}/{n} over {len(got)} steps, "
+            f"all {sure_n} with a margin above 2^-5 of the largest logit; "
+            f"worst |logit diff| {worst:.3f} x that tolerance")
+
+
+def second_rule(torch, got, ref, f32, what: str) -> str:
+    """Phase 7's second rule on prefill logits: ``got`` no farther from
+    the f32 plain path than ``ref`` (x 1.5), or within LOGIT_RTOL of the
+    largest logit."""
+    tol = LOGIT_RTOL * float(ref.abs().max())
+    to32, to32_ref = (float((x - f32).abs().max()) for x in (got, ref))
+    check(to32 <= max(tol, 1.5 * to32_ref), f"{what}: prefill logits "
+          f"{to32:.4f} from the f32 plain path, the reference {to32_ref:.4f}"
+          f" (tolerance {tol:.4f})")
+    return (f"{what}: prefill max |diff| to the f32 plain path {to32:.4f}, "
+            f"the no-mesh path's {to32_ref:.4f} (rule: <= max({tol:.4f}, "
+            f"1.5 x {to32_ref:.4f})); to the no-mesh path "
+            f"{float((got - ref).abs().max()):.4f}")
+
+
+def mesh_part_a(torch, spec, work: Path) -> dict:
+    """Phase 15 (a): one rank, mesh (1, 1), against no mesh.  Saves each
+    model's reference for (b) and (c) beside the result."""
+    import copy
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    print(f"(a) backend {dist.get_backend()}, {dist.get_world_size()} rank, "
+          f"mesh {mesh.shape}", flush=True)
+    out = {}
+    for arch in MESH_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, prompts = mesh_model(torch, arch, spec["seed"])
+        mine = M.shard_params(params, cfg, mesh)
+        n_attn = M.n_attention_layers(cfg)
+        print(f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+              f"heads {cfg.n_heads}/{cfg.n_kv} x {cfg.head_dim}, experts "
+              f"{cfg.n_experts} top-{cfg.top_k}, decode_kv_shard "
+              f"{cfg.decode_kv_shard}: "
+              f"{sum(p.numel() for p in params.parameters())} bf16 "
+              f"parameters; {SERVE_BATCH} x {SERVE_PROMPT} prompt tokens + "
+              f"{SERVE_GEN} greedy", flush=True)
+        M.prefill(params, cfg, {"tokens": prompts},       # warm-up at the
+                  s_max=SERVE_PROMPT + SERVE_GEN)         # prefill's shapes
+        got = mesh_generate(torch, cfg, mine, prompts, mesh)
+        want = {"flash_attention_fwd": n_attn,
+                "flash_attention_fwd:bf16": n_attn}
+        check(got["launches"] == want, f"(a) {arch}: launches a prefill "
+              f"{got['launches']}, want {want}")
+        ref = mesh_generate(torch, cfg, params, prompts, None,
+                            fed=got["tokens"])
+        del mine
+        got.pop("cache"), ref.pop("cache")
+        if cfg.n_experts:
+            bad, kept = sharded_plan_mismatches(torch, got["plans"], cfg)
+            check(bad == 0 and len(got["plans"]) == cfg.num_layers,
+                  f"(a) {arch}: {bad} kept (token, slot) pairs differ from "
+                  "one rank's plan")
+            differ = routing_differences(
+                torch, [p[1] for p in got["plans"]],
+                [p[1][0] for p in ref["plans"]], cfg.n_experts)
+            pairs = cfg.num_layers * SERVE_BATCH * SERVE_PROMPT * cfg.top_k
+            print(f"kept (token, slot) masks: {kept} of {pairs} pairs kept, "
+                  f"0 differ from one rank's plan on the same routings; "
+                  f"routings differing from the no-mesh run: {differ}",
+                  flush=True)
+        params32 = copy.deepcopy(params).float()
+        del params
+        l32 = M.prefill(params32, dataclasses.replace(cfg, attn_impl="ref"),
+                        {"tokens": prompts}, s_max=SERVE_PROMPT + 1)[0]
+        del params32
+        print(second_rule(torch, got["logits"][0], ref["logits"][0], l32,
+                          f"(a) {arch}"), flush=True)
+        print(hold_steps(torch, got["logits"], ref["logits"], f"(a) {arch}"),
+              flush=True)
+        print(f"prefill {got['prefill_ms']:.2f} ms under the mesh, "
+              f"{ref['prefill_ms']:.2f} without; decode "
+              f"{got['decode_ms']:.3f} / {ref['decode_ms']:.3f} ms a step; "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"flash launches a prefill {got['launches']}", flush=True)
+        torch.save({"digest": batch_digest(torch, prompts),
+                    "tokens": got["tokens"].cpu(),
+                    "logits": [x.cpu() for x in ref["logits"]],
+                    "f32": l32.cpu(),
+                    "routes": [p[1][0].to(torch.uint8).cpu()
+                               for p in ref["plans"]]},
+                   work / f"ref_{arch}.pt")
+        out[arch] = {"launches": got["launches"]["flash_attention_fwd"],
+                     "prefill_ms": got["prefill_ms"],
+                     "decode_ms": got["decode_ms"]}
+        del got, ref, l32, prompts
+        torch.cuda.empty_cache()
+    return out
+
+
+def gloo_cuda_collectives(torch) -> dict:
+    """Which collectives the started gloo group runs on CUDA tensors in
+    this torch: "ok" or the error each raises."""
+    import torch.distributed as dist
+    world, res = dist.get_world_size(), {}
+    x = torch.ones(4, device="cuda")
+    tries = {
+        "all_reduce sum bf16": lambda: dist.all_reduce(
+            torch.ones(4, device="cuda", dtype=torch.bfloat16)),
+        "all_reduce max f32": lambda: dist.all_reduce(
+            x.clone(), op=dist.ReduceOp.MAX),
+        "all_reduce sum int64": lambda: dist.all_reduce(
+            torch.ones(4, device="cuda", dtype=torch.int64)),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(world * 4, device="cuda"), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device="cuda"),
+            torch.ones(world * 4, device="cuda")),
+    }
+    for name, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            res[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            res[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:100]}"
+    return res
+
+
+def stats_line(stats: dict) -> str:
+    return ", ".join(f"{k} x{c} {b / 2**20:.2f} MiB {s * 1e3:.1f} ms"
+                     for k, (c, b, s) in sorted(stats.items())) or "none"
+
+
+def mesh_part_b(torch, spec, work: Path) -> dict:
+    """Phase 15 (b): two ranks on the one card, mesh (1, 2)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+
+    rank = dist.get_rank()
+    coll = gloo_cuda_collectives(torch)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    if rank == 0:
+        print(f"(b) backend {dist.get_backend()}, {dist.get_world_size()} "
+              f"ranks on {torch.cuda.device_count()} card, mesh "
+              f"{mesh.shape}; gloo on CUDA tensors: {coll}", flush=True)
+    out = {"collectives": coll}
+    for arch in MESH_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        ref = torch.load(work / f"ref_{arch}.pt", weights_only=False)
+        cfg, params, prompts = mesh_model(torch, arch, spec["seed"])
+        digests = mesh.all_gather(torch.tensor(
+            [batch_digest(torch, prompts)], device="cuda"), "model")
+        check(bool((digests == ref["digest"]).all()), f"(b) {arch}: ranks "
+              f"drew batches {digests.tolist()}, (a) {ref['digest']}")
+        mine = M.shard_params(params, cfg, mesh)
+        del params
+        torch.cuda.empty_cache()
+        n_attn = M.n_attention_layers(cfg)
+        held = {}
+        if cfg.n_experts:
+            e = mine["units"][0]["l0"]["moe"]["w_gate"].shape[0]
+            held["experts"] = e
+        got = mesh_generate_owner(torch, cfg, mine, prompts, mesh,
+                                  ref["tokens"].to("cuda"), held)
+        check(got["launches"] == {"flash_attention_fwd": n_attn,
+                                  "flash_attention_fwd:bf16": n_attn},
+              f"(b) {arch}: launches a prefill {got['launches']}")
+        same = mesh.all_gather(got["logits"][-1].contiguous()[None], "model")
+        check(torch.equal(same[0], same[1]), f"(b) {arch}: the ranks' "
+              "logits differ")
+        lines = []
+        if cfg.n_experts:
+            bad, kept = sharded_plan_mismatches(torch, got["plans"], cfg)
+            check(bad == 0, f"(b) {arch}: rank {rank}: {bad} kept pairs "
+                  "differ from one rank's plan")
+            differ = routing_differences(
+                torch, [p[1] for p in got["plans"]],
+                [r.to("cuda") for r in ref["routes"]], cfg.n_experts)
+            lines.append(f"rank 0 holds {held['experts']} of "
+                         f"{cfg.n_experts} experts; its kept pairs ({kept}) "
+                         "are one rank's plan's on its experts, 0 differ; "
+                         f"routings differing from (a): {differ}")
+        else:
+            lines.append(f"rank 0 holds {held['slots']} of "
+                         f"{SERVE_PROMPT + SERVE_GEN} cache slots; the new "
+                         f"K/V landed on the owner rank only at all "
+                         f"{SERVE_GEN - 1} decode steps (layers "
+                         f"{MESH_OWNER_LAYERS} checked)")
+        lines.append(second_rule(torch, got["logits"][0],
+                                 ref["logits"][0].to("cuda"),
+                                 ref["f32"].to("cuda"), f"(b) {arch}"))
+        lines.append(hold_steps(torch, got["logits"],
+                                [x.to("cuda") for x in ref["logits"]],
+                                f"(b) {arch}"))
+        lines.append(f"collectives of the prefill: "
+                     f"{stats_line(got['stats']['prefill'])}; of one decode "
+                     f"step: {stats_line(got['stats']['decode'])}")
+        lines.append(f"prefill {got['prefill_ms']:.2f} ms, decode "
+                     f"{got['decode_ms']:.3f} ms a step (two ranks on one "
+                     f"card); peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                     " GiB a rank")
+        if rank == 0:
+            for line in lines:
+                print(line, flush=True)
+        out[arch] = {"stats": got["stats"], "prefill_ms": got["prefill_ms"],
+                     "decode_ms": got["decode_ms"]}
+        del got, mine, ref, prompts, same
+        torch.cuda.empty_cache()
+    out["c"] = mesh_data_parallel(torch, spec, work)
+    return out
+
+
+def mesh_generate_owner(torch, cfg, params, prompts, mesh, fed,
+                        held: dict) -> dict:
+    """``mesh_generate`` with, for a sequence-split cache, every decode
+    step's write checked: the rank that owns slot ``cache_len`` changed
+    exactly that slot of its slice, the other rank's slice is unchanged
+    (MESH_OWNER_LAYERS' keys and values)."""
+    from repro_torch.models import model as M
+    if not (cfg.decode_kv_shard == "seq" and "model" in mesh.axis_names):
+        return mesh_generate(torch, cfg, params, prompts, mesh, fed=fed)
+    step, orig = [0], M.decode_step
+    layers = [(u, "l0") for u in (MESH_OWNER_LAYERS[0] % cfg.n_units,
+                                  MESH_OWNER_LAYERS[1] % cfg.n_units)]
+
+    def checked(params_, cfg_, tokens, cache, cache_len, **kw):
+        before = [[t.clone() for t in cache[u][n]] for u, n in layers]
+        out = orig(params_, cfg_, tokens, cache, cache_len, **kw)
+        s_loc = cache[0]["l0"][0].shape[1]
+        held["slots"] = s_loc
+        owner = int(cache_len) // s_loc
+        slot = int(cache_len) - owner * s_loc
+        for (u, n), old in zip(layers, before):
+            for new, o in zip(cache[u][n], old):
+                changed = (new != o).any(dim=(0, 2, 3))
+                if mesh.coord("model") == owner:
+                    ok = bool(changed[slot]) and int(changed.sum()) == 1
+                else:
+                    ok = not bool(changed.any())
+                check(ok, f"(b) decode step {step[0]}: rank "
+                      f"{mesh.coord('model')}'s slice of layer {u} changed "
+                      f"at {changed.nonzero().flatten().tolist()}, owner "
+                      f"{owner} slot {slot}")
+        step[0] += 1
+        return out
+
+    M.decode_step = checked
+    try:
+        return mesh_generate(torch, cfg, params, prompts, mesh, fed=fed)
+    finally:
+        M.decode_step = orig
+
+
+def mesh_data_parallel(torch, spec, work: Path) -> dict:
+    """Phase 15 (c), in (b)'s ranks: granite's prefill at two data ranks
+    on the one card (the host mesh), one MoE group over both ranks'
+    rows."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.mesh import batch_coord, make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import _capacity_plan
+
+    arch = MESH_ARCHS[0]
+    mesh = make_host_mesh()
+    n, r = mesh.shape["data"], batch_coord(mesh)
+    ref = torch.load(work / f"ref_{arch}.pt", weights_only=False)
+    cfg, params, prompts = mesh_model(torch, arch, spec["seed"])
+    digests = mesh.all_gather(torch.tensor([batch_digest(torch, prompts)],
+                                           device="cuda"), "data")
+    check(bool((digests == ref["digest"]).all()), f"(c) ranks drew batches "
+          f"{digests.tolist()}, (a) {ref['digest']}")
+    rows = SERVE_BATCH // n
+    mesh.stats.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with use_mesh(mesh):
+        (logits, _, _), plans = recorded_plans(lambda: M.prefill(
+            params, cfg, {"tokens": prompts[r * rows:(r + 1) * rows]},
+            s_max=SERVE_PROMPT + SERVE_GEN))
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    stats = {k: list(v) for k, v in mesh.stats.items()}
+    check(len(plans) == cfg.num_layers, f"(c) {len(plans)} MoE plans")
+    bad = kept = 0
+    routes = []
+    for _, idx, keep in plans:
+        whole = mesh.all_gather(idx, "data", dim=1)         # (1, T, k)
+        want = _capacity_plan(whole, cfg.n_experts, cfg.capacity_factor)[0]
+        t = idx.shape[1]
+        bad += int((keep != want[:, r * t:(r + 1) * t]).sum())
+        kept += int(keep.sum())
+        routes.append(whole[0])
+    check(bad == 0, f"(c) rank {r}: {bad} kept (token, slot) pairs differ "
+          "from one rank's plan")
+    kept = int(mesh.all_reduce(torch.tensor([kept], device="cuda"),
+                               "data")[0])
+    logits = mesh.all_gather(logits.contiguous(), "data")
+    if r == 0:
+        differ = routing_differences(torch, routes,
+                                     [x.to("cuda") for x in ref["routes"]],
+                                     cfg.n_experts)
+        pairs = cfg.num_layers * SERVE_BATCH * SERVE_PROMPT * cfg.top_k
+        print(f"(c) backend {dist.get_backend()}, {n} data ranks on one "
+              f"card; {arch} at capacity {cfg.capacity_factor}: {kept} of "
+              f"{pairs} (token, slot) pairs kept, each rank's mask one "
+              f"rank's plan's on the gathered routings (0 differ); routings "
+              f"differing from (a)'s no-mesh run: {differ}", flush=True)
+        print(second_rule(torch, logits, ref["logits"][0].to("cuda"),
+                          ref["f32"].to("cuda"), f"(c) {arch}"), flush=True)
+        print(hold_steps(torch, [logits], [ref["logits"][0].to("cuda")],
+                         f"(c) {arch} first token"), flush=True)
+        print(f"(c) prefill {prefill_ms:.2f} ms (4 rows a rank, two ranks on "
+              f"one card); collectives {stats_line(stats)}", flush=True)
+    return {"prefill_ms": prefill_ms, "stats": stats}
+
+
+def record_serve(torch, argv: list, path: Path) -> int:
+    """``launch.serve.main(argv)`` with this rank's rows of the prefill's
+    and the last decode step's logits, and its tokens, saved to ``path``
+    (float32, on the host) as generation returns them."""
+    from repro_torch.launch import serve
+
+    orig = serve._generate
+
+    def recording(*a, **kw):
+        tokens, first, last = orig(*a, **kw)
+        torch.save({"first": first.float().cpu(), "last": last.float().cpu(),
+                    "tokens": tokens.cpu()}, path)
+        return tokens, first, last
+
+    serve._generate = recording
+    try:
+        return serve.main(argv)
+    finally:
+        serve._generate = orig
+
+
+def serve_child(work: Path) -> int:
+    """A rank of the serve CLI under torch.distributed.run (phase 15 (c))."""
+    import torch
+    return record_serve(torch, SERVE_CLI_ARGV,
+                        work / f"serve_rank{os.environ['RANK']}.pt")
+
+
+def serve_cli_ranks(torch, work: Path) -> str:
+    """Phase 15 (c): ``launch.serve`` for smollm-135m at phase 7's requests
+    in this process (one rank) and under torch.distributed.run over two
+    ranks on the card (the host mesh, gloo): the same greedy tokens
+    printed, and the ranks' rows of the prefill's and the last step's
+    logits, put together rank-major, within LOGIT_RTOL of the largest of
+    one rank's, every sure greedy token equal."""
+    import contextlib
+    import io
+
+    out = {}
+    for n in (1, 2):
+        t0 = time.perf_counter()
+        if n == 1:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = record_serve(torch, SERVE_CLI_ARGV, work / "serve_one.pt")
+            text = buf.getvalue()
+        else:
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", "2", str(Path(__file__).resolve()),
+                 "--serve-child", str(work)], cwd=ROOT, env=mesh_env(),
+                capture_output=True, text=True, timeout=TOOL_TIMEOUT_S)
+            rc, text = proc.returncode, proc.stdout
+            check(rc != 0 or "process group: backend gloo, 2 ranks" in text,
+                  f"serve over 2 ranks: {text[-2000:]}")
+        check(rc == 0, f"serve over {n} rank(s) returned {rc}: "
+              f"{text[-2000:]}")
+        lines = text.splitlines()
+        out[n] = [ln for ln in lines if ln.startswith("continuation ids:")]
+        check(len(out[n]) == 1, f"serve over {n} rank(s) printed "
+              f"{text[-2000:]}")
+        served = [ln for ln in lines if ln.startswith(("served",
+                                                       "process group"))]
+        print(f"  serve, {n} rank(s), {time.perf_counter() - t0:.1f} s "
+              "(process start-up included): " + " | ".join(served),
+              flush=True)
+    check(out[1] == out[2], f"serve over 2 ranks printed {out[2]}, one rank "
+          f"{out[1]}")
+    one = torch.load(work / "serve_one.pt")
+    ranks = [torch.load(work / f"serve_rank{r}.pt") for r in range(2)]
+    got = {k: torch.cat([r[k] for r in ranks]) for k in one}
+    check(torch.equal(got["tokens"], one["tokens"]), "serve over 2 ranks: "
+          "the ranks' rows of tokens are not one rank's")
+    for key in ("first", "last"):
+        tol = LOGIT_RTOL * float(one[key].abs().max())
+        diff = float((got[key] - one[key]).abs().max())
+        check(got[key].shape == one[key].shape and diff <= tol,
+              f"serve over 2 ranks: {key} logits {diff:.4f} from one rank's "
+              f"(tolerance {tol:.4f})")
+        print(f"  serve over 2 ranks: the {key} step's logits, rank-major, "
+              f"max |diff| {diff:.4f} to one rank's (tolerance {tol:.4f})",
+              flush=True)
+    print("  " + hold_steps(torch, [got["first"], got["last"]],
+                            [one["first"], one["last"]],
+                            "serve over 2 ranks (prefill, last step)"),
+          flush=True)
+    rows = {tuple(r) for r in one["tokens"].tolist()}
+    print(f"  serve: {len(rows)} distinct token rows of "
+          f"{one['tokens'].shape[0]}", flush=True)
+    return out[1][0]
+
+
+def mesh_layer(torch, args, dev, err: dict) -> dict:
+    """Phase 15: the flash wrapper at each model's prefill shape that phase
+    13 did not hold, then (a)–(c) in processes of their own; returns the
+    flash launches of a prefill of each model under the mesh (a)."""
+    import shutil
+
+    from repro_torch.configs.registry import get_config
+
+    for i, arch in enumerate(MESH_ARCHS):
+        if arch not in FAMILIES:
+            check_family_flash(torch, dev, get_config(arch), arch,
+                               args.seed + 150 + i, err)
+    torch.cuda.empty_cache()
+    print(f"phase 15 starts with {torch.cuda.memory_allocated() / 2**30:.2f}"
+          " GiB held by this process", flush=True)
+    work = ROOT / "build" / f"chip_smoke_mesh_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        a = mesh_spawn(torch, args, "a", 1, work)[0]
+        print(f"(a: {time.perf_counter() - t0:.1f} s)", flush=True)
+        t0 = time.perf_counter()
+        mesh_spawn(torch, args, "b", 2, work)
+        print(f"(b and (c)'s granite: {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        t0 = time.perf_counter()
+        tokens = serve_cli_ranks(torch, work)
+        print(f"serve CLI: one rank and two data ranks print the same "
+              f"{tokens[:80]}... ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {arch: a[arch]["launches"] for arch in MESH_ARCHS}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--crash-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--serve-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -3409,6 +4117,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if args.crash_child:                 # phase 11's child process
         return crash_child(Path(args.crash_child))
+    if args.mesh_child:                  # a rank of phase 15
+        return mesh_child(json.loads(args.mesh_child))
+    if args.serve_child:                 # a rank of phase 15 (c)'s serve CLI
+        return serve_child(Path(args.serve_child))
     from repro_torch.core import (LinearScan, build_bst, make_batch_searcher,
                                   topk_batch)
     from repro_torch.core.cost_model import frontier_capacities
@@ -3757,6 +4469,9 @@ def main() -> int:
     phase_done("13 (the MoE, SSM and hybrid families)")
     tools_on_card()
     phase_done("14 (the port's tools on the card)")
+    mesh = mesh_layer(torch, args, dev, err)
+    phase_done("15 (the mesh layer: expert-parallel MoE, sequence-parallel "
+               "decode, data-parallel serving)")
 
     kernels = [
         {"name": "sparse_verify_batch", "route": "cuda",
@@ -3797,7 +4512,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attn_kernel.py:93",
          "max_abs_err": err["flash_attention_fwd"], **flash,
          "head_dims": list(ops.FLASH_HEAD_DIMS), "d80_hubert": hubert,
-         "family_launches": families},
+         "family_launches": families, "mesh_launches": mesh},
         {"name": "flash_attention_fwd_lse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn_kernel.py:93",

@@ -1,2 +1,3 @@
-"""Checkpointing and fault tolerance on one card: ``checkpoint``,
-``fault_tolerance`` and ``compression``."""
+"""Checkpointing, fault tolerance and sharding: ``checkpoint``,
+``fault_tolerance``, ``compression`` and ``sharding`` (the rules that
+place parameters, caches and batches on a mesh's ranks)."""

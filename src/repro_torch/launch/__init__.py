@@ -1,1 +1,3 @@
-"""Entry points: ``serve`` (batched greedy generation)."""
+"""Entry points: ``serve`` (batched greedy generation, the retrieval
+plane), ``train`` (the dedup-fed trainer) and ``mesh`` (meshes of ranks
+over a ``torch.distributed`` process group)."""

@@ -10,6 +10,14 @@ raises without a card; ``--device cpu`` runs the plain kernels).
 the matrices compute in bf16 from f32 masters and the prefill attention
 goes through the CUDA flash kernel; on the CPU everything is f32.
 
+Generation runs under the host mesh (``launch.mesh.make_host_mesh``:
+every rank on a "data" axis), as the JAX package's does.  Under
+``python -m torch.distributed.run --standalone --nproc-per-node N -m
+repro_torch.launch.serve ...`` each rank prefills and decodes its B/N
+rows (nccl when every rank has a card of its own, gloo when they share
+one or run on the CPU) and rank 0 gathers the tokens and prints them;
+one process is a mesh of one rank.
+
 ``--retrieval`` additionally runs the retrieval plane: the requests'
 last-step logits, mixed over the embedding table, are 0-bit-CWS-sketched
 and submitted as *individual* range and top-k requests to the serving
@@ -41,6 +49,7 @@ import torch
 from ..configs.registry import ARCH_IDS, get_config
 from ..core.hamming import pack_sets, resolve_device
 from ..core.sketch import cws_params, zbit_cws
+from ..distributed.sharding import use_mesh
 from ..kernels.ops import DEFAULT_BLOCK_M
 from ..models import model as M
 from ..obs import SlowQueryLog, Tracer
@@ -48,6 +57,7 @@ from ..serving import (AdmissionConfig, BreakerConfig, CollectionConfig,
                        CollectionRegistry, DegradePolicy, Scheduler,
                        SchedulerConfig)
 from ..train.steps import cast_for_compute, make_decode_step, make_prefill_step
+from .mesh import batch_coord, dp_shards, init_distributed, make_host_mesh
 
 
 @torch.no_grad()
@@ -376,7 +386,24 @@ def main(argv=None) -> int:
         print(f"{args.arch} is encoder-only: no autoregressive serving "
               "(see DESIGN.md §Arch-applicability)")
         return 0
+    started = init_distributed(dev)
+    try:
+        return serve_generation(args, cfg, dev)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+
+
+def serve_generation(args, cfg, dev) -> int:
+    """Generation (and ``--retrieval``) under the host mesh: this rank's
+    rows of the batch, gathered on every rank; rank 0 prints."""
     dtype = torch.float32 if dev.type == "cpu" else torch.bfloat16
+    mesh = make_host_mesh()
+    n, r = dp_shards(mesh), batch_coord(mesh)
+    if args.batch % n:
+        raise SystemExit(f"--batch {args.batch} does not split over {n} "
+                         "data ranks")
+    rows = slice(r * args.batch // n, (r + 1) * args.batch // n)
 
     rng = np.random.default_rng(args.seed)
     prompts = torch.from_numpy(
@@ -387,14 +414,21 @@ def main(argv=None) -> int:
     params = M.init_params(torch.Generator().manual_seed(args.seed), cfg,
                            device=dev)
     t0 = time.perf_counter()
-    out, _, logits = _generate(params, cfg, prompts, args.gen_len,
-                               s_max=s_max, compute_dtype=dtype)
-    out = out.cpu()                                # waits for the device
+    with use_mesh(mesh):
+        out, _, logits = _generate(params, cfg, prompts[rows], args.gen_len,
+                                   s_max=s_max, compute_dtype=dtype)
+    out = mesh.all_gather(out, "data").cpu()       # waits for the device
+    logits = mesh.all_gather(logits.contiguous(), "data")
     dt = time.perf_counter() - t0
+    if r:
+        return 0
     total_tokens = args.batch * args.gen_len
-    print(f"served {args.batch} requests x {args.gen_len} tokens on {dev} "
-          f"in {dt:.2f}s ({total_tokens / dt:.1f} tok/s incl. first-call set-up)")
+    ranks = f" over {n} data ranks" if n > 1 else ""
+    print(f"served {args.batch} requests x {args.gen_len} tokens on {dev}"
+          f"{ranks} in {dt:.2f}s ({total_tokens / dt:.1f} tok/s incl. "
+          "first-call set-up)")
     print("sample continuation ids:", out[0][:12].numpy())
+    print("continuation ids:", out.tolist())
     if args.retrieval:
         run_retrieval(args, params, logits, rng, dev)
     return 0

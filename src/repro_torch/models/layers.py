@@ -177,6 +177,13 @@ def mlp_apply(params, x: torch.Tensor, act: str) -> torch.Tensor:
     return h @ params["w_down"]
 
 
+def jax_ndim(name: str, p: torch.Tensor) -> int:
+    """The rank of the JAX package's counterpart of the parameter
+    ``name`` (a dotted ``named_parameters`` name): a leaf under ``units``
+    carries the leading ``n_units`` axis of the JAX unit stack there."""
+    return p.dim() + (name.split(".", 1)[0] == "units")
+
+
 def normal(generator: torch.Generator | None, *shape) -> torch.Tensor:
     """Standard normal draws from ``generator`` on its device; with no
     generator, an empty tensor of that shape on the ``meta`` device (the

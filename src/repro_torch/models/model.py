@@ -27,10 +27,26 @@ block; ``decode_step`` writes the new token's keys and values into the
 KV caches in place (saving a copy of every cache per token), replaces
 the SSM caches, and returns the same list.
 
-One card, no mesh: the JAX package's ``constrain`` annotations, its
-sequence-sharded decode branch and its expert-parallel MoE dispatch
-(``moe_sharded.py``) have no counterpart, and MoE dispatch runs as one
-group (the JAX package's ``moe_groups=1``).
+Under a mesh (``distributed.sharding.use_mesh``, a
+``launch.mesh.Mesh`` of ranks) every entry point runs on this rank's
+rows of the batch, as the JAX package's do under ``use_mesh``:
+
+  * with a "model" axis the MoE blocks take the expert-parallel path
+    (``moe_sharded.moe_apply_sharded``; their weights are the rank's
+    shards, ``shard_params``), and a config with
+    ``decode_kv_shard="seq"`` keeps each rank's slice of the sequence
+    axis of every non-rolling KV cache (``init_cache``, ``prefill``) and
+    decodes through ``decode_sp.decode_attention_seq_sharded``;
+  * otherwise MoE dispatch runs ``moe_groups`` groups over the global
+    batch (``prefill`` and ``decode_step`` take it; ``forward`` runs one
+    group): each rank's rows hold ``moe_groups / ranks`` whole groups,
+    or with ``moe_groups=1`` the ranks exchange their per-expert counts,
+    so capacity and drops are the global batch's (``moe.moe_apply``'s
+    ``mesh=``).
+
+The dense layers run whole on every rank: the JAX package's
+``constrain`` annotations have no counterpart (``distributed/
+sharding.py`` says why).
 """
 
 from __future__ import annotations
@@ -42,12 +58,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.hamming import resolve_device
+from ..distributed.sharding import dp_shards, get_global_mesh
 from .config import ModelConfig
+from .decode_sp import decode_attention_seq_sharded
 from .flash import flash_attention
 from .layers import (Params, apply_rope, blockwise_attention,
                      decode_attention, mlp_apply, mlp_init, normal, rms_norm,
                      softcap)
 from .moe import moe_apply, moe_init
+from .moe_sharded import moe_apply_sharded, shard_moe_params
 from .ssm import (SSMCache, SSMConfig, ssm_apply, ssm_cache_init,
                   ssm_decode_step, ssm_init, ssm_prefill_cache)
 
@@ -181,6 +200,22 @@ def params_from_jax(params: dict, cfg: ModelConfig, *,
     return Params(tree)
 
 
+def shard_params(params: Params, cfg: ModelConfig, mesh) -> Params:
+    """This rank's parameters under ``mesh``: with a "model" axis every
+    MoE block's router and experts are the rank's shards
+    (``moe_sharded.shard_moe_params``), the rest whole; without one, the
+    parameters themselves.  The result holds no reference to the whole
+    expert weights, so dropping ``params`` frees them."""
+    if not (cfg.n_experts and "model" in mesh.axis_names):
+        return params
+    tree = params.tree()
+    for unit in tree["units"]:
+        for layer in unit.values():
+            if "moe" in layer:
+                layer["moe"] = shard_moe_params(layer["moe"], mesh)
+    return Params(tree)
+
+
 # ---------------------------------------------------------------------------
 # layer application
 # ---------------------------------------------------------------------------
@@ -192,8 +227,49 @@ def _project_qkv(p, h: torch.Tensor):
     return q, k, v
 
 
+def _moe_dispatch(moe_params, h: torch.Tensor, cfg: ModelConfig,
+                  moe_groups: int) -> torch.Tensor:
+    """Pick the MoE path (module doc): explicit expert parallelism when
+    the mesh has a "model" axis, grouped dispatch over the global batch
+    otherwise."""
+    mesh = get_global_mesh()
+    if mesh is not None and "model" in mesh.axis_names:
+        return moe_apply_sharded(moe_params, h, mesh, top_k=cfg.top_k,
+                                 act=cfg.act,
+                                 capacity_factor=cfg.capacity_factor)
+    n = dp_shards(mesh) if mesh is not None else 1
+    kw = dict(top_k=cfg.top_k, act=cfg.act,
+              capacity_factor=cfg.capacity_factor)
+    if moe_groups % n == 0:               # each rank's rows: whole groups
+        return moe_apply(moe_params, h, num_groups=moe_groups // n, **kw)
+    if moe_groups == 1:                   # one group over the global batch
+        return moe_apply(moe_params, h, mesh=mesh, **kw)
+    raise ValueError(f"{moe_groups} MoE groups over {n} data shards")
+
+
+def _seq_mesh(cfg: ModelConfig, kind: str):
+    """The mesh whose "model" axis splits this layer's KV cache over the
+    sequence (a non-rolling layer of a ``decode_kv_shard="seq"`` config),
+    or None."""
+    mesh = get_global_mesh()
+    if (kind != "local" and cfg.decode_kv_shard == "seq"
+            and mesh is not None and "model" in mesh.axis_names):
+        return mesh
+    return None
+
+
+def _seq_slice(mesh, s_max: int) -> Tuple[int, int]:
+    """[lo, hi): this model rank's slots of an ``s_max``-slot cache."""
+    m = mesh.shape["model"]
+    if s_max % m:
+        raise ValueError(f"{s_max} cache slots do not split over {m} model "
+                         "ranks")
+    n = s_max // m
+    return mesh.coord("model") * n, (mesh.coord("model") + 1) * n
+
+
 def _attn_decode_tail(p, x: torch.Tensor, cfg: ModelConfig,
-                      attn: torch.Tensor) -> torch.Tensor:
+                      attn: torch.Tensor, moe_groups: int) -> torch.Tensor:
     """Output projection, residual, MLP (or MoE) and residual of one
     layer (the prefill layer shares it)."""
     out = torch.einsum("bshk,hkd->bsd", attn, p["wo"])
@@ -202,8 +278,7 @@ def _attn_decode_tail(p, x: torch.Tensor, cfg: ModelConfig,
     x = x + out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.n_experts:
-        m = moe_apply(p["moe"], h2, top_k=cfg.top_k, act=cfg.act,
-                      capacity_factor=cfg.capacity_factor)
+        m = _moe_dispatch(p["moe"], h2, cfg, moe_groups)
     else:
         m = mlp_apply(p["mlp"], h2, cfg.act)
     if cfg.post_norms:
@@ -212,7 +287,8 @@ def _attn_decode_tail(p, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _attn_layer(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
-                positions: torch.Tensor, emit_cache: bool = False):
+                positions: torch.Tensor, moe_groups: int = 1,
+                emit_cache: bool = False):
     window = cfg.window if kind == "local" else 0
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(p, h)
@@ -222,13 +298,13 @@ def _attn_layer(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                else blockwise_attention)
     attn = attn_fn(q, k, v, causal=cfg.causal, window=window,
                    cap=cfg.softcap_attn)
-    x = _attn_decode_tail(p, x, cfg, attn)
+    x = _attn_decode_tail(p, x, cfg, attn, moe_groups)
     return x, ((k, v) if emit_cache else None)
 
 
 def _attn_layer_decode(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                        cache: Tuple[torch.Tensor, torch.Tensor],
-                       cache_len: int):
+                       cache_len: int, moe_groups: int = 1):
     """One-token attention layer against a (B, S_cache, Kv, hd) cache
     pair, written in place.
 
@@ -246,6 +322,14 @@ def _attn_layer_decode(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     pos = torch.full((1, 1), cache_len, dtype=torch.int32, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    mesh = _seq_mesh(cfg, kind)          # never a rolling (local) layer
+    if mesh is not None:               # this rank's slice of the sequence
+        if cache_len >= W * mesh.shape["model"]:
+            raise ValueError(f"decode position {cache_len} past the cache's "
+                             f"{W * mesh.shape['model']} slots")
+        attn, _, _ = decode_attention_seq_sharded(
+            q, k, v, k_cache, v_cache, cache_len, mesh, cap=cfg.softcap_attn)
+        return _attn_decode_tail(p, x, cfg, attn, moe_groups)
     slot = cache_len % W if rolling else cache_len
     if slot >= W:
         raise ValueError(f"decode position {cache_len} past the cache's "
@@ -259,7 +343,7 @@ def _attn_layer_decode(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         attn = decode_attention(q, k_cache, v_cache, cache_len + 1,
                                 cap=cfg.softcap_attn,
                                 window=cfg.window if kind == "local" else 0)
-    return _attn_decode_tail(p, x, cfg, attn)
+    return _attn_decode_tail(p, x, cfg, attn, moe_groups)
 
 
 def _ssm_layer(p, x: torch.Tensor, cfg: ModelConfig, *,
@@ -373,12 +457,19 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                dtype=torch.bfloat16, *, device="cuda") -> Cache:
-    """Empty per-unit caches."""
+    """Empty per-unit caches for ``batch`` rows (this rank's, under a
+    mesh) of ``s_max`` positions; under a mesh that splits the sequence
+    (module doc) a non-rolling KV cache holds this rank's s_max / m
+    slots."""
     dev = resolve_device(device)
 
     def kv(kind):
         # local layers: rolling window cache
         s_c = min(cfg.window, s_max) if kind == "local" else s_max
+        mesh = _seq_mesh(cfg, kind)
+        if mesh is not None:
+            lo, hi = _seq_slice(mesh, s_max)
+            s_c = hi - lo
         shape = (batch, s_c, cfg.n_kv, cfg.head_dim)
         return (torch.zeros(shape, dtype=dtype, device=dev),
                 torch.zeros(shape, dtype=dtype, device=dev))
@@ -400,9 +491,11 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch: Dict, *,
-            s_max: Optional[int] = None, cache_dtype=torch.bfloat16):
+            s_max: Optional[int] = None, moe_groups: int = 1,
+            cache_dtype=torch.bfloat16):
     """Forward + emit caches.  Returns (last-position logits (B, vocab)
-    f32, cache, cache_len)."""
+    f32, cache, cache_len); under a mesh that splits the sequence each
+    non-rolling KV cache is this rank's slice (``init_cache``)."""
     x = embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
     s_max = s_max or S
@@ -412,17 +505,19 @@ def prefill(params, cfg: ModelConfig, batch: Dict, *,
         W = min(cfg.window, s_max) if kind == "local" else s_max
         rolling = kind == "local" and W < s_max
         W = W if rolling else max(W, S)
+        mesh = _seq_mesh(cfg, kind)
+        lo, hi = _seq_slice(mesh, W) if mesh is not None else (0, W)
         out = []
         for t in kv:
-            buf = torch.zeros((B, W) + t.shape[2:], dtype=cache_dtype,
+            buf = torch.zeros((B, hi - lo) + t.shape[2:], dtype=cache_dtype,
                               device=t.device)
             if rolling:
                 # rolling cache: keep the last W keys, each at slot p % W
-                lo = max(S - W, 0)
-                buf[:, torch.arange(lo, S, device=t.device) % W] = \
-                    t[:, lo:S].to(cache_dtype)
-            else:
-                buf[:, :S] = t.to(cache_dtype)
+                first = max(S - W, 0)
+                buf[:, torch.arange(first, S, device=t.device) % W] = \
+                    t[:, first:S].to(cache_dtype)
+            elif lo < S:                   # this rank's slots [lo, hi)
+                buf[:, :min(hi, S) - lo] = t[:, lo:hi].to(cache_dtype)
             out.append(buf)
         return tuple(out)
 
@@ -436,11 +531,13 @@ def prefill(params, cfg: ModelConfig, batch: Dict, *,
                                                   cache_dtype=cache_dtype)
                 continue
             x, kv = _attn_layer(unit[f"l{pos}"], x, cfg, kind,
-                                positions=positions, emit_cache=True)
+                                positions=positions, moe_groups=moe_groups,
+                                emit_cache=True)
             caches[f"l{pos}"] = pad_kv(kv, kind)
         if _has_shared(cfg):
             x, kv = _attn_layer(params["shared"], x, cfg, "global",
-                                positions=positions, emit_cache=True)
+                                positions=positions, moe_groups=moe_groups,
+                                emit_cache=True)
             caches["shared"] = pad_kv(kv, "global")
         cache.append(caches)
     logits = _lm_logits(params, cfg, x[:, -1:])
@@ -449,7 +546,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict, *,
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: Cache, cache_len: int):
+                cache: Cache, cache_len: int, *, moe_groups: int = 1):
     """One decode step.  tokens: (B, 1) int (or embeds (B, 1, d));
     ``cache_len``: the position the new token takes.  Returns (logits
     (B, vocab) f32, cache), the KV caches updated in place and the SSM
@@ -466,10 +563,12 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
             else:
                 x = _attn_layer_decode(unit[f"l{pos}"], x, cfg, kind,
                                        cache=ucache[f"l{pos}"],
-                                       cache_len=cache_len)
+                                       cache_len=cache_len,
+                                       moe_groups=moe_groups)
         if _has_shared(cfg):
             x = _attn_layer_decode(params["shared"], x, cfg, "global",
                                    cache=ucache["shared"],
-                                   cache_len=cache_len)
+                                   cache_len=cache_len,
+                                   moe_groups=moe_groups)
     logits = _lm_logits(params, cfg, x)
     return logits[:, 0], cache

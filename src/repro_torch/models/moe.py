@@ -3,8 +3,12 @@ capacity-based dispatch — the port of the JAX package's ``models/moe.py``.
 
 Dispatch is *grouped*: the token axis is reshaped to (G, T/G); routing,
 the position-in-expert cumsum and the capacity drops are computed per
-group.  The model calls it with G = 1 on one card (expert parallelism
-over several ranks is ``moe_sharded.py``'s, not ported).
+group.  Under a data-parallel mesh (``mesh=``, each rank holding its
+rows of the batch) one group spans the global batch, as the reference's
+global arrays do: the ranks exchange their per-expert (E,) counts, so
+capacity and positions are the global batch's and the kept (token,
+slot) pairs those of one rank holding every row.  Expert parallelism
+over a "model" axis is ``moe_sharded.py``'s.
 
 The decisions are the reference's, bit for bit where they are integers:
 
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import batch_coord, dp_shards
 from .layers import act_fn, normal
 
 
@@ -81,8 +86,14 @@ def _shared_mlp(sh, x: torch.Tensor, act: str) -> torch.Tensor:
     return hs @ sh["w_down"]
 
 
+def _capacity(tokens: int, top_k: int, n_experts: int,
+              capacity_factor: float) -> int:
+    return max(int(np.ceil(tokens * top_k / n_experts * capacity_factor)),
+               top_k)
+
+
 def _capacity_plan(idx: torch.Tensor, n_experts: int,
-                   capacity_factor: float):
+                   capacity_factor: float, *, mesh=None):
     """The capacity plan of ``moe_apply`` for routings ``idx`` (G, tg, k):
     (keep mask (G, tg, k) bool, position in expert (G, tg, k), cap).
 
@@ -90,23 +101,42 @@ def _capacity_plan(idx: torch.Tensor, n_experts: int,
     over the flattened (token, slot) order, as in the reference; the scan
     runs along the innermost axis of an (G, E, tg·k) one-hot (along an
     outer axis of the narrow (G, tg·k, E) one it took ≈ 49 ms a layer on
-    the H100 at granite's 16,000 tokens)."""
+    the H100 at granite's 16,000 tokens).
+
+    With ``mesh`` (one group, G = 1, spanning the batch axes' ranks in
+    their order) the cap is the global batch's and a pair is kept where
+    its position plus the pairs of earlier ranks in its expert is below
+    it; the returned positions stay this rank's own, below the cap."""
     G, tg, k = idx.shape
-    cap = max(int(np.ceil(tg * k / n_experts * capacity_factor)), k)
     flat = idx.reshape(G, tg * k)
     onehot = F.one_hot(flat, n_experts).transpose(1, 2).contiguous()
     pos = torch.cumsum(onehot, dim=-1) - 1                 # (G, E, tg*k)
     pos_own = torch.gather(pos, 1, flat[:, None, :])[:, 0].reshape(G, tg, k)
-    return pos_own < cap, pos_own, cap
+    if mesh is None:
+        cap = _capacity(tg, k, n_experts, capacity_factor)
+        return pos_own < cap, pos_own, cap
+    if G != 1:
+        raise ValueError(f"a global capacity plan is one group, not {G}")
+    # this rank's pairs in each expert, and its tokens: (E + 1,) int64
+    counts = torch.cat([pos[0, :, -1] + 1, pos.new_tensor([tg])])
+    for axis in ("data", "pod"):       # (ranks, E + 1), pod-major order
+        if axis in mesh.axis_names:
+            counts = mesh.all_gather(counts.reshape(-1, n_experts + 1),
+                                     axis, dim=0)
+    counts = counts.reshape(dp_shards(mesh), n_experts + 1)
+    cap = _capacity(int(counts[:, -1].sum()), k, n_experts, capacity_factor)
+    before = counts[:batch_coord(mesh), :n_experts].sum(0)  # (E,)
+    return pos_own + before[idx] < cap, pos_own, cap
 
 
 def moe_apply(params, x: torch.Tensor, *, top_k: int, act: str,
-              num_groups: int = 1,
-              capacity_factor: float = 1.25) -> torch.Tensor:
+              num_groups: int = 1, capacity_factor: float = 1.25,
+              mesh=None) -> torch.Tensor:
     """Capacity-based top-k MoE.  x: (B, S, d) -> (B, S, d).
 
     ``num_groups`` must divide B·S; each group routes and drops on its
-    own tokens."""
+    own tokens.  With a data-parallel ``mesh`` (x this rank's rows, the
+    weights whole) one group spans the global batch (module doc)."""
     B, S, d = x.shape
     E = params["router"].shape[-1]
     T = B * S
@@ -116,7 +146,7 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int, act: str,
     xg = x.reshape(G, tg, d)
 
     gates, idx = _route(params["router"], xg, top_k)      # (G, tg, k)
-    keep, pos_own, cap = _capacity_plan(idx, E, capacity_factor)
+    keep, pos_own, cap = _capacity_plan(idx, E, capacity_factor, mesh=mesh)
 
     # dispatch into (G, E, cap+1, d); row ``cap`` is the scratch row of
     # the capacity-dropped pairs

@@ -6,8 +6,10 @@ moments ``mu`` and ``nu`` are ``Params`` of the same structure (so
 checkpoints name them as the JAX package's pytrees), and ``step`` an
 int32 0-d tensor on the parameters' device.  The arithmetic is the JAX
 package's, in float32 and in the same order (``m/b1c``,
-``sqrt(vhat) + eps``, weight decay on tensors of two or more dimensions
-only), so one update lies within a float32 ulp or two of it.  Unlike
+``sqrt(vhat) + eps``, weight decay on the tensors whose JAX counterpart
+has two or more dimensions: the units' per-layer vectors too, which the
+JAX package's unit stack makes 2-D — ROADMAP F8, mirrored), so one
+update lies within a float32 ulp or two of it.  Unlike
 the JAX package, ``adamw_update`` writes the parameters and moments in
 place (no second copy of either) and returns the same objects.
 
@@ -23,7 +25,7 @@ from typing import Any, List, NamedTuple, Tuple
 import torch
 from torch import nn
 
-from ..models.layers import Params
+from ..models.layers import Params, jax_ndim
 
 Tree = Any
 
@@ -117,17 +119,18 @@ def adamw_update(grads: Tree, state: AdamWState, params: Params,
     lr = cosine_lr(step, h)
     b1c = 1 - h.b1 ** step.to(torch.float32)
     b2c = 1 - h.b2 ** step.to(torch.float32)
-    ps, ms, vs = leaves(params), leaves(state.mu), leaves(state.nu)
-    if not len(ps) == len(grads) == len(ms) == len(vs):
+    named = list(params.named_parameters())
+    ms, vs = leaves(state.mu), leaves(state.nu)
+    if not len(named) == len(grads) == len(ms) == len(vs):
         raise ValueError(f"{len(grads)} grads and {len(ms)}/{len(vs)} "
-                         f"moments for {len(ps)} parameters")
-    for p, g, m, v in zip(ps, grads, ms, vs):
+                         f"moments for {len(named)} parameters")
+    for (name, p), g, m, v in zip(named, grads, ms, vs):
         m.mul_(h.b1).add_((1 - h.b1) * g)
         v.mul_(h.b2).add_((1 - h.b2) * g * g)
         mhat = m / b1c
         vhat = v / b2c
         delta = mhat / (torch.sqrt(vhat) + h.eps)
-        if p.dim() >= 2:  # decay matrices only (norms/scalars exempt)
+        if jax_ndim(name, p) >= 2:  # the reference's matrices (F8)
             delta = delta + h.weight_decay * p.to(torch.float32)
         p.copy_(p.to(torch.float32) - lr * delta)
     metrics = {"lr": lr, "grad_norm": gnorm}

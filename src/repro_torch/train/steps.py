@@ -9,8 +9,12 @@ The AdamW update (``optim.adamw``) then writes the masters and the
 moments in place.  ``make_eval_step``, ``make_prefill_step`` and
 ``make_decode_step`` run the same cast without gradients.
 
-One card, no mesh: the JAX package's sharding annotations and its
-bf16-collective contract have no counterpart here.
+The prefill and decode steps take ``moe_groups`` as the JAX package's
+do and run under the caller's mesh (``distributed.sharding.use_mesh``;
+``models/model.py`` says what a mesh changes).  Training under a mesh
+of several ranks (the gradient reduction over the data axis) is not
+ported yet, and the train and eval steps route each MoE block as one
+group.
 """
 
 from __future__ import annotations
@@ -21,34 +25,37 @@ import torch
 
 from ..models import model as M
 from ..models.config import ModelConfig
-from ..models.layers import Params
+from ..models.layers import Params, jax_ndim
 from ..optim.adamw import AdamWState, Hyper, adamw_update
 
 
 def cast_for_compute(params: Params, dtype=torch.bfloat16):
-    """f32 master -> ``dtype`` compute copies (matrices only; norms and
-    vectors keep their dtype).  Returns ``params`` itself when nothing is
+    """f32 master -> ``dtype`` compute copies of the leaves whose JAX
+    counterpart is a matrix (``layers.jax_ndim`` >= 2: the units' per-layer
+    vectors too, which the JAX package's unit stack makes 2-D — ROADMAP
+    F8, mirrored; the top-level norm and the hybrid's unstacked shared
+    block keep their vectors).  Returns ``params`` itself when nothing is
     to be cast, so a step handed an already-cast copy does no work.
     Under autograd, with masters that require grad, the copy is a nested
     dict of tensors (read like ``Params``) whose casts are differentiated
     back to the masters; otherwise a ``Params`` of detached copies."""
-    def cast(tree):
+    def cast(tree, name):
         if isinstance(tree, dict):
-            return {k: cast(v) for k, v in tree.items()}
+            return {k: cast(v, f"{name}{k}.") for k, v in tree.items()}
         if isinstance(tree, list):
-            return [cast(u) for u in tree]
-        if tree.dtype == torch.float32 and tree.dim() >= 2:
+            return [cast(u, f"{name}{i}.") for i, u in enumerate(tree)]
+        if tree.dtype == torch.float32 and jax_ndim(name, tree) >= 2:
             return tree.to(dtype)
         return tree
 
     if dtype == torch.float32 or not any(
-            p.dtype == torch.float32 and p.dim() >= 2
-            for p in params.parameters()):
+            p.dtype == torch.float32 and jax_ndim(n, p) >= 2
+            for n, p in params.named_parameters()):
         return params
     if torch.is_grad_enabled() and any(p.requires_grad
                                        for p in params.parameters()):
-        return cast(params.tree(detach=False))
-    return Params(cast(params.tree()))
+        return cast(params.tree(detach=False), "")
+    return Params(cast(params.tree(), ""))
 
 
 def _split_microbatches(batch: Dict, num: int):
@@ -115,18 +122,21 @@ def make_eval_step(cfg: ModelConfig, *,
     return eval_step
 
 
-def make_prefill_step(cfg: ModelConfig, *, s_max: Optional[int] = None,
+def make_prefill_step(cfg: ModelConfig, *, moe_groups: int = 1,
+                      s_max: Optional[int] = None,
                       compute_dtype=torch.bfloat16) -> Callable:
     def prefill_step(params, batch):
         params_c = cast_for_compute(params, compute_dtype)
-        return M.prefill(params_c, cfg, batch, s_max=s_max)
+        return M.prefill(params_c, cfg, batch, s_max=s_max,
+                         moe_groups=moe_groups)
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, *,
+def make_decode_step(cfg: ModelConfig, *, moe_groups: int = 1,
                      compute_dtype=torch.bfloat16) -> Callable:
     """serve_step: one new token against the caches."""
     def decode_step(params, tokens, cache, cache_len):
         params_c = cast_for_compute(params, compute_dtype)
-        return M.decode_step(params_c, cfg, tokens, cache, cache_len)
+        return M.decode_step(params_c, cfg, tokens, cache, cache_len,
+                             moe_groups=moe_groups)
     return decode_step

@@ -1,0 +1,233 @@
+"""Groups of CPU ranks for the port's multi-rank tests.
+
+``run_ranks(worker, world, tmp_path, payload)`` spawns ``world``
+processes; each starts a gloo process group through a file under
+``tmp_path`` (so parallel test workers never race for a port), calls
+``worker(payload)`` — a function of an importable module, run under the
+group — and saves what it returns.  The parent waits up to ``timeout``
+seconds for the group, kills every rank on expiry, and raises if a rank
+failed; it returns the ranks' results in rank order.  Workers import
+torch and the port only: the JAX package never enters a rank.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import os
+import time
+import traceback
+from pathlib import Path
+
+import torch
+
+GROUP_TIMEOUT_S = 60.0
+
+
+def _child(worker, rank: int, world: int, tmp: str, payload) -> None:
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+
+    torch.set_num_threads(1)
+    out = Path(tmp) / f"rank{rank}.pt"
+    try:
+        init_distributed("cpu", rank=rank, world_size=world,
+                         init_method=f"file://{tmp}/group",
+                         timeout_s=GROUP_TIMEOUT_S)
+        try:
+            result = worker(payload)
+        finally:
+            dist.destroy_process_group()
+        torch.save({"ok": result}, out)
+    except BaseException:                  # reported by the parent
+        torch.save({"error": traceback.format_exc()}, out)
+        raise
+
+
+def run_ranks(worker, world: int, tmp_path, payload=None,
+              timeout: float = GROUP_TIMEOUT_S) -> list:
+    tmp = Path(tmp_path) / f"ranks{world}_{worker.__name__}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_child, args=(worker, r, world, str(tmp),
+                                              payload), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.1))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(10)
+    if alive:
+        raise TimeoutError(f"{len(alive)} of {world} ranks still running "
+                           f"after {timeout} s; killed")
+    results = []
+    for r, p in enumerate(procs):
+        f = tmp / f"rank{r}.pt"
+        got = torch.load(f, weights_only=False) if f.exists() else {}
+        if p.exitcode != 0 or "ok" not in got:
+            raise RuntimeError(f"rank {r} exited {p.exitcode}:\n"
+                               f"{got.get('error', '(no report)')}")
+        results.append(got["ok"])
+    return results
+
+
+def env_with_src() -> dict:
+    """The environment for a child interpreter: ``src`` on its path."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    return env
+
+
+# ---------------------------------------------------------------------------
+# workers: each runs under the group and returns numpy arrays
+# ---------------------------------------------------------------------------
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.from_numpy(tree.copy())
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def moe_sharded_worker(payload) -> list:
+    """``moe_apply_sharded`` on this rank's shards and rows for every mesh
+    and case of ``payload``: per (mesh, case) the output rows and, where
+    the case asks, the gradients of the global sum on the shards and the
+    rows."""
+    from repro_torch.launch.mesh import batch_coord, dp_shards, make_mesh
+    from repro_torch.models.moe_sharded import (moe_apply_sharded,
+                                                shard_moe_params)
+    out = []
+    for shape in payload["meshes"]:
+        mesh = make_mesh(shape, ("data", "model"))
+        n, d = dp_shards(mesh), batch_coord(mesh)
+        for case in payload["cases"]:
+            x = torch.from_numpy(case["x"])
+            rows = x.shape[0] // n
+            x = x[d * rows:(d + 1) * rows].clone().requires_grad_(
+                case["grad"])
+            shards = shard_moe_params(_tensors(case["params"]), mesh)
+            for _, leaf in _leaves(shards):
+                leaf.requires_grad_(case["grad"])
+            y = moe_apply_sharded(shards, x, mesh, top_k=2, act="silu",
+                                  capacity_factor=case["cf"])
+            res = {"y": y.detach().numpy()}
+            if case["grad"]:
+                y.sum().backward()
+                res["dx"] = x.grad.numpy()
+                res["grads"] = {k: v.grad.numpy()
+                                for k, v in _leaves(shards)}
+            out.append(res)
+    return out
+
+
+def moe_data_parallel_worker(payload) -> list:
+    """``moe_apply`` with one group over the global batch on a ("data",)
+    mesh of every rank: this rank's output rows and kept mask; and the
+    model's MoE dispatch under that mesh at each of ``payload``'s
+    ``moe_groups``: this rank's rows, or the error it raises."""
+    from types import SimpleNamespace
+
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.mesh import batch_coord, make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    mesh = make_host_mesh()
+    n, r = mesh.shape["data"], batch_coord(mesh)
+    out = []
+    for case in payload["cases"]:
+        x = torch.from_numpy(case["x"])
+        rows = x.shape[0] // n
+        mine = x[r * rows:(r + 1) * rows]
+        y = moe.moe_apply(_tensors(case["params"]), mine,
+                          top_k=2, act="silu", capacity_factor=case["cf"],
+                          mesh=mesh)
+        idx = torch.from_numpy(case["idx"])
+        t = idx.shape[1] // n
+        keep = moe._capacity_plan(idx[:, r * t:(r + 1) * t], case["E"],
+                                  case["cf"], mesh=mesh)[0]
+        cfg = SimpleNamespace(top_k=2, act="silu",
+                              capacity_factor=case["cf"])
+        grouped = {}
+        for g in payload["moe_groups"]:
+            try:
+                with use_mesh(mesh):
+                    grouped[g] = M._moe_dispatch(_tensors(case["params"]),
+                                                 mine, cfg, g).numpy()
+            except ValueError as e:
+                grouped[g] = str(e)
+        out.append({"y": y.numpy(), "keep": keep.numpy(),
+                    "grouped": grouped})
+    return out
+
+
+def decode_sp_worker(payload) -> list:
+    """``decode_attention_seq_sharded`` on this rank's slices of each
+    case's caches: the attention output and the slices after the write."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.decode_sp import decode_attention_seq_sharded
+    out = []
+    for shape in payload["meshes"]:
+        mesh = make_mesh(shape, ("data", "model"))
+        m, i = mesh.shape["model"], mesh.coord("model")
+        for case in payload["cases"]:
+            kc, vc = (torch.from_numpy(case[k]) for k in ("kc", "vc"))
+            n = kc.shape[1] // m
+            kc, vc = (c[:, i * n:(i + 1) * n].clone() for c in (kc, vc))
+            att, kc, vc = decode_attention_seq_sharded(
+                *(torch.from_numpy(case[k]) for k in ("q", "kn", "vn")),
+                kc, vc, case["clen"], mesh, cap=case["cap"])
+            out.append({"out": att.numpy(), "kc": kc.numpy(),
+                        "vc": vc.numpy(), "stats": dict(mesh.stats)})
+    return out
+
+
+def model_worker(payload) -> list:
+    """Prefill and teacher-forced decode of a SMOKE model (the JAX
+    package's parameters, carried across) under each mesh of
+    ``payload``: per (arch, mesh) this rank's logits of every step and
+    its caches after the prefill."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.mesh import batch_coord, dp_shards, make_mesh
+    from repro_torch.models import model as M
+    out = []
+    for case in payload["cases"]:
+        cfg = get_config(case["arch"], smoke=True)
+        params = M.params_from_jax(case["params"], cfg, device="cpu")
+        for shape in payload["meshes"]:
+            mesh = make_mesh(shape, ("data", "model"))
+            n, d = dp_shards(mesh), batch_coord(mesh)
+            toks = torch.from_numpy(case["toks"])
+            rows = toks.shape[0] // n
+            toks = toks[d * rows:(d + 1) * rows]
+            fed = torch.from_numpy(case["fed"])[d * rows:(d + 1) * rows]
+            mine = M.shard_params(params, cfg, mesh)
+            with use_mesh(mesh):
+                logits, cache, n_len = M.prefill(
+                    mine, cfg, {"tokens": toks}, s_max=case["s_max"])
+                caches = [[t.float().numpy().copy() for t in layer]
+                          for unit in cache for layer in unit.values()]
+                steps = [logits.numpy()]
+                for i in range(fed.shape[1]):
+                    logits, cache = M.decode_step(mine, cfg, fed[:, i:i + 1],
+                                                  cache, n_len + i)
+                    steps.append(logits.numpy())
+            out.append({"logits": steps, "caches": caches,
+                        "stats": dict(mesh.stats)})
+    return out

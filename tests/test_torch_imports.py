@@ -1,5 +1,6 @@
 """The port stands alone: importing it (its ``obs``, ``store`` and
-``serving`` copies included) pulls in neither jax nor the JAX package,
+``serving`` copies and the mesh layer included) pulls in neither jax nor
+the JAX package, the mesh layer starts no process group on import,
 no source of it (nor of its tools and examples) names ``repro``, its
 entry points (and those of its tools and examples) refuse a missing CUDA
 device instead of running on the CPU, and ``chip_smoke.py`` fails
@@ -27,6 +28,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.bst import index_from_numpy
 from repro_torch.data.pipeline import DataConfig, SketchDedupPipeline
 from repro_torch.launch import serve, train
+from repro_torch.models.io import synthetic_batch
 from repro_torch.models.model import (init_cache, init_params,
                                       params_from_jax, ssm_cfg)
 from repro_torch.models.ssm import ssm_cache_init
@@ -71,7 +73,7 @@ def test_import_pulls_in_no_jax_and_no_repro():
                  "repro_torch.distributed.checkpoint",
                  "repro_torch.distributed.fault_tolerance",
                  "repro_torch.distributed.compression",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train") + MESH_MODULES:
         assert name in names, name
     code = ("import importlib, sys\n"
             f"for name in ['repro_torch'] + {names!r}:\n"
@@ -82,6 +84,34 @@ def test_import_pulls_in_no_jax_and_no_repro():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,
                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert proc.returncode == 0, proc.stderr
+
+
+MESH_MODULES = ("repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+                "repro_torch.models.io", "repro_torch.models.moe_sharded",
+                "repro_torch.models.decode_sp")
+
+
+def test_mesh_modules_start_nothing_on_import():
+    """The mesh layer's five modules import neither jax nor the JAX
+    package, and importing them starts no process group, initialises no
+    card and leaves no mesh set."""
+    code = ("import sys, torch, torch.distributed as dist\n"
+            f"for name in {list(MESH_MODULES)!r}:\n"
+            "    __import__(name)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\n"
+            "assert not dist.is_initialized()\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "from repro_torch.distributed.sharding import get_global_mesh\n"
+            "assert get_global_mesh() is None\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        env.pop(var, None)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, env=env)
     assert proc.returncode == 0, proc.stderr
 
 
@@ -126,6 +156,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
         params_from_jax({}, cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        synthetic_batch(cfg, 1, 8, 0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ssm_cache_init(1, ssm_cfg(get_config("mamba2-1.3b", smoke=True)))
     with pytest.raises(RuntimeError, match="CUDA is not available"):

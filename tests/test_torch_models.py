@@ -321,7 +321,9 @@ def test_cast_for_compute_casts_matrices_once():
                             device="cpu")
     half = cast_for_compute(params, torch.bfloat16)
     assert half["embed"].dtype == torch.bfloat16
-    assert half["units"][0]["l0"]["ln1"].dtype == torch.float32
+    # F8, mirrored: a unit's vectors are matrices in the JAX unit stack
+    assert half["units"][0]["l0"]["ln1"].dtype == torch.bfloat16
+    assert half["final_norm"].dtype == torch.float32
     assert half["units"][0]["l0"]["mlp"]["w_up"].dtype == torch.bfloat16
     assert cast_for_compute(half, torch.bfloat16) is half
     assert cast_for_compute(params, torch.float32) is params

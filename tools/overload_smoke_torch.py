@@ -49,6 +49,13 @@ from repro_torch.serving import (AdmissionConfig, BreakerConfig, CircuitBreaker,
 
 L, B = 16, 2
 POLICY = DegradePolicy()
+# --smoke's stall per victim dispatch.  Its burst of 120 runs as 15
+# batches of max_batch 8; at 80 ms a batch the stalls alone take 1.2 s,
+# past the 800 ms deadline, so the last queued requests expire (the
+# deadline_exceeded >= 1 gate bites) however fast a dispatch is.  At the
+# full burst's 40 ms they took 600 ms, and on a card whose dispatches
+# are quick nothing expired (ROADMAP F9).
+SMOKE_FAULT_S = 0.08
 
 
 def _corpus(n: int, seed: int = 0) -> np.ndarray:
@@ -370,7 +377,8 @@ def check_breaker(res: dict) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true",
-                    help="smaller corpus/burst (CI-sized; same gates)")
+                    help="smaller corpus/burst, each victim dispatch "
+                         "stalled SMOKE_FAULT_S (CI-sized; same gates)")
     ap.add_argument("--out", default=None,
                     help="write the phase reports as JSON here")
     ap.add_argument("--device", default="cuda",
@@ -378,7 +386,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     dev = args.device
 
-    burst_kw = dict(n_docs=1024, burst=120) if args.smoke else {}
+    burst_kw = (dict(n_docs=1024, burst=120, fault_s=SMOKE_FAULT_S)
+                if args.smoke else {})
     report = {}
     t0 = time.time()
     report["burst"] = run_burst(device=dev, **burst_kw)
