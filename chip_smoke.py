@@ -22,7 +22,7 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
   5. the segmented path at the Review size: 12,886,488 token sets
      (vocabulary 256, 8-39 distinct tokens each) sketched on the card by
      ``bbit_minhash`` (L = 16, b = 2), their ``pack_sets`` payloads,
-     ingested into ``SegmentedIndex(auto_merge=True, delta_cap=2^20)``
+     ingested into ``SegmentedIndex(auto_merge=True, delta_cap=2^22)``
      with 1% of the ids deleted; for 64 queries (32 perturbed database
      sets, 32 fresh sets) ``topk_batch``, ``search_columns_batch`` and
      the Jaccard re-ranked ``topk_batch`` checked against the
@@ -65,14 +65,15 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      verify, one per call over all queries) and the verify (one per call
      over all shards) counted and timed; (c) ``SegmentedIndex`` with the
      multi and sharded backends and ``ShardedSegmentedIndex`` over bst
-     stacks on 4,500,000 of phase 5's token sets, 1% deleted and a live
-     delta buffer: top-k and range planes against the scan kernel, the
-     fan-out against the fused path, the stacks' Jaccard re-rank against
-     numpy; (d) SIH, MIH and HmSearch on 2^20 of phase 3's rows, masks
+     stacks on 2,400,000 of phase 5's token sets (delta_cap 2^19), 1%
+     deleted and a live delta buffer: top-k and range planes against the
+     scan kernel, the fan-out against the fused path, the stacks' Jaccard
+     re-rank against numpy; (d) SIH, MIH and HmSearch on 2^19 of phase
+     3's rows, masks
      against ``LinearScan``.  Range-search and top-k times beside the
      bst backend's of phases 4 and 5;
  11. the retrieval server (``repro_torch.serving`` and ``store``) on
-     phase 10 (c)'s 4,500,000 rows (L 16, b 2, Wp 8, delta_cap 2^20,
+     4,500,000 of phase 5's token sets (L 16, b 2, Wp 8, delta_cap 2^20,
      auto_merge): (1) a child process ingests them into a durable
      collection through ``Scheduler.submit_insert`` (chunks of 2^16,
      with payloads), deletes 1% through ``submit_delete``, writes its
@@ -106,12 +107,11 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      and at the train shape beside the bound, the latter also beside
      SDPA's backward; (c) smollm-135m trained
      at full width through ``launch.train.main`` (--dedup batches of 8 x
-     2,048 tokens, bf16 compute, remat, AdamW, 12 steps, a checkpoint
+     2,048 tokens, bf16 compute, remat, AdamW, 8 steps, a checkpoint
      every 4) with the flash forward's and backward's launches counted,
      one step held against the ``attn_impl="ref"`` path, step time,
-     tokens/s, peak memory and a profiled step; then the restart drill
-     (--fail-at 6 returns 13, the rerun resumes at step 4 and ends on
-     the uninterrupted run's losses and checkpoint bit for bit).
+     tokens/s, peak memory and a profiled step (the restart drill of
+     ``launch.train.main`` runs in phase 16 (b), over two ranks).
  13. the MoE, SSM and hybrid families served (granite-moe-3b-a800m,
      mamba2-1.3b, zamba2-2.7b at full width and depth, deepseek-moe-16b
      at full width cut to 4 layers with bf16 parameters; 8 x 2,000 prompt
@@ -142,6 +142,22 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      torch.distributed.run prints one rank's tokens, its ranks' rows of
      the prefill's and the last step's logits one rank's within 2^-5 of
      the largest.
+ 16. training under a mesh of ranks and the dry-run tooling: (a)
+     ``launch.dryrun``'s count of phase 12 (c)'s step (``meta`` tensors,
+     mesh (1, 1)): its argument bytes equal the card's parameters,
+     moments and batch exactly, its FLOPs and bytes beside the measured
+     step (achieved TFLOP/s, t_bound / measured), its peak beside
+     ``max_memory_allocated``; every architecture's train_4k cell counted
+     at (16, 16) in processes of their own (fits, bottleneck); (b)
+     ``python -m torch.distributed.run --nproc-per-node 2 -m
+     repro_torch.launch.train`` (smollm-135m at full size, FSDP over two
+     gloo ranks on the card, phase 12 (c)'s batches): losses and norms
+     against phase 12's one rank, the drill (both ranks exit 13, the rerun
+     resumes bit for bit), the checkpoint restored with no mesh, 60 lse
+     forwards and 30 backwards a step on each rank; (c)
+     granite-moe-3b-a800m cut to 8 layers at mesh (1, 2), 20 experts a
+     rank, through ``make_train_step`` under ``use_mesh``: kept masks,
+     losses, norms and the updated expert shards against one rank.
 
 Phase 2 also sweeps the batched launches (grid.z over the batch) of the
 scan and the verify: batch 1, 3, 4 and 64, ragged n and m, shared and
@@ -200,10 +216,15 @@ SWEEP_WP = [1, 8, 33]
 METRICS = ("jaccard", "cosine", "containment")
 
 # The segmented cell: the recall harness's corpus shape
-# (tools/eval_recall.py:46-66) at the Review size.
+# (tools/eval_recall.py:46-66) at the Review size, ingested with a delta
+# buffer of DELTA5_CAP: its size-tiered ingest builds 20 M rows (3
+# flushes of 2^22, one merge into 2^23) where a buffer of 2^20 built 44 M
+# (12 flushes, 10 merges), and ends on the same stack (2^23 + 2^22 rows
+# and 303,576 in the buffer) — cut to make room for phase 16.
 VOCAB = 256
 SET_MIN, SET_MAX = 8, 40              # rng.integers(8, 40): 8..39 tokens
 DELTA_CAP = 1 << 20
+DELTA5_CAP = 1 << 22
 GEN_CHUNK = 1 << 19
 DELETE_FRAC = 0.01
 # The CP geometry (configs/registry.py:92) at 2^20 rows: the plane fallback.
@@ -265,20 +286,26 @@ BATCH_M = [1, 3, 8]
 # Phase 10, the other backends: MI-bST over MI_BLOCKS blocks (the plan
 # choose_plan picks at the Review geometry and τ = 3) and the sharded bST
 # over SHARDS shards on phase 3's sketches; the segmented backends on the
-# first SEG10_N of phase 5's token sets (cut from 12,886,488 to keep the
-# three ingests within the phase's time; at least 2^22); the baselines on
-# BASE_N of phase 3's rows for BASE_Q queries (host numpy indexes: the
-# full size's HmSearch sorts ≈ 116 M keys a block), MIH at τ = 2, where
-# its block thresholds keep the pigeonhole bound.
+# first SEG10_N of phase 5's token sets with a delta buffer of DELTA10_CAP
+# (cut from 12,886,488 rows and 2^20 to keep the three ingests within the
+# phase's time; each of the SHARDS stacks needs more than DELTA10_CAP rows
+# for a segment of its own); the baselines on BASE_N of phase 3's rows for
+# BASE_Q queries (host numpy indexes: the full size's HmSearch sorts
+# ≈ 116 M keys a block), MIH at τ = 2, where its block thresholds keep the
+# pigeonhole bound.
 MI_BLOCKS, SHARDS = 2, 4
-SEG10_N = 4_500_000
-BASE_N, BASE_Q = 1 << 20, 16
+SEG10_N, DELTA10_CAP = 2_400_000, 1 << 19
+RS_N = 4_500_000
+BASE_N, BASE_Q = 1 << 19, 16
 SIH_TAU, MIH_TAU, HM_TAU = 2, 2, 3
-# Phase 11, the retrieval server: phase 10 (c)'s rows (the first SEG10_N
-# of phase 5's token sets, L 16, b 2, Wp 8, delta_cap 2^20, auto_merge;
-# rows cut from 12,886,488 because durability writes the stack three
-# times — journal, snapshots at every seal and merge, recovery's rebuild
-# — and phase 5 already ingests the full size).  Inserts in chunks of
+# Phase 11, the retrieval server: the first RS_N of phase 5's token sets
+# (L 16, b 2, Wp 8, delta_cap 2^20, auto_merge; rows cut from 12,886,488
+# because durability writes the stack three times — journal, snapshots
+# at every seal and merge, recovery's rebuild — and phase 5 already
+# ingests the full size; not cut to phase 10 (c)'s 2,400,000: at that
+# size the served queries climb τ-ladder rungs that the scheduler's
+# warm-up on zero queries does not build, and phase 11 holds 0 builds
+# after the warm-up).  Inserts in chunks of
 # RS_CHUNK; RS_CLIENTS client threads send RS_TOPK_REQ single top-k
 # requests (k = TOPK), RS_RERANK_REQ Jaccard re-ranked ones and
 # RS_RANGE_REQ range requests at RS_TAU to a scheduler batching up to
@@ -306,14 +333,16 @@ POPC_PER_SM_CLOCK = 16
 # plain version at smollm's train shape, hubert's and a windowed, capped
 # D = 128 case.  (c) smollm-135m trained at full size through
 # launch/train.py: batches of 8 x 2,048 tokens from the --dedup pipeline,
-# TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT_EVERY, then the
-# drill (--fail-at TRAIN_FAIL_AT, and a rerun that resumes).
+# TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT_EVERY (the
+# restart drill is phase 16 (b)'s, over two ranks).
 TRAIN_DATA = dict(vocab=49152, batch=4096, seq=2048, dedup=True,
                   oversample=2, dup_frac=0.25, dedup_L=16, dedup_b=2,
                   dedup_tau=2)
 TRAIN_DATA_STEPS, TRAIN_DATA_CPU_STEPS = 16, 2
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "smollm-135m", 8, 2048
-TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 12, 4, 6
+# TRAIN_STEPS cut from 12 to 8 to make room for phase 16, which trains the
+# same steps over two ranks
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 4
 TRAIN_WARMUP = 2             # steps left out of the step-time median
 # the backward kernel against its plain version: float32 to 5e-4, the
 # tolerance of tests/test_flash.py's gradients; bfloat16 (the tensor-core
@@ -358,12 +387,16 @@ FAMILY_CONSISTENCY_TOL = 2e-2
 # a process of its own that must return 0: the overload tool both at its
 # full burst (160 requests against 2 x 30 co-tenant ones) and at --smoke's
 # 120, whose victim dispatches stall 80 ms so that its deadline gate bites
-# whatever the card's dispatch time (ROADMAP Queue 3, F9).
+# whatever the card's dispatch time (ROADMAP Queue 3, F9).  The first
+# three hold no timing gate and start together (their seconds are mostly
+# process start-up); the overload tool, whose gates read latencies, runs
+# alone after them.
 TOOLS = [("tools/eval_recall_torch.py", ["--check"]),
          ("tools/capacity_smoke_torch.py", []),
          ("tools/recovery_smoke_torch.py", []),
          ("tools/overload_smoke_torch.py", []),
          ("tools/overload_smoke_torch.py", ["--smoke"])]
+TOOLS_TOGETHER = 3
 TOOL_TIMEOUT_S = 300
 
 
@@ -659,7 +692,7 @@ def review_cell(torch, seed: int, dev):
     Wp = (VOCAB + 31) // 32
     sketches, payloads, qs, qp, rng = token_corpus(torch, seed, dev, n)
 
-    idx = SegmentedIndex(L, b, delta_cap=DELTA_CAP, payload_words=Wp,
+    idx = SegmentedIndex(L, b, delta_cap=DELTA5_CAP, payload_words=Wp,
                          device="cuda")
     t0 = time.perf_counter()
     step = DELTA_CAP // 4
@@ -675,7 +708,7 @@ def review_cell(torch, seed: int, dev):
           f"(rows, l_s, roots, leaves) {stack}; delta rows {nd}; T = {T}",
           flush=True)
     sizes = [s[0] for s in stack]
-    check(sum(sizes) + nd == n and nd == n % DELTA_CAP
+    check(sum(sizes) + nd == n and nd == n % DELTA5_CAP
           and len({s.bit_length() for s in sizes}) == len(sizes),
           f"the size-tiered policy left {stack}, delta {nd}")
 
@@ -795,11 +828,12 @@ def segmented_review(torch, args, dev, ops, ref, err, maxerr) -> dict:
               f"({sorted(round(t, 2) for t in times)}), "
               f"{M_QUERIES / e2e[rerank] * 1e3:.0f} queries/s", flush=True)
 
-    profile_window(torch, "segmented topk_batch", lambda: idx.topk_batch(
-        qs, TOPK))
+    t_prof = time.perf_counter()
     profile_window(torch, "segmented topk_batch + Jaccard re-rank",
                    lambda: idx.topk_batch(qs, TOPK, rerank="jaccard",
                                           q_payloads=qp))
+    print(f"(profile windows: {time.perf_counter() - t_prof:.1f} s)",
+          flush=True)
 
     # the kernels at the path's shapes: the rung's packed launches on
     # the base plane its traversal gives, and the re-rank of its plane
@@ -889,11 +923,13 @@ def segmented_review(torch, args, dev, ops, ref, err, maxerr) -> dict:
           flush=True)
     del pays, surv, q_pay, d, scan, store, plan
     torch.cuda.empty_cache()
+    t_cold = time.perf_counter()
     cold_tier(torch, idx, qs, qp, ops)
+    print(f"(cold tier: {time.perf_counter() - t_cold:.1f} s)", flush=True)
     del idx
     torch.cuda.empty_cache()
     return {
-        "corpus10": (sketches[:SEG10_N].copy(), payloads[:SEG10_N].copy(),
+        "corpus10": (sketches[:RS_N].copy(), payloads[:RS_N].copy(),
                      qs, qp),
         "topk_ms": e2e[None],
         "sparse_verify_arena_packed": {
@@ -1024,10 +1060,6 @@ def cold_tier(torch, idx, qs, qp, ops) -> None:
         print(f"segmented topk_batch (rerank={kw.get('rerank')}), cold: "
               f"{ms:.2f} ms median of 5 ({times}) against all-hot "
               f"{hot_ms[k][0]:.2f} ({hot_ms[k][1]})", flush=True)
-    profile_window(torch, "segmented topk_batch, cold block staged",
-                   lambda: idx.topk_batch(qs, TOPK))
-    profile_window(torch, "segmented topk_batch + Jaccard re-rank, cold "
-                   "block staged", lambda: idx.topk_batch(qs, TOPK, **rr_kw))
 
     # explain and tracing, on the cold index
     plain = idx.topk_batch(qs, TOPK, **rr_kw)
@@ -2074,6 +2106,7 @@ def segmented_backends(torch, dev, ops, corpus10, bst_ms) -> None:
                                   reset_dispatch_stats)
 
     sk, pay, qs, qp = corpus10
+    sk, pay = sk[:SEG10_N], pay[:SEG10_N]
     n, L, b, Wp = len(sk), REVIEW_L, REVIEW_B, pay.shape[1]
     dead = seg10_dead(n)
     live = np.ones(n, bool)
@@ -2081,16 +2114,16 @@ def segmented_backends(torch, dev, ops, corpus10, bst_ms) -> None:
     d = LinearScan.build(sk, b, device=dev).distances(qs)
     d = torch.where(torch.from_numpy(live).to(dev)[None, :], d, BIG)
     stacks = {
-        "multi": (lambda: SegmentedIndex(L, b, delta_cap=DELTA_CAP,
+        "multi": (lambda: SegmentedIndex(L, b, delta_cap=DELTA10_CAP,
                                          backend="multi",
                                          mi_blocks=MI_BLOCKS, device=dev),
                   ("hamming_distances_batched", "hamming_distances")),
-        "sharded": (lambda: SegmentedIndex(L, b, delta_cap=DELTA_CAP,
+        "sharded": (lambda: SegmentedIndex(L, b, delta_cap=DELTA10_CAP,
                                            backend="sharded",
                                            n_shards=SHARDS, device=dev),
                     ("sparse_verify_batch_batched", "hamming_distances")),
         "sharded-stacks": (lambda: ShardedSegmentedIndex(
-            L, b, n_shards=SHARDS, delta_cap=DELTA_CAP, payload_words=Wp,
+            L, b, n_shards=SHARDS, delta_cap=DELTA10_CAP, payload_words=Wp,
             device=dev), ("sparse_verify_arena_packed", "hamming_distances",
                           "exact_rerank", "sparse_verify_batch")),
     }
@@ -2098,7 +2131,7 @@ def segmented_backends(torch, dev, ops, corpus10, bst_ms) -> None:
         idx = make()
         stacked = isinstance(idx, ShardedSegmentedIndex)
         t0 = time.perf_counter()
-        step = DELTA_CAP // 4
+        step = DELTA10_CAP // 4
         for lo in range(0, n, step):
             idx.insert(sk[lo:lo + step],
                        payloads=pay[lo:lo + step] if stacked else None)
@@ -2283,8 +2316,9 @@ def crash_child(work: Path) -> int:
 
 
 def seg10_dead(n: int) -> np.ndarray:
-    """Phase 10 (c)'s deleted ids: 1% of the rows, from seed SEG10_N."""
-    rng = np.random.default_rng(SEG10_N)
+    """Phase 10 (c)'s and phase 11's deleted ids: 1% of the ``n`` rows,
+    from seed RS_N."""
+    rng = np.random.default_rng(RS_N)
     return rng.choice(n, size=int(n * DELETE_FRAC), replace=False)
 
 
@@ -2966,8 +3000,8 @@ def max_bound(flops: float, nbytes: float):
 
 def train_smollm(torch, args, ops) -> dict:
     """Phase 12 (c): smollm-135m trained at full size through
-    ``launch.train.main`` with --dedup batches, checkpoints and the
-    restart drill; one kernel-path step against the plain path; step
+    ``launch.train.main`` with --dedup batches and checkpoints; one
+    kernel-path step against the plain path; step
     time, tokens/s, peak memory and a profiled step.  Returns the
     launches of the training run."""
     import dataclasses
@@ -2975,7 +3009,6 @@ def train_smollm(torch, args, ops) -> dict:
     import tempfile
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, SketchDedupPipeline
-    from repro_torch.distributed import checkpoint as ckpt
     from repro_torch.launch import train
     from repro_torch.models import model as M
     from repro_torch.models.layers import Params
@@ -3000,7 +3033,7 @@ def train_smollm(torch, args, ops) -> dict:
         return on_step
 
     try:
-        full, first, resumed = {}, {}, {}
+        full = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base_mem = torch.cuda.memory_allocated()
@@ -3029,6 +3062,7 @@ def train_smollm(torch, args, ops) -> dict:
               "search's verify kernel, no plain version")
         losses = [full[s][0] for s in range(TRAIN_STEPS)]
         check(all(np.isfinite(losses)), f"losses {losses}")
+        args.phase12_steps = dict(full)            # phase 16 (b)'s reference
         stamps = [t0] + [full[s][2] for s in range(TRAIN_STEPS)]
         loop_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
         step_ms = statistics.median(loop_ms[TRAIN_WARMUP:])
@@ -3104,39 +3138,6 @@ def train_smollm(torch, args, ops) -> dict:
         profile_window(torch, "train step", lambda: step(p0, opt, batch),
                        calls=1)
         del p0, opt, batch, step
-
-        # the drill: fail at TRAIN_FAIL_AT, rerun, resume
-        drill = str(work / "drill")
-        rc = train.main(argv + ["--ckpt-dir", drill, "--fail-at",
-                                str(TRAIN_FAIL_AT)], on_step=recorder(first))
-        check(rc == 13 and sorted(first) == list(range(TRAIN_FAIL_AT)),
-              f"the drill returned {rc} after steps {sorted(first)}")
-        start = ckpt.latest_checkpoint(drill)
-        check(start == TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY,
-              f"the drill's latest checkpoint is step {start}")
-        rc = train.main(argv + ["--ckpt-dir", drill], on_step=recorder(resumed))
-        check(rc == 0 and sorted(resumed) == list(range(start, TRAIN_STEPS)),
-              f"the rerun returned {rc} after steps {sorted(resumed)}")
-        diffs = {s: (first.get(s) or resumed[s])[0] - full[s][0]
-                 for s in range(TRAIN_STEPS)}
-        check(all(first[s][0] == full[s][0] for s in first)
-              and all(resumed[s][0] == full[s][0] for s in resumed),
-              f"the drill's losses differ from the uninterrupted run's: "
-              f"{diffs}")
-        with np.load(work / "full" / f"step_{TRAIN_STEPS:07d}" /
-                     "arrays.npz") as a, \
-                np.load(Path(drill) / f"step_{TRAIN_STEPS:07d}" /
-                        "arrays.npz") as b:
-            check(sorted(a.files) == sorted(b.files)
-                  and all(np.array_equal(a[k], b[k]) for k in a.files),
-                  "the resumed run's final checkpoint differs from the "
-                  "uninterrupted run's")
-            n_arrays = len(a.files)
-        print(f"restart drill: --fail-at {TRAIN_FAIL_AT} returned 13, the "
-              f"rerun resumed at step {start}; losses of steps "
-              f"0-{TRAIN_STEPS - 1} and the {n_arrays} arrays of the step-"
-              f"{TRAIN_STEPS} checkpoint equal the uninterrupted run's bit "
-              "for bit", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3383,18 +3384,28 @@ def model_families(torch, args, dev, ops, err: dict) -> dict:
 def tools_on_card() -> None:
     """Phase 14: the port's tools, each in a process of its own on the
     card (``--device`` left at its default, cuda): each must return 0."""
+    import concurrent.futures
+
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
         "PYTHONPATH", "")
-    for script, argv in TOOLS:
+
+    def run(tool):
+        script, argv = tool
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, str(ROOT / script), *argv],
                               cwd=ROOT, env=env, capture_output=True,
                               text=True, timeout=TOOL_TIMEOUT_S)
-        secs = time.perf_counter() - t0
+        return tool, proc, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(TOOLS_TOGETHER) as pool:
+        together = list(pool.map(run, TOOLS[:TOOLS_TOGETHER]))
+    for i, ((script, argv), proc, secs) in enumerate(
+            together + [run(t) for t in TOOLS[TOOLS_TOGETHER:]]):
         tail = proc.stdout.strip().splitlines()[-6:]
         print(f"{script} {' '.join(argv)}: rc {proc.returncode} in "
-              f"{secs:.1f} s", flush=True)
+              f"{secs:.1f} s{' (started together)' * (i < TOOLS_TOGETHER)}",
+              flush=True)
         for line in tail:
             print(f"  {line}", flush=True)
         check(proc.returncode == 0, f"{script} returned {proc.returncode}: "
@@ -3498,7 +3509,8 @@ def mesh_child(spec: dict) -> int:
                      rank=spec["rank"], world_size=spec["world"],
                      timeout_s=MESH_GROUP_TIMEOUT_S)
     try:
-        out = {"a": mesh_part_a, "b": mesh_part_b}[part](torch, spec, work)
+        out = {"a": mesh_part_a, "b": mesh_part_b,
+               "ep": mesh_part_ep}[part](torch, spec, work)
     finally:
         dist.destroy_process_group()
     torch.save(out, work / f"{part}_rank{spec['rank']}.pt")
@@ -3677,6 +3689,7 @@ def mesh_part_a(torch, spec, work: Path) -> dict:
 
     import torch.distributed as dist
 
+    from repro_torch.distributed.sharding import shard_state
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as M
 
@@ -3687,7 +3700,7 @@ def mesh_part_a(torch, spec, work: Path) -> dict:
     for arch in MESH_ARCHS:
         torch.cuda.reset_peak_memory_stats()
         cfg, params, prompts = mesh_model(torch, arch, spec["seed"])
-        mine = M.shard_params(params, cfg, mesh)
+        mine = shard_state(params, mesh)
         n_attn = M.n_attention_layers(cfg)
         print(f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
               f"heads {cfg.n_heads}/{cfg.n_kv} x {cfg.head_dim}, experts "
@@ -3790,6 +3803,7 @@ def mesh_part_b(torch, spec, work: Path) -> dict:
     """Phase 15 (b): two ranks on the one card, mesh (1, 2)."""
     import torch.distributed as dist
 
+    from repro_torch.distributed.sharding import shard_state
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as M
 
@@ -3809,7 +3823,7 @@ def mesh_part_b(torch, spec, work: Path) -> dict:
             [batch_digest(torch, prompts)], device="cuda"), "model")
         check(bool((digests == ref["digest"]).all()), f"(b) {arch}: ranks "
               f"drew batches {digests.tolist()}, (a) {ref['digest']}")
-        mine = M.shard_params(params, cfg, mesh)
+        mine = shard_state(params, mesh)
         del params
         torch.cuda.empty_cache()
         n_attn = M.n_attention_layers(cfg)
@@ -4098,6 +4112,516 @@ def mesh_layer(torch, args, dev, err: dict) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return {arch: a[arch]["launches"] for arch in MESH_ARCHS}
+
+
+# Phase 16, training under a mesh of ranks (distributed/sharding.py's
+# training placement, the FSDP gathers of models/model.py, the reductions
+# of train/steps.py, logical checkpoints) and the dry-run tooling
+# (launch/dryrun.py, op_cost.py, op_analysis.py).  (a) launch.dryrun's
+# count of phase 12 (c)'s step (smollm-135m at full width and depth, 8 x
+# 2,048 tokens, bf16 compute, remat, mesh (1, 1)) against the same step
+# on the card: its argument bytes equal the real parameters, moments and
+# batch exactly, its FLOPs and bytes stand beside the measured step, its
+# peak beside max_memory_allocated; every architecture's train_4k cell
+# counted at (16, 16) by one launch.dryrun process (meta tensors, no
+# card) that runs beside (b) and (c) and is read after them.  (b) data
+# parallelism through the CLI: python -m torch.distributed.run
+# --nproc-per-node 2 -m repro_torch.launch.train (two gloo ranks sharing
+# the card, FSDP over "data"), phase 12 (c)'s batches and schedule
+# (TRAIN_STEPS steps), two launches: the drill (a checkpoint every
+# P16_CKPT_EVERY steps, --fail-at P16_FAIL_AT: both ranks exit 13 after
+# P16_FAIL_AT uninterrupted steps), then its rerun, which resumes from
+# the checkpoint before the drill's last (that one is moved aside) and
+# so repeats steps the drill ran uninterrupted (each checkpoint gathers
+# 1.6 GB over gloo);
+# each step's loss within TRAIN_LOSS_RTOL and gradient norm within
+# TRAIN_GNORM_RTOL of phase 12's one-rank run on the same batches, the
+# repeated steps' lines and the checkpoint both runs wrote equal bit for
+# bit, that checkpoint restored whole on one process with no mesh bit for
+# bit and its rank shards tiling it; 60 lse forwards and 30 backwards a
+# step on each rank.  (c) expert parallelism: granite-moe-3b-a800m cut
+# to P16_EP_LAYERS layers (f32 masters: two ranks' masters and moments,
+# and the one-rank reference before them, on one card, beside (b)'s
+# rerun), mesh (1, 2), 20 of its 40 experts a rank, P16_EP_STEPS steps
+# through make_train_step under use_mesh against the one-rank step on the
+# same batches: kept masks one
+# rank's plan on the same routings, losses and norms under (b)'s rule,
+# each rank's updated experts (first and last layer) the matching slice
+# of the one-rank update within TRAIN_LOSS_RTOL of its norm (a norm, not
+# each weight: Adam's first steps move a weight by ±lr wherever |g| is
+# well above eps, so a weight whose bf16 gradient rounds across zero in
+# one path moves the other way; the update's own distance is printed).
+P16_CKPT_EVERY, P16_FAIL_AT = 3, 7
+P16_EP_ARCH, P16_EP_LAYERS, P16_EP_STEPS, P16_EP_BATCH = (
+    "granite-moe-3b-a800m", 8, 3, 4)
+P16_DRYRUN_TIMEOUT_S = 420
+P16_CLI_TIMEOUT_S = 300
+
+
+def dryrun_counts():
+    """Start every architecture's train_4k count at (16, 16): one
+    ``python -m repro_torch.launch.dryrun --all --shape train_4k`` with no
+    card visible, writing under a temporary ``build/`` directory (phase 16
+    (a) reads and removes it).  Returns (the process, the directory)."""
+    work = ROOT / "build" / f"chip_smoke_dryrun_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    env = dict(mesh_env(), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    log = work / "dryrun.log"
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--shape", "train_4k", "--mesh", "single", "--out",
+             str(work / "dryrun"), "--force"], cwd=ROOT, env=env,
+            stdout=out, stderr=subprocess.STDOUT)
+    return proc, work
+
+
+def dryrun_against_card(torch, args) -> dict:
+    """Phase 16 (a): the count of phase 12 (c)'s step beside the step on
+    the card."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SketchDedupPipeline
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import CountingMesh, make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.adamw import Hyper, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("phase12c", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rec, cost = trace_cell(TRAIN_ARCH, shape.name,
+                           CountingMesh((1, 1), ("data", "model")), cfg=cfg,
+                           shape=shape, exact=True)
+    n = cfg.num_layers
+    kernels = {k: v[0] for k, v in cost.kernels.items()}
+    check(kernels == {"flash_attention_fwd": 2 * n,
+                      "flash_attention_bwd": n},
+          f"(a) counted kernels {kernels}")
+    params = M.init_params(torch.Generator().manual_seed(args.seed), cfg,
+                           device="cuda")
+    opt = adamw_init(params)
+    batch = SketchDedupPipeline(DataConfig(
+        vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=args.seed,
+        dedup=True), device="cuda").batch_for_step(0)
+    tensors = (list(params.parameters()) + list(opt.mu.parameters())
+               + list(opt.nu.parameters()) + [opt.step]
+               + list(batch.values()))
+    real = sum(t.numel() * t.element_size() for t in tensors)
+    counted = rec["memory"]["argument_bytes"]
+    check(counted == real, f"(a) argument_bytes {counted} != the card's "
+          f"parameters, moments and batch {real}")
+    step = make_train_step(cfg, Hyper(warmup_steps=2,
+                                      total_steps=TRAIN_STEPS),
+                           num_microbatches=rec["num_microbatches"])
+    with use_mesh(make_mesh((1, 1), ("data", "model"))):
+        step(params, opt, batch)                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
+    roof = rec["roofline"]
+    t_bound = max(roof["t_compute_s"], roof["t_memory_s"],
+                  roof["t_collective_s"])
+    print(f"(a) {TRAIN_ARCH} {TRAIN_BATCH} x {TRAIN_SEQ}, mesh (1, 1): "
+          f"argument_bytes {counted} = the card's parameters, moments and "
+          f"batch; counted {cost.flops:.4e} FLOPs and {cost.bytes:.4e} bytes "
+          f"(unfused upper bound), kernels {kernels}; the step on the card "
+          f"{ms:.1f} ms median of 3 {[round(t, 1) for t in times]}: "
+          f"{cost.flops / ms / 1e9:.1f} TFLOP/s achieved, t_bound "
+          f"{t_bound * 1e3:.1f} ms ({roof['bottleneck']}) = "
+          f"{t_bound * 1e3 / ms:.3f} of the measured step; counted peak "
+          f"{rec['memory']['total_bytes'] / 2**30:.2f} GiB (arguments + "
+          f"{rec['memory']['temp_bytes'] / 2**30:.2f} live), "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB (before the step "
+          f"{base / 2**30:.2f}); trace {rec['trace_s']} s", flush=True)
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "flops": cost.flops, "bytes": cost.bytes,
+            "t_bound_ms": t_bound * 1e3, "peak": peak,
+            "counted_total": rec["memory"]["total_bytes"]}
+
+
+def cli_start(argv: list, tag: str, work: Path):
+    """Start one ``python -m torch.distributed.run --nproc-per-node 2 -m
+    repro_torch.launch.train`` run; its output goes to
+    ``work/<tag>.log``."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "repro_torch.launch.train"] + argv
+    log = open(work / f"{tag}.log", "w")
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=mesh_env(), stdout=log,
+                            stderr=subprocess.STDOUT)
+    return proc, log, tag, time.perf_counter()
+
+
+def cli_wait(run, work: Path) -> tuple:
+    """(returncode, output) of a run ``cli_start`` began; killed after
+    P16_CLI_TIMEOUT_S."""
+    proc, log, tag, t0 = run
+    try:
+        proc.wait(timeout=max(P16_CLI_TIMEOUT_S - (time.perf_counter() - t0),
+                              1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    log.close()
+    out = (work / f"{tag}.log").read_text()
+    print(f"(b) {tag}: rc {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return proc.returncode, out
+
+
+def step_lines(out: str) -> dict:
+    """{step: (loss text, gnorm text, seconds)} from the driver's lines."""
+    import re
+    got = {}
+    for m in re.finditer(r"step\s+(\d+)\s+loss (\S+)\s+gnorm (\S+)\s+lr "
+                         r"\S+\s+\((\S+)s\)", out):
+        got[int(m.group(1))] = (m.group(2), m.group(3), float(m.group(4)))
+    return got
+
+
+def rank_launches(out: str) -> dict:
+    import ast
+    import re
+    got = {}
+    for m in re.finditer(r"\[rank (\d+)\] kernel launches over (\d+) steps:"
+                         r" (\{[^}]*\})", out):
+        got[int(m.group(1))] = (int(m.group(2)), ast.literal_eval(m.group(3)))
+    return got
+
+
+def data_parallel_cli(torch, args, work: Path, beside) -> dict:
+    """Phase 16 (b); ``beside()`` runs once the rerun has started.
+    Returns each rank's launches of rows 1, 6l and 7 in the rerun."""
+    import re
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.checkpoint import restore_checkpoint
+    from repro_torch.distributed.sharding import local_shard, train_specs
+    from repro_torch.launch.mesh import CountingMesh
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import abstract_opt_state
+
+    argv = ["--arch", TRAIN_ARCH, "--dedup", "--steps", str(TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--log-every", "1", "--seed", str(args.seed), "--ckpt-every",
+            str(P16_CKPT_EVERY)]
+    drill = work / "drill"
+    rc, out_fail = cli_wait(cli_start(
+        argv + ["--ckpt-dir", str(drill), "--fail-at", str(P16_FAIL_AT)],
+        "drill", work), work)
+    thirteen = sorted(set(re.findall(
+        r"rank\s*:\s*(\d+) \(local_rank: \d+\)\s*\n\s*exitcode\s*:\s*13\b",
+        out_fail)))
+    check(rc != 0 and thirteen == ["0", "1"], f"(b) the drill returned {rc} "
+          f"with ranks {thirteen} at exit code 13:\n{out_fail[-3000:]}")
+    # the drill's last checkpoint moved aside: the rerun resumes from the
+    # one before and writes it again
+    last = P16_FAIL_AT // P16_CKPT_EVERY * P16_CKPT_EVERY
+    start = last - P16_CKPT_EVERY
+    name = f"step_{last:07d}"
+    kept = work / f"drill_{name}"
+    (drill / name).rename(kept)
+    resume_run = cli_start(argv + ["--ckpt-dir", str(drill)], "resume", work)
+    beside()
+    rc, out_res = cli_wait(resume_run, work)
+    check(rc == 0 and f"[resume] from step {start}" in out_res
+          and "train: done" in out_res,
+          f"(b) the rerun returned {rc}:\n{out_res[-3000:]}")
+
+    first, resumed = step_lines(out_fail), step_lines(out_res)
+    for tag, got in (("drill", first), ("resume", resumed)):
+        print(f"(b) {tag}: (step, loss, gnorm, s) "
+              f"{[(k,) + v for k, v in sorted(got.items())]}", flush=True)
+    check(sorted(first) == list(range(1, P16_FAIL_AT + 1))
+          and sorted(resumed) == list(range(start + 1, TRAIN_STEPS + 1)),
+          f"(b) the drill printed {sorted(first)}, the rerun "
+          f"{sorted(resumed)}")
+    repeated = sorted(set(first) & set(resumed))
+    check(all(resumed[s][:2] == first[s][:2] for s in repeated),
+          f"(b) the rerun's steps {repeated} differ from the drill's "
+          "uninterrupted ones")
+    steps = {**first, **resumed}
+    one = args.phase12_steps
+    worst_l = worst_g = 0.0
+    for s, (loss, gnorm, _) in steps.items():
+        l1, g1 = one[s - 1][:2]
+        worst_l = max(worst_l, abs(float(loss) - l1) / abs(l1))
+        worst_g = max(worst_g, abs(float(gnorm) - g1) / abs(g1))
+    check(worst_l <= TRAIN_LOSS_RTOL and worst_g <= TRAIN_GNORM_RTOL,
+          f"(b) against phase 12's one rank: loss {worst_l:.3g}, gnorm "
+          f"{worst_g:.3g} relative")
+    with np.load(kept / "arrays.npz") as a, \
+            np.load(drill / name / "arrays.npz") as b:
+        check(sorted(a.files) == sorted(b.files)
+              and all(np.array_equal(a[k], b[k]) for k in a.files),
+              f"(b) the rerun's step-{last} checkpoint differs from the "
+              "drill's")
+        arrays = {k: a[k] for k in a.files}
+    cfg = get_config(TRAIN_ARCH)
+    abstract = M.abstract_params(cfg)
+    whole = restore_checkpoint(str(drill), last,
+                               {"params": abstract,
+                                "opt": abstract_opt_state(abstract)},
+                               device="cpu")
+    params = whole["params"]
+    for n, p in params.named_parameters():
+        key = "params/" + n.replace(".", "/")
+        if n.startswith("units."):
+            u, rest = n.split(".", 2)[1:]
+            key = "params/units/" + rest.replace(".", "/")
+            want = arrays[key][int(u)]
+        else:
+            want = arrays[key]
+        check(np.array_equal(p.detach().cpu().numpy(), want),
+              f"(b) {n} restored with no mesh != the checkpoint")
+    tiles = 0
+    ranks = [CountingMesh((2,), ("data",), {"data": r}) for r in (0, 1)]
+    specs = train_specs(params, ranks[0])
+    for n, p in params.named_parameters():
+        parts = [local_shard(p.detach(), specs[n], rank) for rank in ranks]
+        dim = next((i for i, e in enumerate(specs[n]) if e), None)
+        if dim is not None:
+            tiles += 1
+            check(torch.equal(torch.cat(parts, dim), p.detach()),
+                  f"(b) {n}: the 2-rank shards do not tile the restored "
+                  "tensor")
+    launches = rank_launches(out_res)
+    ran = TRAIN_STEPS - start
+    for r, (n_steps, counts) in sorted(launches.items()):
+        check(n_steps == ran
+              and counts.get("flash_attention_fwd:lse") == 2 * cfg.num_layers
+              * ran
+              and counts.get("flash_attention_bwd") == cfg.num_layers * ran
+              and counts.get("sparse_verify_batch", 0) > 0
+              and not any(k.endswith(":ref") for k in counts),
+              f"(b) rank {r} launches {counts}")
+    check(sorted(launches) == [0, 1],
+          f"(b) launch lines of ranks {sorted(launches)}")
+    secs = [t for s, (_, _, t) in first.items() if s > 2]
+    print(f"(b) 2 ranks, FSDP over 'data' (gloo on one card): "
+          f"{TRAIN_STEPS} steps, loss and gnorm against phase 12's one rank "
+          f"within {worst_l:.2e} and {worst_g:.2e} relative (limits "
+          f"{TRAIN_LOSS_RTOL}, {TRAIN_GNORM_RTOL}); loop step "
+          f"{statistics.median(secs) * 1e3:.0f} ms median of the drill's "
+          f"steps 3-{P16_FAIL_AT}; the drill's ranks exited 13 after step "
+          f"{P16_FAIL_AT}, the rerun resumed at step {start}, repeated steps "
+          f"{repeated[0]}-{repeated[-1]} bit for bit and wrote the step-{last}"
+          f" checkpoint's {len(arrays)} arrays as the drill did, bit for "
+          f"bit; restored with no mesh bit for bit, {tiles} leaves cut by "
+          f"the 2-rank placement tile it; launches over the rerun's {ran} "
+          f"steps by rank { {r: c for r, (_, c) in launches.items()} }",
+          flush=True)
+    del whole, params
+    torch.cuda.empty_cache()
+    return {r: counts for r, (_, counts) in launches.items()}
+
+
+def ep_config():
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(P16_EP_ARCH)
+    return dataclasses.replace(cfg, num_layers=P16_EP_LAYERS)
+
+
+def ep_batch(torch, cfg, step: int, seed: int) -> dict:
+    rng = np.random.default_rng((seed, 16, step))
+    toks = rng.integers(0, cfg.vocab, (P16_EP_BATCH, TRAIN_SEQ + 1),
+                        dtype=np.int64).astype(np.int32)
+    return {"tokens": torch.from_numpy(toks[:, :-1].copy()).cuda(),
+            "targets": torch.from_numpy(toks[:, 1:].copy()).cuda()}
+
+
+def ep_steps(torch, cfg, params, seed: int, mesh=None) -> dict:
+    """P16_EP_STEPS train steps of ``params`` (whole, or the rank's shards
+    under ``mesh``): losses, norms, step ms, the first step's MoE plans."""
+    import contextlib
+
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.optim.adamw import Hyper, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    step = make_train_step(cfg, Hyper(warmup_steps=1,
+                                      total_steps=P16_EP_STEPS))
+    opt = adamw_init(params)
+    out = {"loss": [], "gnorm": [], "ms": []}
+    with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        for s in range(P16_EP_STEPS):
+            batch = ep_batch(torch, cfg, s, seed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if s == 0:
+                (params, opt, m), out["plans"] = recorded_plans(
+                    lambda: step(params, opt, batch))
+            else:
+                params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["loss"].append(float(m["loss"]))
+            out["gnorm"].append(float(m["grad_norm"]))
+    return out
+
+
+EP_LEAVES = ("w_gate", "w_down")
+
+
+def ep_experts(params, cfg) -> dict:
+    """The routed experts of the first and last layers, on the host."""
+    units = params["units"]
+    return {(u, k): units[u]["l0"]["moe"][k].detach().float().cpu().clone()
+            for u in (0, cfg.n_units - 1) for k in EP_LEAVES}
+
+
+def mesh_part_ep(torch, spec, work: Path) -> dict:
+    """Phase 16 (c), one rank of mesh (1, 2)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import shard_state
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+
+    cfg = ep_config()
+    mesh = make_mesh((1, 2), ("data", "model"))
+    whole = M.init_params(torch.Generator(device="cuda").manual_seed(
+        spec["seed"]), cfg, device="cuda")
+    mine = shard_state(whole, mesh)
+    del whole
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.stats.clear()
+    out = ep_steps(torch, cfg, mine, spec["seed"], mesh)
+    bad, kept = sharded_plan_mismatches(torch, out.pop("plans"), cfg)
+    check(bad == 0, f"(c) rank {dist.get_rank()}: {bad} of the kept pairs "
+          "differ from one rank's plan")
+    out.update(kept=kept, experts=ep_experts(mine, cfg),
+               stats={k: list(v) for k, v in mesh.stats.items()},
+               peak=torch.cuda.max_memory_allocated(),
+               lo=mesh.coord("model") * cfg.n_experts // 2)
+    return out
+
+
+def expert_parallel_training(torch, args, work: Path) -> None:
+    """Phase 16 (c): the one-rank reference here, then two ranks."""
+    from repro_torch.models import model as M
+
+    cfg = ep_config()
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(
+        args.seed), cfg, device="cuda")
+    before = ep_experts(params, cfg)
+    one = ep_steps(torch, cfg, params, args.seed)
+    one.pop("plans")
+    want = ep_experts(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    ranks = mesh_spawn(torch, args, "ep", 2, work)
+    worst_w = worst_d = 0.0
+    for r, got in enumerate(ranks):
+        for i in range(P16_EP_STEPS):
+            check(abs(got["loss"][i] - one["loss"][i])
+                  <= TRAIN_LOSS_RTOL * abs(one["loss"][i])
+                  and abs(got["gnorm"][i] - one["gnorm"][i])
+                  <= TRAIN_GNORM_RTOL * abs(one["gnorm"][i]),
+                  f"(c) rank {r} step {i}: loss {got['loss'][i]} gnorm "
+                  f"{got['gnorm'][i]}, one rank {one['loss'][i]} "
+                  f"{one['gnorm'][i]}")
+        for key, w in got["experts"].items():
+            lo, hi = got["lo"], got["lo"] + w.shape[0]
+            err = float((w - want[key][lo:hi]).norm()
+                        / want[key][lo:hi].norm())
+            worst_w = max(worst_w, err)
+            check(err <= TRAIN_LOSS_RTOL, f"(c) rank {r} {key}: the updated "
+                  f"experts {err:.3g} (relative norm) from the one-rank "
+                  "slice")
+            delta = w - before[key][lo:hi]
+            ref = want[key][lo:hi] - before[key][lo:hi]
+            worst_d = max(worst_d, float((delta - ref).norm() / ref.norm()))
+    stats = ranks[0]["stats"]
+    print(f"(c) {P16_EP_ARCH} cut to {P16_EP_LAYERS} layers, mesh (1, 2), "
+          f"{cfg.n_experts // 2} experts a rank, {P16_EP_STEPS} steps of "
+          f"{P16_EP_BATCH} x {TRAIN_SEQ}: kept masks one rank's "
+          f"({ranks[0]['kept']} and {ranks[1]['kept']} pairs kept); losses "
+          f"{[round(x, 4) for x in ranks[0]['loss']]} (one rank "
+          f"{[round(x, 4) for x in one['loss']]}), gnorms "
+          f"{[round(x, 4) for x in ranks[0]['gnorm']]} (one rank "
+          f"{[round(x, 4) for x in one['gnorm']]}); the updated expert "
+          f"shards within {worst_w:.2e} of the one-rank slices (relative "
+          f"norm), their updates within {worst_d:.2e}; step ms "
+          f"{[round(x, 1) for x in ranks[0]['ms']]} (one rank "
+          f"{[round(x, 1) for x in one['ms']]}); peak a rank "
+          f"{max(r['peak'] for r in ranks) / 2**30:.2f} GiB; collectives "
+          f"of {P16_EP_STEPS} steps on rank 0 (calls, bytes, host s): "
+          f"{ {k: [v[0], v[1], round(v[2], 3)] for k, v in stats.items()} }",
+          flush=True)
+
+
+def mesh_training(torch, args) -> dict:
+    """Phase 16: (a)–(c) (the comment above P16_FAIL_AT).  The train_4k
+    counts need no card: they run beside (b) and (c), whose seconds are
+    mostly process start-up and gloo, and nothing else timed runs beside
+    them.  Returns each rank's launches in (b)'s resumed run."""
+    import shutil
+
+    work = ROOT / "build" / f"chip_smoke_train_mesh_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    counts = counted = None
+    try:
+        t0 = time.perf_counter()
+        dryrun_against_card(torch, args)
+        print(f"(a: {time.perf_counter() - t0:.1f} s)", flush=True)
+        t0 = time.perf_counter()
+        counts, counted = dryrun_counts()
+
+        def expert_parallel():
+            t1 = time.perf_counter()
+            expert_parallel_training(torch, args, work)
+            print(f"(c: {time.perf_counter() - t1:.1f} s, beside (b)'s "
+                  "runs)", flush=True)
+        launches = data_parallel_cli(torch, args, work, expert_parallel)
+        print(f"(b and c: {time.perf_counter() - t0:.1f} s)", flush=True)
+        t0 = time.perf_counter()
+        try:
+            rc = counts.wait(timeout=P16_DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            counts.kill()
+            rc = counts.wait()
+        out = (counted / "dryrun.log").read_text()
+        check(rc == 0, f"(a) the train_4k counts returned {rc}:\n"
+              f"{out[-3000:]}")
+        from repro_torch.configs.registry import all_cells
+        archs = [a for a, shape in all_cells() if shape == "train_4k"]
+        for arch in archs:
+            rec = json.loads((counted / "dryrun" /
+                              f"16x16__{arch}__train_4k.json").read_text())
+            check(rec["status"] == "ok", f"(a) {arch}: {rec.get('error')}")
+            r = rec["roofline"]
+            print(f"(a) {arch} train_4k at 16x16, rank 0 (counted on meta "
+                  f"in {rec['trace_s']} s): "
+                  f"{rec['memory']['total_bytes'] / 1e9:.1f} GB a rank, fits "
+                  f"{rec['fits']}, bottleneck {r['bottleneck']} (Tc "
+                  f"{r['t_compute_s']:.3f} s, Tm {r['t_memory_s']:.3f} s, "
+                  f"Tcoll {r['t_collective_s']:.3f} s), "
+                  f"{rec['num_microbatches']} microbatches, useful FLOPs "
+                  f"{r['useful_flops_ratio']:.3f}", flush=True)
+        print(f"(a) the {len(archs)} train_4k counts waited on: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        if counts is not None and counts.poll() is None:
+            counts.kill()
+            counts.wait()
+        shutil.rmtree(work, ignore_errors=True)
+        if counted is not None:
+            shutil.rmtree(counted, ignore_errors=True)
+    return launches
 
 
 def main() -> int:
@@ -4442,16 +4966,28 @@ def main() -> int:
     phase_done("9 (zbit_cws at the SIFT and GIST shapes)")
 
     # -- 10. the other backends --------------------------------------------
+    t_sub = time.perf_counter()
+
+    def sub_done(name: str) -> None:
+        nonlocal t_sub
+        print(f"({name}: {time.perf_counter() - t_sub:.1f} s)", flush=True)
+        t_sub = time.perf_counter()
+
     sketches, qs = review_static(args.seed)
     d = LinearScan.build(sketches, REVIEW_B, device="cuda").distances(qs)
+    sub_done("Review sketches and the scan")
     mi_json = static_multi(torch, dev, ops, ref, err, maxerr, sketches, qs,
                            d, si_ms)
+    sub_done("a")
     sh_json = static_sharded(torch, dev, ops, ref, err, maxerr, sketches, qs,
                              d, si_ms)
+    sub_done("b")
     del d
     torch.cuda.empty_cache()
     segmented_backends(torch, dev, ops, corpus10, bst_seg_ms)
+    sub_done("c")
     baselines_check(torch, dev, sketches)
+    sub_done("d")
     del sketches, qs
     phase_done("10 (the other backends)")
     served = retrieval_server(torch, args, dev, ops, corpus10)
@@ -4472,6 +5008,9 @@ def main() -> int:
     mesh = mesh_layer(torch, args, dev, err)
     phase_done("15 (the mesh layer: expert-parallel MoE, sequence-parallel "
                "decode, data-parallel serving)")
+    mesh_train = mesh_training(torch, args)
+    phase_done("16 (training under a mesh of ranks, the dry-run against the "
+               "card)")
 
     kernels = [
         {"name": "sparse_verify_batch", "route": "cuda",
@@ -4479,6 +5018,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/hamming_kernel.py:114",
          "launches": launches["sparse_verify_batch"],
          "train_launches": trained["sparse_verify_batch"],
+         "mesh_train_launches": {r: c.get("sparse_verify_batch", 0)
+                                 for r, c in mesh_train.items()},
          "max_abs_err": err["sparse_verify_batch"], "ms": sfx_ms,
          "plain_ms": sfx_plain, "bound_ms": sfx_bound, "bound_by": sfx_by,
          "library_ms": None},
@@ -4517,11 +5058,15 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn_kernel.py:93",
          "launches": trained["flash_attention_fwd:lse"],
+         "mesh_train_launches": {r: c.get("flash_attention_fwd:lse", 0)
+                                 for r, c in mesh_train.items()},
          "max_abs_err": err["flash_attention_fwd_lse"], **attn["lse"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
          "replaces": "src/repro/models/flash.py:134",
          "launches": trained["flash_attention_bwd"],
+         "mesh_train_launches": {r: c.get("flash_attention_bwd", 0)
+                                 for r, c in mesh_train.items()},
          "max_abs_err": err["flash_attention_bwd"], **attn["bwd"]},
         {"name": "sparse_verify_batch_batched", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming.cu",

@@ -17,6 +17,16 @@ restores the other's checkpoints.  A ``Params`` module is written as its
 nested dict; ``AdamWState`` as its three fields.  Arrays are logical
 host copies, so a restore may target another device (``device=``).
 
+Under a mesh of ranks the checkpoints stay logical: ``AsyncCheckpointer``
+given the mesh and the placement's specs gathers the ``Params`` of the
+tree on the main thread, one leaf at a time in one fixed order, every
+rank joining each gather.  Rank 0 copies each whole leaf to the host as
+soon as it is gathered and the other ranks drop it, so no rank's device
+holds more than one whole leaf beside its shards; rank 0 alone hands the
+arrays to its writer thread, which issues no collective.  A restore
+reads whole arrays; ``fault_tolerance.resume_or_init(mesh=)`` cuts each
+rank's shards from them by the new mesh's placement.
+
 The atomic tmp-pid → fsync → rename protocol is ``store.atomic``'s.  A
 writer that crashes mid-save leaves a stale ``step_*.tmp-<pid>`` (or
 ``.old-<pid>`` / ``.rm``) directory behind; ``sweep_stale`` removes them
@@ -35,11 +45,13 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..core.hamming import resolve_device
 from ..models.layers import Params
 from ..store.atomic import atomic_write_dir, sweep_stale_tmp
+from .sharding import _map_params, _map_state, gather_whole
 
 Tree = Any
 
@@ -119,19 +131,51 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Tree) -> str:
     return _write(ckpt_dir, step, _flatten(tree, _host))
 
 
+def _host_state(tree: Tree, mesh, specs: dict, keep: bool) -> Tree:
+    """``tree`` with every ``Params`` a nested dict of its leaves gathered
+    whole by ``specs`` (``sharding.train_specs`` of the whole
+    parameters), one leaf at a time, and copied to the host at once where
+    ``keep`` (the writer; elsewhere each leaf is dropped, None).  A
+    collective on every rank, in ``named_parameters`` order."""
+    def leaf(name, x):
+        whole = gather_whole(x, specs[name], mesh)
+        return _host(whole) if keep else None
+    return _map_state(tree, lambda p: _map_params(p, leaf, as_params=False))
+
+
+def is_writer(mesh) -> bool:
+    """Whether this rank writes the checkpoints of ``mesh`` (rank 0: every
+    coordinate 0; the one process when there is no mesh)."""
+    return mesh is None or not any(mesh.coord(a) for a in mesh.axis_names)
+
+
 class AsyncCheckpointer:
     """Copies the tensors to the host synchronously (a device-to-host
     copy), then writes on a background thread so the train loop never
-    blocks on disk."""
+    blocks on disk.  Under ``mesh`` (module doc) every rank calls
+    ``save`` with the placement's ``specs``; only rank 0 writes."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    def __init__(self, ckpt_dir: str, keep: int = 3, *, mesh=None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.mesh = mesh
+        self.writer = is_writer(mesh)
         self._pending: List[threading.Thread] = []
-        sweep_stale(ckpt_dir)   # GC a crashed predecessor's leftovers
+        if self.writer:
+            sweep_stale(ckpt_dir)   # GC a crashed predecessor's leftovers
 
-    def save(self, step: int, tree: Tree) -> None:
-        arrays = _flatten(tree, _host)
+    def save(self, step: int, tree: Tree, specs: Optional[dict] = None
+             ) -> None:
+        if self.mesh is not None and self.mesh.size > 1:
+            if specs is None:
+                raise ValueError("a checkpoint under a mesh of "
+                                 f"{self.mesh.size} ranks needs the "
+                                 "placement's specs to gather its shards")
+            tree = _host_state(tree, self.mesh, specs, self.writer)
+        if not self.writer:
+            return
+        arrays = _flatten(tree, lambda x: x if isinstance(x, np.ndarray)
+                          else _host(x))
         t = threading.Thread(target=self._write, args=(step, arrays),
                              daemon=True)
         t.start()
@@ -158,9 +202,14 @@ class AsyncCheckpointer:
             os.rmdir(tmp)
 
     def wait(self) -> None:
+        """Block until this rank's writes are on disk; under a mesh of
+        several ranks every rank waits for rank 0's (a barrier), so a
+        restart that follows reads the same latest step on every rank."""
         for t in self._pending:
             t.join()
         self._pending.clear()
+        if self.mesh is not None and self.mesh.size > 1:
+            dist.barrier()
 
 
 def list_checkpoints(ckpt_dir: str) -> List[int]:

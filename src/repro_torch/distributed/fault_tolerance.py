@@ -1,12 +1,17 @@
 """Fault-tolerance policies: resume-or-init, straggler detection and
 planned failures — the port of the JAX package's
-``distributed/fault_tolerance.py`` on one card.
+``distributed/fault_tolerance.py``.
 
 * **Checkpoint/restart** — ``resume_or_init`` restores the latest
   complete checkpoint (atomic directories mean a crash mid-write can
   never be picked up) or initializes fresh.  A restore may target
   another device than the one that saved (checkpoints are logical host
   arrays).
+* **Elastic re-shard** — checkpoints are logical (whole arrays), so a
+  restore may target a *different* mesh: ``resume_or_init(mesh=)``
+  restores them whole and cuts each rank's shards by the new mesh's
+  training placement (``distributed.sharding.shard_state``).  A run
+  saved on four ranks resumes on two, or on one process with no mesh.
 * **Straggler mitigation** — the data pipeline is a pure function of
   (config, step), so a replacement worker regenerates any step's batch;
   ``StragglerMonitor`` is the detection policy (EWMA step time, flag at
@@ -22,21 +27,26 @@ from typing import Any, Callable, List, Optional, Tuple
 
 from . import checkpoint as ckpt
 from ..store.faults import CrashPoint
+from .sharding import shard_state
 
 Tree = Any
 
 
 def resume_or_init(ckpt_dir: str, abstract_tree: Tree,
                    init_fn: Callable[[], Tree],
-                   device="cuda") -> Tuple[Tree, int]:
+                   device="cuda", mesh=None) -> Tuple[Tree, int]:
     """Restore the latest checkpoint onto ``device``, or init.  Returns
-    (tree, start_step)."""
-    ckpt.sweep_stale(ckpt_dir)      # GC a crashed writer's tmp/old dirs
+    (tree, start_step).  Under ``mesh`` the restored tree is this rank's
+    shards of it (every ``Params`` cut by the mesh's training placement;
+    ``init_fn`` returns shards itself), and only rank 0 sweeps."""
+    if ckpt.is_writer(mesh):
+        ckpt.sweep_stale(ckpt_dir)  # GC a crashed writer's tmp/old dirs
     step = ckpt.latest_checkpoint(ckpt_dir)
     if step is None:
         return init_fn(), 0
-    return ckpt.restore_checkpoint(ckpt_dir, step, abstract_tree,
-                                   device=device), step
+    tree = ckpt.restore_checkpoint(ckpt_dir, step, abstract_tree,
+                                   device=device)
+    return (tree if mesh is None else shard_state(tree, mesh)), step
 
 
 @dataclasses.dataclass

@@ -20,6 +20,14 @@ The port's parameters hold the units unstacked (``units[u]["l{pos}"]``,
 JAX counterpart, which carries a leading ``n_units`` axis; its rule is
 the JAX leaf's rule without that axis's entry.
 
+``train_specs`` is the training placement: ``param_specs`` without the
+"model" entries of the dense leaves (the port has no tensor parallelism,
+so each model rank holds a dense leaf's data shard whole), FSDP over
+"data" kept, and the MoE leaves as the expert-parallel body reads them
+(``moe_sharded.MOE_SPECS``: experts over "model", FSDP over "data").
+``shard_state`` cuts a whole ``Params`` / ``AdamWState`` tree into this
+rank's shards by it, ``gather_state`` gathers the shards back whole.
+
 ``dp_shards`` and ``batch_coord`` give a mesh's data-parallel shard
 count and this rank's index among them (the models split the batch by
 them; ``launch.mesh`` re-exports them as the JAX package's module has
@@ -28,12 +36,13 @@ them; ``launch.mesh`` re-exports them as the JAX package's module has
 Placement is explicit in eager PyTorch.  The JAX package's
 ``constrain`` — the activation annotation from which GSPMD derives the
 tensor parallelism of the dense layers — has no counterpart here: no
-automatic partitioner would read it, and each rank holds the dense
-weights whole.  What runs sharded are the two explicit-SPMD bodies of the
-reference: the MoE block under expert parallelism (``moe_sharded.py``,
-its expert and FSDP shards cut by ``moe_sharded.shard_moe_params``) and
-the sequence-sharded decode cache (``decode_sp.py``); the data axis
-splits the batch.
+automatic partitioner would read it, and each model rank holds a dense
+leaf's data shard whole.  What runs sharded are the two explicit-SPMD
+bodies of the reference — the MoE block under expert parallelism
+(``moe_sharded.py``) and the sequence-sharded decode cache
+(``decode_sp.py``) — and FSDP over "data": the model gathers each
+unit's shards as it runs it (``models/model.py``); the data axis splits
+the batch.
 """
 
 from __future__ import annotations
@@ -218,6 +227,120 @@ def batch_specs(batch: dict, mesh) -> dict:
     return {k: _resolve(("batch",) + (None,) * (v.dim() - 1), mesh,
                         tuple(v.shape))
             for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# the training placement
+# ---------------------------------------------------------------------------
+
+def train_specs(params, mesh) -> dict:
+    """``{name: spec}`` of the training placement for every parameter of a
+    whole ``Params`` (real or ``meta``), in ``named_parameters`` order:
+
+      * a leaf of a MoE block (``...moe.router``, ``...moe.w_gate``,
+        ``...moe.shared.w_up``, ...) takes ``moe_sharded.MOE_SPECS``'
+        rule: the router FSDP over "data" and replicated over "model",
+        the experts over "model" on E and over "data" on d;
+      * any other leaf takes ``param_specs``' rule without its "model"
+        entries: FSDP over "data" where the rules put it, whole over
+        "model" (no tensor parallelism), whole wherever "data" does not
+        divide the dimension (the divisibility fallback).
+    """
+    from ..models.moe_sharded import MOE_SPECS   # moe_sharded imports us
+
+    out = {}
+    for name, p in params.named_parameters():
+        _, moe, rest = name.partition(".moe.")
+        shape = tuple(p.shape)
+        if moe:
+            out[name] = _resolve(MOE_SPECS[rest], mesh, shape)
+        else:
+            spec = _resolve(leaf_logical(name, p.dim()), mesh, shape)
+            out[name] = tuple(None if e == "model" else e for e in spec)
+    return out
+
+
+def split_axes(spec: Sequence) -> Tuple[str, ...]:
+    """The mesh axes that split a leaf under ``spec``, in mesh order of
+    first appearance."""
+    axes = []
+    for entry in spec:
+        for a in (() if entry is None else
+                  (entry,) if isinstance(entry, str) else entry):
+            if a not in axes:
+                axes.append(a)
+    return tuple(axes)
+
+
+def gather_whole(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
+    """The whole tensor from this rank's shard ``x`` under ``spec``:
+    ``local_shard``'s inverse, every rank of the split axes joining (the
+    minor axis of a several-axis entry first)."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for a in reversed((entry,) if isinstance(entry, str) else entry):
+            x = mesh.all_gather(x, a, dim=dim)
+    return x
+
+
+def _map_params(params, fn, *, as_params: bool = True):
+    """A ``Params`` (``as_params=False``: the nested dict) of ``fn(name,
+    tensor)`` over every leaf of ``params``, in ``named_parameters``
+    order and under its names."""
+    from ..models.layers import Params
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}{k}.") for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(u, f"{prefix}{i}.") for i, u in enumerate(tree)]
+        return fn(prefix[:-1], tree)
+
+    tree = walk(params.tree(), "")
+    return Params(tree) if as_params else tree
+
+
+def _map_state(tree, fn_params):
+    """``tree`` with every ``Params`` in it (a dict's values, a
+    NamedTuple's fields) replaced by ``fn_params(params)``; other leaves
+    (the optimizer's step) unchanged."""
+    from ..models.layers import Params
+
+    if isinstance(tree, Params):
+        return fn_params(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_state(getattr(tree, f), fn_params)
+                            for f in tree._fields))
+    if isinstance(tree, dict):
+        return {k: _map_state(v, fn_params) for k, v in tree.items()}
+    return tree
+
+
+def shard_state(tree, mesh):
+    """This rank's shards of a whole state tree (a ``Params``, an
+    ``AdamWState``, or a dict of them), each ``Params`` cut by its
+    ``train_specs`` (read from its whole shapes): each leaf that is cut
+    a contiguous copy, each leaf kept whole the same tensor."""
+    def leaf(spec, x):
+        if not any(spec):
+            return x
+        return local_shard(x, spec, mesh).clone(
+            memory_format=torch.contiguous_format)
+
+    def cut(params):
+        specs = train_specs(params, mesh)
+        return _map_params(params, lambda n, x: leaf(specs[n], x))
+    return _map_state(tree, cut)
+
+
+def gather_state(tree, mesh, specs: dict):
+    """``shard_state``'s inverse: every ``Params`` of ``tree`` gathered
+    whole by ``specs`` (``train_specs`` of the whole parameters).  A
+    collective on every rank, leaf by leaf in ``named_parameters``
+    order, so every rank must call it at the same point."""
+    return _map_state(tree, lambda params: _map_params(
+        params, lambda n, x: gather_whole(x, specs[n], mesh)))
 
 
 def replicated(mesh) -> Spec:

@@ -27,12 +27,23 @@ verifies launch the same kernels at batch 1.
 ``flash_attention_fwd`` and ``flash_attention_bwd`` are the float
 kernels: (B, H, S, D) float32 or bfloat16 attention and its FA-2
 gradient, read through strides.
+
+While an op counter is active (``launch/op_cost.py``'s ``OpCounter``,
+the dry-run's), the flash wrappers and the scan and static verify
+wrappers record their kernel's operations and bytes from their
+arguments' shapes — the reckoning of the bound column of PERF.md's
+kernel table, so the count reads the same work whatever runs it — and
+the ops they run inside are not counted again.  On the ``meta`` device
+they then return empty outputs of the kernel's shapes and dtypes; on
+CUDA they still launch the kernel and on the CPU run the plain version.
+With no counter the wrappers pay one test of a module global.
 """
 
 from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 
 from . import ref
@@ -72,6 +83,134 @@ def kernel_stats() -> dict:
 def reset_kernel_stats() -> None:
     with _KSTATS_LOCK:
         _KERNEL_STATS.clear()
+
+
+# ---------------------------------------------------------------------------
+# counting by formula (the dry-run)
+# ---------------------------------------------------------------------------
+
+_COUNTER = None     # the active ``launch.op_cost.OpCounter``, or None
+
+
+def set_counter(counter):
+    """Make ``counter`` the active op counter (None: none); returns the
+    previous one."""
+    global _COUNTER
+    prev, _COUNTER = _COUNTER, counter
+    return prev
+
+
+def _count_call(fn, cost, *args, **kw):
+    """``fn(*args, **kw)`` with the counter inactive inside, its kernel's
+    (operations, bytes, empty outputs) from ``cost(*args, **kw)`` recorded
+    by formula; on ``meta`` inputs the empty outputs are the result."""
+    counter = set_counter(None)
+    try:
+        ops_, nbytes, empty = cost(*args, **kw)
+        with counter.kernel(fn.__name__, ops_, nbytes):
+            out = empty() if args[0].is_meta else fn(*args, **kw)
+    finally:
+        set_counter(counter)
+    counter.allocated(out)
+    return out
+
+
+def _scan_cost(B: int, b: int, W: int, n: int, m: int, q_sets: int,
+               verify: bool):
+    """(operations, bytes) of a scan or static verify launch: B databases
+    of (b, W, n) words and ``q_sets`` sets of m query columns read once,
+    B (m, n) planes in (the verify's base) and out; per (entry, query,
+    column) W·(b XOR + (b-1) OR + popc + add), plus add, compare and min
+    for the verify (``chip_smoke.py``'s ``batched_bound``)."""
+    planes = 3 if verify else 1
+    return (B * m * n * (W * (2 * b + 1) + (3 if verify else 0)),
+            4 * (B * b * W * n + q_sets * b * W * m + planes * B * m * n))
+
+
+def _int32_planes(shape, device, count: int):
+    """A maker of ``count`` empty int32 planes (a plane alone at 1)."""
+    def make():
+        out = tuple(torch.empty(shape, dtype=torch.int32, device=device)
+                    for _ in range(count))
+        return out if count > 1 else out[0]
+    return make
+
+
+def visible_pairs(Sq: int, Skv: int, causal: bool, window: int,
+                  q_offset: int) -> int:
+    """The (query, key) pairs a flash kernel's masks leave visible in one
+    (batch, head)."""
+    pos = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(pos + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(Sq)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _flash_fwd_cost(q, k, v, *, causal=True, window=0, q_offset=0,
+                    return_lse=False, **_):
+    """4·pairs·D operations (q·kᵀ and p·v); q, k, v read and the output
+    written once, the lse (float32) written where asked."""
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    pairs = B * H * visible_pairs(Sq, Skv, causal, window, q_offset)
+    es = q.element_size()
+    nbytes = es * (2 * B * H * Sq * D + 2 * B * H * Skv * D) + (
+        4 * B * H * Sq if return_lse else 0)
+
+    def empty():
+        out = torch.empty((B, Sq, H, D), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+        if not return_lse:
+            return out
+        return out, torch.empty((B, H, Sq), dtype=torch.float32,
+                                device=q.device)
+    return 4 * pairs * D, nbytes, empty
+
+
+def _flash_bwd_cost(q, k, v, out, lse, dout, *, causal=True, window=0,
+                    q_offset=0, **_):
+    """10·pairs·D operations (s recomputed, dp, dq, dk, dv); q, out, dout
+    and k, v read, dq, dk, dv written, the lse read."""
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    pairs = B * H * visible_pairs(Sq, Skv, causal, window, q_offset)
+    es = q.element_size()
+    nbytes = es * 4 * B * H * (Sq + Skv) * D + 4 * B * H * Sq
+
+    def empty():
+        return tuple(torch.empty((B, S, H, D), dtype=q.dtype,
+                                 device=q.device).transpose(1, 2)
+                     for S in (Sq, Skv, Skv))
+    return 10 * pairs * D, nbytes, empty
+
+
+def _scan_cost_call(db_vert, q_vert, **_):
+    b, W, n = db_vert.shape
+    m = q_vert.shape[-1]
+    return (*_scan_cost(1, b, W, n, m, 1, False),
+            _int32_planes((m, n), db_vert.device, 1))
+
+
+def _scan_batched_cost(db_vert, q_vert, **_):
+    B, b, W, n = db_vert.shape
+    m = q_vert.shape[-1]
+    return (*_scan_cost(B, b, W, n, m, q_vert.shape[0], False),
+            _int32_planes((B, m, n), db_vert.device, 1))
+
+
+def _verify_cost(paths_vert, q_vert, base_dist, **_):
+    b, W, n = paths_vert.shape
+    m = q_vert.shape[-1] if q_vert.dim() == 3 else 1
+    shape = (m, n) if q_vert.dim() == 3 else (n,)
+    return (*_scan_cost(1, b, W, n, m, 1, True),
+            _int32_planes(shape, paths_vert.device, 2))
+
+
+def _verify_batched_cost(paths_vert, q_vert, base_dist, **_):
+    B, b, W, n = paths_vert.shape
+    m = q_vert.shape[-1]
+    return (*_scan_cost(B, b, W, n, m, 1, True),
+            _int32_planes((B, m, n), paths_vert.device, 2))
 
 
 def to_lane_major(planes: torch.Tensor) -> torch.Tensor:
@@ -191,6 +330,10 @@ def hamming_distances(db_vert: torch.Tensor, q_vert: torch.Tensor,
                       use_kernel: bool | None = None) -> torch.Tensor:
     """(b, W, n) x (b, W, m) -> (m, n) int32 Hamming distances: the
     batch-1 case of ``hamming_distances_batched``."""
+    if _COUNTER is not None:
+        return _count_call(hamming_distances, _scan_cost_call, db_vert,
+                           q_vert, block_m=block_m, block_n=block_n,
+                           use_kernel=use_kernel)
     if not _on_kernel(db_vert, use_kernel):
         _count("hamming_distances", False)
         return ref.hamming_distances_ref(db_vert, q_vert)
@@ -208,6 +351,10 @@ def hamming_distances_batched(db_vert: torch.Tensor, q_vert: torch.Tensor,
     stride 0).  The MI-bST candidate verify passes its per-query
     candidate sets, (m, b, W, C) against (m, b, W, 1): one query per
     entry, so the kernel plays a query tile of one."""
+    if _COUNTER is not None:
+        return _count_call(hamming_distances_batched, _scan_batched_cost,
+                           db_vert, q_vert, block_m=block_m,
+                           block_n=block_n, use_kernel=use_kernel)
     if not _on_kernel(db_vert, use_kernel):
         _count("hamming_distances_batched", False)
         return ref.hamming_distances_batched_ref(db_vert, q_vert)
@@ -229,6 +376,11 @@ def sparse_verify_batch_batched(paths_vert: torch.Tensor,
     base_dist:  (B, m, n) per-entry prefix distances (BIG = pruned);
     returns ((B, m, n) int32 masks, (B, m, n) int32 totals, BIG-clamped).
     """
+    if _COUNTER is not None:
+        return _count_call(sparse_verify_batch_batched, _verify_batched_cost,
+                           paths_vert, q_vert, base_dist, tau=tau,
+                           block_m=block_m, block_n=block_n,
+                           use_kernel=use_kernel)
     base_dist = base_dist.to(torch.int32)
     if not _on_kernel(paths_vert, use_kernel):
         _count("sparse_verify_batch_batched", False)
@@ -251,6 +403,10 @@ def sparse_verify(paths_vert: torch.Tensor, q_vert: torch.Tensor,
     tombstone mask: dead lanes get a BIG base distance, so they are
     pruned exactly like subtries the traversal never reached.  The m=1
     case of the batched kernel."""
+    if _COUNTER is not None:
+        return _count_call(sparse_verify, _verify_cost, paths_vert, q_vert,
+                           base_dist, tau=tau, live=live, block_n=block_n,
+                           use_kernel=use_kernel)
     base_dist = base_dist.to(torch.int32)
     if live is not None:
         base_dist = torch.where(live, base_dist, BIG)
@@ -281,6 +437,11 @@ def sparse_verify_batch(paths_vert: torch.Tensor, q_vert: torch.Tensor,
                 dead lanes get a BIG base distance;
     returns ((m, n) int32 masks, (m, n) int32 exact totals, BIG-clamped).
     """
+    if _COUNTER is not None:
+        return _count_call(sparse_verify_batch, _verify_cost, paths_vert,
+                           q_vert, base_dist, tau=tau, live=live,
+                           block_m=block_m, block_n=block_n,
+                           use_kernel=use_kernel)
     base_dist = base_dist.to(torch.int32)
     if live is not None:
         base_dist = torch.where(live[None, :], base_dist, BIG)
@@ -564,6 +725,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On the card, bfloat16 runs the tensor-core kernel (P always rounded
     to bf16 for P·V; q, k and v need 16-byte aligned base pointers and
     (b, h, s) strides) and float32 the scalar kernel, exact to 2e-5."""
+    if _COUNTER is not None:
+        return _count_call(flash_attention_fwd, _flash_fwd_cost, q, k, v,
+                           causal=causal, window=window, cap=cap,
+                           scale=scale, q_offset=q_offset,
+                           return_lse=return_lse, tile_bf16=tile_bf16,
+                           use_kernel=use_kernel)
     name = "flash_attention_fwd"
     _check_flash(name, q, k, v, window, cap)
     B, H, Sq, D = q.shape
@@ -656,6 +823,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     their base or strides fail ``_tma_ok``.  float32 runs the scalar
     kernels.  One count per call.  On the CPU the plain
     ``ref.flash_attention_bwd_ref``."""
+    if _COUNTER is not None:
+        return _count_call(flash_attention_bwd, _flash_bwd_cost, q, k, v,
+                           out, lse, dout, causal=causal, window=window,
+                           cap=cap, scale=scale, q_offset=q_offset,
+                           tile_bf16=tile_bf16, use_kernel=use_kernel)
     name = "flash_attention_bwd"
     _check_flash(name, q, k, v, window, cap)
     B, H, Sq, D = q.shape

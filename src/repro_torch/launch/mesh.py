@@ -11,7 +11,14 @@ rank's coordinates, one process group per axis (a
 ``device_mesh``) and the explicit collectives the SPMD bodies call.
 ``AbstractMesh`` is the shape alone: ``make_production_mesh`` keeps the
 reference's 256- and 512-rank meshes as one, so the sharding rules and
-the dry-run read them without that many ranks.
+the dry-run read them without that many ranks.  ``CountingMesh`` is an
+``AbstractMesh`` with coordinates (0 by default) whose collectives
+compute nothing: ``all_reduce`` returns its input, ``all_gather`` an
+empty tensor of the gathered shape, and each call is recorded in
+``Mesh.stats``' form — so the expert-parallel MoE, the sequence-split
+decode, the global loss and the gradient reductions run at one rank's
+shapes of a 256- or 512-rank mesh with no process group (the dry-run,
+``launch/dryrun.py``).
 
 Every function here starts nothing when the module is imported.
 ``init_distributed`` starts the process group from the environment that
@@ -118,6 +125,49 @@ class Mesh(AbstractMesh):
         self._record(f"all_gather:{axis}", n * x.numel() * x.element_size(),
                      t0)
         return torch.cat(parts, dim=dim)
+
+
+class CountingMesh(AbstractMesh):
+    """One rank's view of a mesh with no group behind it (module doc).
+    ``stats`` is ``Mesh.stats``' (seconds 0); ``calls`` lists every call
+    as (op, axis, operand bytes, result bytes, result shape)."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 coords: Optional[Dict[str, int]] = None):
+        super().__init__(shape, axes)
+        self.coords: Dict[str, int] = dict(
+            coords or {a: 0 for a in self.axis_names})
+        self.stats: Dict[str, list] = {}
+        self.calls: list = []
+
+    def coord(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def _record(self, op: str, axis: str, stat: int, operand: int,
+                result: int, shape) -> None:
+        s = self.stats.setdefault(f"{op}:{axis}", [0, 0, 0.0])
+        s[0] += 1
+        s[1] += stat
+        self.calls.append((op, axis, operand, result, tuple(shape)))
+
+    def all_reduce(self, x: torch.Tensor, axes, op: str = "sum"
+                   ) -> torch.Tensor:
+        for axis in ([axes] if isinstance(axes, str) else axes):
+            if self.shape.get(axis, 1) > 1:
+                nb = x.numel() * x.element_size()
+                self._record(f"all_reduce_{op}", axis, nb, nb, nb, x.shape)
+        return x
+
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int = 0
+                   ) -> torch.Tensor:
+        n = self.shape.get(axis, 1)
+        if n == 1:
+            return x
+        shape = list(x.shape)
+        shape[dim] *= n
+        nb = x.numel() * x.element_size()
+        self._record("all_gather", axis, n * nb, nb, n * nb, shape)
+        return x.new_empty(shape)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:

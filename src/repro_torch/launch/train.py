@@ -1,6 +1,16 @@
 """Training driver: ``python -m repro_torch.launch.train --arch
-smollm-135m`` — the port of the JAX package's ``launch/train.py`` on one
-device, with no mesh.
+smollm-135m`` — the port of the JAX package's ``launch/train.py``.
+
+The loop runs under ``use_mesh(make_host_mesh())``, as the JAX driver's
+does: one process without a process group is a mesh of one rank; under
+``python -m torch.distributed.run --nproc-per-node N`` every rank joins
+a ("data",) mesh of N ranks (``launch.mesh.init_distributed``: nccl when
+each rank has a card, gloo when they share one or run on the CPU),
+holds its shards of the training placement (FSDP over "data") and takes
+its rows of every step's batch (``batch_coord``); rank 0 prints and
+writes the checkpoints, which stay logical (whole arrays), so a run
+resumes on another number of ranks.  At the end every rank prints its
+flash and verify launches (``kernels.ops.kernel_stats``).
 
 Wires together the substrate: the sketch-dedup'd data pipeline
 (``--dedup``: each step's candidates are minhashed on the device and
@@ -23,6 +33,7 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..configs.registry import ARCH_IDS, get_config
 from ..core.hamming import resolve_device
@@ -30,6 +41,10 @@ from ..data.pipeline import DataConfig, SketchDedupPipeline
 from ..distributed.checkpoint import AsyncCheckpointer
 from ..distributed.fault_tolerance import (FailurePlan, SimulatedFailure,
                                            StragglerMonitor, resume_or_init)
+from ..distributed.sharding import shard_state, use_mesh
+from ..kernels import ops
+from ..launch.mesh import batch_coord, dp_shards, init_distributed, \
+    make_host_mesh
 from ..models import model as M
 from ..optim.adamw import Hyper, abstract_opt_state, adamw_init
 from ..train.steps import make_train_step
@@ -38,7 +53,8 @@ from ..train.steps import make_train_step
 def main(argv=None, on_step=None):
     """Run the loop; returns 0, or 13 from the drill.  ``on_step(step,
     metrics)``, when given, sees every step's metrics (0-d tensors on the
-    device) as the step returns them."""
+    device) as the step returns them.  A caller that started a process
+    group itself runs the loop over all its ranks."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m", choices=list(ARCH_IDS))
     ap.add_argument("--smoke", action="store_true",
@@ -61,6 +77,27 @@ def main(argv=None, on_step=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    started = not dist.is_initialized() and init_distributed(args.device)
+    try:
+        mesh = make_host_mesh()
+        with use_mesh(mesh):
+            return _loop(args, dev, mesh, on_step)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _loop(args, dev, mesh, on_step):
+    n, coord = dp_shards(mesh), batch_coord(mesh)
+    if args.batch % n:
+        raise ValueError(f"batch {args.batch} does not split over {n} ranks")
+    rows = args.batch // n
+    lead = coord == 0
+
+    def say(*a, **kw):
+        if lead:
+            print(*a, **kw)
+
     cfg = get_config(args.arch, smoke=args.smoke)
     hyper = Hyper(base_lr=args.lr, warmup_steps=max(args.steps // 20, 2),
                   total_steps=args.steps)
@@ -74,39 +111,45 @@ def main(argv=None, on_step=None):
         compute_dtype=torch.float32 if dev.type == "cpu" else torch.bfloat16)
 
     abstract = M.abstract_params(cfg)
-    ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
+    specs, _ = M.placement(cfg, mesh)
+    ckpt = AsyncCheckpointer(args.ckpt_dir, mesh=mesh) if args.ckpt_dir \
+        else None
     plan = FailurePlan(args.fail_at) if args.fail_at >= 0 else None
     monitor = StragglerMonitor(n_workers=1)
 
     def init():
-        return M.init_params(torch.Generator().manual_seed(args.seed), cfg,
-                             device=dev)
+        return shard_state(M.init_params(
+            torch.Generator().manual_seed(args.seed), cfg, device=dev), mesh)
 
     if args.ckpt_dir:
         state_abs = {"params": abstract, "opt": abstract_opt_state(abstract)}
         state, start = resume_or_init(
             args.ckpt_dir, state_abs, lambda: {"params": init(), "opt": None},
-            device=dev)
+            device=dev, mesh=mesh)
         params = state["params"]
         opt = state["opt"] if start else adamw_init(params)
         if start:
-            print(f"[resume] from step {start}")
+            say(f"[resume] from step {start}")
     else:
         params, start = init(), 0
         opt = adamw_init(params)
 
+    before = ops.kernel_stats()
     t_last = time.time()
     for step in range(start, args.steps):
         if plan is not None:
             try:
                 plan.maybe_fail(step)
             except SimulatedFailure as e:
-                print(f"[drill] {e}; exiting non-zero for the restart "
-                      "wrapper")
+                say(f"[drill] {e}; exiting non-zero for the restart "
+                    "wrapper")
                 if ckpt:
                     ckpt.wait()
                 return 13
         batch = data.batch_for_step(step)
+        if n > 1:
+            batch = {k: v[coord * rows:(coord + 1) * rows]
+                     for k, v in batch.items()}
         params, opt, metrics = step_fn(params, opt, batch)
         if on_step is not None:
             on_step(step, metrics)
@@ -114,15 +157,19 @@ def main(argv=None, on_step=None):
             dt = time.time() - t_last
             t_last = time.time()
             monitor.observe([dt])
-            print(f"step {step + 1:5d}  loss {float(metrics['loss']):.4f}"
-                  f"  gnorm {float(metrics['grad_norm']):.3f}"
-                  f"  lr {float(metrics['lr']):.2e}  ({dt:.2f}s)",
-                  flush=True)
+            say(f"step {step + 1:5d}  loss {float(metrics['loss']):.4f}"
+                f"  gnorm {float(metrics['grad_norm']):.3f}"
+                f"  lr {float(metrics['lr']):.2e}  ({dt:.2f}s)",
+                flush=True)
         if ckpt and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(step + 1, {"params": params, "opt": opt})
+            ckpt.save(step + 1, {"params": params, "opt": opt}, specs)
     if ckpt:
         ckpt.wait()
-    print("train: done")
+    launched = {k: v - before.get(k, 0) for k, v in ops.kernel_stats().items()
+                if k.startswith(("flash_attention", "sparse_verify_batch"))}
+    print(f"[rank {coord}] kernel launches over {args.steps - start} "
+          f"steps: {launched}", flush=True)
+    say("train: done")
     return 0
 
 

@@ -193,6 +193,17 @@ def normal(generator: torch.Generator | None, *shape) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=generator.device)
 
 
+def scaled_normal(generator: torch.Generator | None, scale: float, dtype,
+                  *shape) -> torch.Tensor:
+    """``normal`` draws times ``scale``, cast to ``dtype``; with no
+    generator an empty ``meta`` tensor of that shape and dtype.  No
+    arithmetic runs on ``meta``: torch's elementwise ops there import its
+    compiler stack, seconds of host time on the first call."""
+    if generator is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return (normal(generator, *shape) * scale).to(dtype)
+
+
 def mlp_init(generator: torch.Generator | None, d_model: int, d_ff: int,
              dtype) -> dict:
     """The gated MLP's three matrices, drawn from ``generator`` (on its
@@ -200,9 +211,9 @@ def mlp_init(generator: torch.Generator | None, d_model: int, d_ff: int,
     s_in = 1.0 / np.sqrt(d_model)
     s_out = 1.0 / np.sqrt(d_ff)
     return {
-        "w_gate": (normal(generator, d_model, d_ff) * s_in).to(dtype),
-        "w_up": (normal(generator, d_model, d_ff) * s_in).to(dtype),
-        "w_down": (normal(generator, d_ff, d_model) * s_out).to(dtype),
+        "w_gate": scaled_normal(generator, s_in, dtype, d_model, d_ff),
+        "w_up": scaled_normal(generator, s_in, dtype, d_model, d_ff),
+        "w_down": scaled_normal(generator, s_out, dtype, d_ff, d_model),
     }
 
 

@@ -33,7 +33,7 @@ rows of the batch, as the JAX package's do under ``use_mesh``:
 
   * with a "model" axis the MoE blocks take the expert-parallel path
     (``moe_sharded.moe_apply_sharded``; their weights are the rank's
-    shards, ``shard_params``), and a config with
+    shards, ``distributed.sharding.shard_state``), and a config with
     ``decode_kv_shard="seq"`` keeps each rank's slice of the sequence
     axis of every non-rolling KV cache (``init_cache``, ``prefill``) and
     decodes through ``decode_sp.decode_attention_seq_sharded``;
@@ -44,9 +44,33 @@ rows of the batch, as the JAX package's do under ``use_mesh``:
     so capacity and drops are the global batch's (``moe.moe_apply``'s
     ``mesh=``).
 
-The dense layers run whole on every rank: the JAX package's
-``constrain`` annotations have no counterpart (``distributed/
-sharding.py`` says why).
+Training runs under a mesh too (``train.steps.make_train_step``):
+``forward`` and ``loss_fn`` take ``moe_groups`` as the JAX package's do,
+the parameters are the rank's shards of the training placement
+(``distributed.sharding.shard_state``: FSDP over "data", experts over
+"model"), and
+
+  * each unit gathers its FSDP-sharded leaves over "data" *inside* its
+    ``checkpoint`` region (``moe_sharded._GatherData``: an all-gather
+    whose backward sums the gradient over "data" and keeps the rank's
+    slice), so remat re-gathers them in the backward, as XLA
+    rematerialises an FSDP all-gather, and no whole weight is saved for
+    the backward; the top-level leaves (embedding, final norm, LM head)
+    are gathered once a call.  The parameters arrive already cast to the
+    compute type (``train.steps.cast_for_compute``), so the gathers carry
+    bf16 on the card, as the JAX package's ``distributed/compression.py``
+    tier 1 says, and so does the gradient's reduction over "data" (the
+    gradient of the compute copy, cast to float32 after it);
+  * ``loss_fn`` returns the global mean: Σ nll and Σ mask, each summed
+    over (pod, data) — not the mean of the ranks' means, which differs
+    wherever the ranks' unmasked counts differ.  The sum's backward is
+    the identity, so each rank's gradients are its rows' share, summed
+    over the ranks by the train step.
+
+A leaf whose shape is already whole (serving with a data axis of 1, the
+divisibility fallback) is not gathered.  The dense layers run whole on
+every model rank: the JAX package's ``constrain`` annotations have no
+counterpart (``distributed/sharding.py`` says why).
 """
 
 from __future__ import annotations
@@ -58,15 +82,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.hamming import resolve_device
-from ..distributed.sharding import dp_shards, get_global_mesh
+from ..distributed.sharding import dp_shards, get_global_mesh, train_specs
 from .config import ModelConfig
 from .decode_sp import decode_attention_seq_sharded
 from .flash import flash_attention
 from .layers import (Params, apply_rope, blockwise_attention,
                      decode_attention, mlp_apply, mlp_init, normal, rms_norm,
-                     softcap)
+                     scaled_normal, softcap)
 from .moe import moe_apply, moe_init
-from .moe_sharded import moe_apply_sharded, shard_moe_params
+from .moe_sharded import _GatherData, moe_apply_sharded
 from .ssm import (SSMCache, SSMConfig, ssm_apply, ssm_cache_init,
                   ssm_decode_step, ssm_init, ssm_prefill_cache)
 
@@ -105,10 +129,10 @@ def _attn_layer_init(gen: Optional[torch.Generator], cfg: ModelConfig,
     dev = gen.device if gen is not None else torch.device("meta")
     p = {
         "ln1": torch.zeros((d,), dtype=dtype, device=dev),
-        "wq": (normal(gen, d, H, hd) * s).to(dtype),
-        "wk": (normal(gen, d, Kv, hd) * s).to(dtype),
-        "wv": (normal(gen, d, Kv, hd) * s).to(dtype),
-        "wo": (normal(gen, H, hd, d) * so).to(dtype),
+        "wq": scaled_normal(gen, s, dtype, d, H, hd),
+        "wk": scaled_normal(gen, s, dtype, d, Kv, hd),
+        "wv": scaled_normal(gen, s, dtype, d, Kv, hd),
+        "wo": scaled_normal(gen, so, dtype, H, hd, d),
         "ln2": torch.zeros((d,), dtype=dtype, device=dev),
     }
     if cfg.n_experts:
@@ -145,8 +169,9 @@ def _param_tree(gen: Optional[torch.Generator], cfg: ModelConfig) -> dict:
         tree["shared"] = _attn_layer_init(gen, cfg, dtype)
     tree["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype, device=dev)
     if not cfg.tie_embeddings or cfg.inputs_embeds:
-        tree["lm_head"] = (normal(gen, cfg.d_model, cfg.vocab)
-                           / np.sqrt(cfg.d_model)).to(dtype)
+        head = normal(gen, cfg.d_model, cfg.vocab)
+        tree["lm_head"] = (head if gen is None      # no arithmetic on meta
+                           else head / np.sqrt(cfg.d_model)).to(dtype)
     return tree
 
 
@@ -200,20 +225,77 @@ def params_from_jax(params: dict, cfg: ModelConfig, *,
     return Params(tree)
 
 
-def shard_params(params: Params, cfg: ModelConfig, mesh) -> Params:
-    """This rank's parameters under ``mesh``: with a "model" axis every
-    MoE block's router and experts are the rank's shards
-    (``moe_sharded.shard_moe_params``), the rest whole; without one, the
-    parameters themselves.  The result holds no reference to the whole
-    expert weights, so dropping ``params`` frees them."""
-    if not (cfg.n_experts and "model" in mesh.axis_names):
+_PLACEMENTS: dict = {}
+
+
+def placement(cfg: ModelConfig, mesh) -> Tuple[dict, dict]:
+    """({name: spec}, {name: whole shape}) of the training placement of
+    ``cfg``'s parameters under ``mesh`` (cached per config and mesh
+    shape)."""
+    key = (cfg, mesh.axis_names, tuple(mesh.shape[a]
+                                       for a in mesh.axis_names))
+    if key not in _PLACEMENTS:
+        abstract = abstract_params(cfg)
+        _PLACEMENTS[key] = (train_specs(abstract, mesh),
+                            {n: tuple(p.shape)
+                             for n, p in abstract.named_parameters()})
+    return _PLACEMENTS[key]
+
+
+def _gathered(tree, prefix: str, cfg: ModelConfig, mesh):
+    """``tree`` (a ``Params`` or a nested dict) with every FSDP shard
+    gathered whole over "data" (``_GatherData``); a leaf already whole is
+    kept.  ``prefix`` names the tree's leaves as the training placement
+    does (a unit's as unit 0's: every unit has the same).  With a "model"
+    axis the MoE blocks are left to ``moe_apply_sharded``, which gathers
+    its own shards."""
+    specs, shapes = placement(cfg, mesh)
+    skip_moe = "model" in mesh.axis_names
+
+    def walk(t, name):
+        if isinstance(t, Params):
+            t = t.tree(detach=False)
+        if isinstance(t, dict):
+            if skip_moe and name.endswith("moe."):
+                return t
+            return {k: walk(v, f"{name}{k}.") for k, v in t.items()}
+        if tuple(t.shape) == shapes[name[:-1]]:
+            return t
+        for dim, entry in enumerate(specs[name[:-1]]):
+            if entry is not None:           # "data": the only axis cut here
+                t = _GatherData.apply(t, mesh, dim)
+        return t
+
+    return walk(tree, prefix)
+
+
+def _fsdp_mesh():
+    """The global mesh when its "data" axis splits parameters, else None."""
+    mesh = get_global_mesh()
+    return mesh if mesh is not None and mesh.shape.get("data", 1) > 1 \
+        else None
+
+
+def _whole_top(params, cfg: ModelConfig, mesh):
+    """``params`` read with its top-level leaves (embedding, final norm,
+    LM head) gathered whole; the units and the shared block untouched
+    (gathered per unit)."""
+    if mesh is None:
         return params
-    tree = params.tree()
-    for unit in tree["units"]:
-        for layer in unit.values():
-            if "moe" in layer:
-                layer["moe"] = shard_moe_params(layer["moe"], mesh)
-    return Params(tree)
+    keys = (list(params._parameters) + list(params._modules)
+            if isinstance(params, Params) else list(params))
+    return {k: params[k] if k in ("units", "shared")
+            else _gathered(params[k], f"{k}.", cfg, mesh) for k in keys}
+
+
+def _whole_unit(unit, cfg: ModelConfig, mesh):
+    return unit if mesh is None else _gathered(unit, "units.0.", cfg, mesh)
+
+
+def _whole_shared(params, cfg: ModelConfig, mesh):
+    shared = params["shared"]
+    return shared if mesh is None else _gathered(shared, "shared.", cfg,
+                                                 mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -404,27 +486,33 @@ def _lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return softcap(logits.to(torch.float32), cfg.softcap_final)
 
 
-def forward(params, cfg: ModelConfig, batch: Dict, *,
+def forward(params, cfg: ModelConfig, batch: Dict, *, moe_groups: int = 1,
             remat: bool = False) -> torch.Tensor:
     """Full-sequence forward -> (B, S, vocab) f32 logits, differentiable
     in the parameters.  ``remat`` recomputes each unit's activations in
     the backward (``torch.utils.checkpoint`` per unit, the JAX package's
-    ``jax.checkpoint`` around its scanned unit)."""
+    ``jax.checkpoint`` around its scanned unit); under a mesh each unit
+    gathers its FSDP shards inside that region (module doc)."""
+    mesh = _fsdp_mesh()
+    params = _whole_top(params, cfg, mesh)
     x = embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :]
 
     def unit_fn(h, unit):
+        unit = _whole_unit(unit, cfg, mesh)
         for pos in range(cfg.period):
             kind = _layer_kind(cfg, pos)
             if kind == "ssm":
                 h, _ = _ssm_layer(unit[f"l{pos}"], h, cfg)
             else:
                 h, _ = _attn_layer(unit[f"l{pos}"], h, cfg, kind,
-                                   positions=positions)
+                                   positions=positions,
+                                   moe_groups=moe_groups)
         if _has_shared(cfg):
-            h, _ = _attn_layer(params["shared"], h, cfg, "global",
-                               positions=positions)
+            h, _ = _attn_layer(_whole_shared(params, cfg, mesh), h, cfg,
+                               "global", positions=positions,
+                               moe_groups=moe_groups)
         return h
 
     for unit in params["units"]:
@@ -433,22 +521,40 @@ def forward(params, cfg: ModelConfig, batch: Dict, *,
     return _lm_logits(params, cfg, x)
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
+class _SumRanks(torch.autograd.Function):
+    """All-reduce (sum) over (pod, data); the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x.clone(), ("pod", "data"))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict, *, moe_groups: int = 1,
             remat: bool = False) -> torch.Tensor:
     """Mean next-token (or frame-label) cross entropy, a float32 scalar.
 
     LM batches: {"tokens" (B,S), "targets" (B,S)} — targets are the
     pipeline-shifted next tokens; positions with target < 0 are masked.
-    Frontend-stub batches: {"embeds" (B,S,d), "targets" (B,S)}.
+    Frontend-stub batches: {"embeds" (B,S,d), "targets" (B,S)}.  Under a
+    mesh, ``batch`` is this rank's rows and the mean is the global
+    batch's (module doc): every rank returns the same value.
     """
-    logits = forward(params, cfg, batch, remat=remat)
+    logits = forward(params, cfg, batch, moe_groups=moe_groups, remat=remat)
     targets = batch["targets"]
     mask = (targets >= 0).to(torch.float32)
     t_safe = torch.clamp(targets, min=0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, t_safe[..., None])[..., 0]
     nll = (logz - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    mesh = get_global_mesh()
+    if mesh is None:
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    sums = _SumRanks.apply(torch.stack([nll.sum(), mask.sum()]), mesh)
+    return sums[0] / torch.clamp(sums[1], min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -496,6 +602,8 @@ def prefill(params, cfg: ModelConfig, batch: Dict, *,
     """Forward + emit caches.  Returns (last-position logits (B, vocab)
     f32, cache, cache_len); under a mesh that splits the sequence each
     non-rolling KV cache is this rank's slice (``init_cache``)."""
+    mesh = _fsdp_mesh()
+    params = _whole_top(params, cfg, mesh)
     x = embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
     s_max = s_max or S
@@ -523,6 +631,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict, *,
 
     cache: Cache = []
     for unit in params["units"]:
+        unit = _whole_unit(unit, cfg, mesh)
         caches = {}
         for pos in range(cfg.period):
             kind = _layer_kind(cfg, pos)
@@ -535,9 +644,9 @@ def prefill(params, cfg: ModelConfig, batch: Dict, *,
                                 emit_cache=True)
             caches[f"l{pos}"] = pad_kv(kv, kind)
         if _has_shared(cfg):
-            x, kv = _attn_layer(params["shared"], x, cfg, "global",
-                                positions=positions, moe_groups=moe_groups,
-                                emit_cache=True)
+            x, kv = _attn_layer(_whole_shared(params, cfg, mesh), x, cfg,
+                                "global", positions=positions,
+                                moe_groups=moe_groups, emit_cache=True)
             caches["shared"] = pad_kv(kv, "global")
         cache.append(caches)
     logits = _lm_logits(params, cfg, x[:, -1:])
@@ -553,8 +662,11 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     caches replaced in the same list."""
     cache_len = int(cache_len)
     batch = {"tokens": tokens} if not cfg.inputs_embeds else {"embeds": tokens}
+    mesh = _fsdp_mesh()
+    params = _whole_top(params, cfg, mesh)
     x = embed_inputs(params, cfg, batch)
     for unit, ucache in zip(params["units"], cache):
+        unit = _whole_unit(unit, cfg, mesh)
         for pos in range(cfg.period):
             kind = _layer_kind(cfg, pos)
             if kind == "ssm":
@@ -566,8 +678,8 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                                        cache_len=cache_len,
                                        moe_groups=moe_groups)
         if _has_shared(cfg):
-            x = _attn_layer_decode(params["shared"], x, cfg, "global",
-                                   cache=ucache["shared"],
+            x = _attn_layer_decode(_whole_shared(params, cfg, mesh), x, cfg,
+                                   "global", cache=ucache["shared"],
                                    cache_len=cache_len,
                                    moe_groups=moe_groups)
     logits = _lm_logits(params, cfg, x)

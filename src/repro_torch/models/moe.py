@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.sharding import batch_coord, dp_shards
-from .layers import act_fn, normal
+from .layers import act_fn, scaled_normal
 
 
 def moe_init(gen, d_model: int, n_experts: int, moe_d_ff: int,
@@ -49,17 +49,17 @@ def moe_init(gen, d_model: int, n_experts: int, moe_d_ff: int,
     s_out = 1.0 / np.sqrt(moe_d_ff)
     E = n_experts
     params = {
-        "router": (normal(gen, d_model, E) * s_in).to(torch.float32),
-        "w_gate": (normal(gen, E, d_model, moe_d_ff) * s_in).to(dtype),
-        "w_up": (normal(gen, E, d_model, moe_d_ff) * s_in).to(dtype),
-        "w_down": (normal(gen, E, moe_d_ff, d_model) * s_out).to(dtype),
+        "router": scaled_normal(gen, s_in, torch.float32, d_model, E),
+        "w_gate": scaled_normal(gen, s_in, dtype, E, d_model, moe_d_ff),
+        "w_up": scaled_normal(gen, s_in, dtype, E, d_model, moe_d_ff),
+        "w_down": scaled_normal(gen, s_out, dtype, E, moe_d_ff, d_model),
     }
     if n_shared:
         ff_sh = n_shared * moe_d_ff
         params["shared"] = {
-            "w_gate": (normal(gen, d_model, ff_sh) * s_in).to(dtype),
-            "w_up": (normal(gen, d_model, ff_sh) * s_in).to(dtype),
-            "w_down": (normal(gen, ff_sh, d_model) * s_out).to(dtype),
+            "w_gate": scaled_normal(gen, s_in, dtype, d_model, ff_sh),
+            "w_up": scaled_normal(gen, s_in, dtype, d_model, ff_sh),
+            "w_down": scaled_normal(gen, s_out, dtype, ff_sh, d_model),
         }
     return params
 

@@ -94,7 +94,8 @@ class _FromModel(torch.autograd.Function):
 
 class _GatherData(torch.autograd.Function):
     """All-gather over "data" on ``dim``; the backward sums the gradient
-    over "data" and keeps this rank's slice (a reduce-scatter)."""
+    over "data" and keeps this rank's slice (a reduce-scatter), copied so
+    that the whole gradient is freed once the slice is taken."""
 
     @staticmethod
     def forward(ctx, w, mesh, dim):
@@ -105,7 +106,7 @@ class _GatherData(torch.autograd.Function):
     def backward(ctx, g):
         g = ctx.mesh.all_reduce(g.contiguous(), "data")
         i = ctx.mesh.coord("data")
-        return g.narrow(ctx.dim, i * ctx.size, ctx.size), None, None
+        return g.narrow(ctx.dim, i * ctx.size, ctx.size).clone(), None, None
 
 
 def _gather(w, mesh, dim):

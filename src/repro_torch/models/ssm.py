@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.hamming import resolve_device
-from .layers import normal, rms_norm
+from .layers import rms_norm, scaled_normal
 
 
 class SSMConfig(NamedTuple):
@@ -57,13 +57,16 @@ def ssm_init(gen, cfg: SSMConfig, dtype) -> dict:
     dev = gen.device if gen is not None else torch.device("meta")
 
     def uniform(lo, hi):
-        if gen is None:
-            return torch.empty((H,), device=dev)
         return lo + (hi - lo) * torch.rand((H,), generator=gen, device=dev)
 
-    a = uniform(1.0, 16.0)
-    dt = torch.exp(uniform(np.log(1e-3), np.log(0.1)))
-    dt_bias = dt + torch.log(-torch.expm1(-dt))          # inverse softplus
+    if gen is None:         # shapes only: no arithmetic on ``meta``
+        a_log, dt_bias, skip = (torch.empty((H,), device=dev)
+                                for _ in range(3))
+    else:
+        a_log = torch.log(uniform(1.0, 16.0))
+        dt = torch.exp(uniform(np.log(1e-3), np.log(0.1)))
+        dt_bias = dt + torch.log(-torch.expm1(-dt))      # inverse softplus
+        skip = torch.ones((H,), device=dev)
 
     def taps(width):
         w = torch.zeros((K, width), dtype=dtype, device=dev)
@@ -74,21 +77,21 @@ def ssm_init(gen, cfg: SSMConfig, dtype) -> dict:
         return torch.zeros(shape, dtype=dt, device=dev)
 
     return {
-        "wz": (normal(gen, d, di) * s_in).to(dtype),
-        "wx": (normal(gen, d, di) * s_in).to(dtype),
-        "wB": (normal(gen, d, N) * s_in).to(dtype),
-        "wC": (normal(gen, d, N) * s_in).to(dtype),
-        "wdt": (normal(gen, d, H) * s_in).to(dtype),
-        "out_proj": (normal(gen, di, d) * s_out).to(dtype),
+        "wz": scaled_normal(gen, s_in, dtype, d, di),
+        "wx": scaled_normal(gen, s_in, dtype, d, di),
+        "wB": scaled_normal(gen, s_in, dtype, d, N),
+        "wC": scaled_normal(gen, s_in, dtype, d, N),
+        "wdt": scaled_normal(gen, s_in, dtype, d, H),
+        "out_proj": scaled_normal(gen, s_out, dtype, di, d),
         "conv_x": taps(di),
         "conv_bx": zeros(di),
         "conv_B": taps(N),
         "conv_bB": zeros(N),
         "conv_C": taps(N),
         "conv_bC": zeros(N),
-        "A_log": torch.log(a).to(torch.float32),
-        "D": (zeros(H, dt=torch.float32) + 1.0),
-        "dt_bias": dt_bias.to(torch.float32),
+        "A_log": a_log,
+        "D": skip,
+        "dt_bias": dt_bias,
         "norm": zeros(di),
     }
 

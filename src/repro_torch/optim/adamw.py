@@ -94,27 +94,53 @@ def cosine_lr(step: torch.Tensor, h: Hyper) -> torch.Tensor:
     return h.base_lr * torch.where(step < h.warmup_steps, warm, cos)
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves(tree)))
+def global_norm(tree: Tree, *, mesh=None, split=None) -> torch.Tensor:
+    """The global L2 norm of ``tree``'s leaves.  Under a mesh the leaves
+    are the rank's shards and ``split`` gives, leaf by leaf, the mesh
+    axes that split it (``distributed.sharding.split_axes``): each
+    group of leaves split alike sums its squares, the sum is reduced
+    over the axes that split the group — never over those that
+    replicate it, where it would count m times — and the groups are
+    added, so every rank holds the same norm."""
+    xs = leaves(tree)
+    if mesh is None or not any(split):
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in xs))
+    groups: dict = {}
+    for x, axes in zip(xs, split):
+        groups.setdefault(tuple(axes), []).append(
+            torch.sum(torch.square(x.to(torch.float32))))
+    total = 0.0
+    for axes in sorted(groups):              # the same order on every rank
+        part = sum(groups[axes])
+        total = total + (mesh.all_reduce(part, axes) if axes else part)
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float
+def clip_by_global_norm(grads: Tree, max_norm: float, *, mesh=None,
+                        split=None
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """(the grads scaled to a global norm of at most ``max_norm``, as a
-    list in ``leaves`` order; the norm before)."""
-    norm = global_norm(grads)
+    list in ``leaves`` order; the norm before).  ``mesh`` and ``split``
+    as ``global_norm``'s: the scale is one number on every rank."""
+    norm = global_norm(grads, mesh=mesh, split=split)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return [g * scale for g in leaves(grads)], norm
 
 
 @torch.no_grad()
 def adamw_update(grads: Tree, state: AdamWState, params: Params,
-                 h: Hyper) -> Tuple[Params, AdamWState, dict]:
+                 h: Hyper, *, mesh=None, split=None
+                 ) -> Tuple[Params, AdamWState, dict]:
     """One clipped AdamW step, written into ``params``, ``state.mu`` and
-    ``state.nu``.  Returns (params, the new state, {"lr", "grad_norm"})."""
+    ``state.nu``.  Returns (params, the new state, {"lr", "grad_norm"}).
+    Under a mesh (``mesh``, ``split``: ``global_norm``'s) the tensors are
+    the rank's shards and the gradients already reduced over the ranks;
+    the norm is the global one and the update stays elementwise on the
+    shard."""
     grads = [g.to(torch.float32) for g in leaves(grads)]
-    grads, gnorm = clip_by_global_norm(grads, h.clip_norm)
+    grads, gnorm = clip_by_global_norm(grads, h.clip_norm, mesh=mesh,
+                                       split=split)
     step = state.step + 1
     lr = cosine_lr(step, h)
     b1c = 1 - h.b1 ** step.to(torch.float32)

@@ -9,12 +9,24 @@ The AdamW update (``optim.adamw``) then writes the masters and the
 moments in place.  ``make_eval_step``, ``make_prefill_step`` and
 ``make_decode_step`` run the same cast without gradients.
 
-The prefill and decode steps take ``moe_groups`` as the JAX package's
-do and run under the caller's mesh (``distributed.sharding.use_mesh``;
-``models/model.py`` says what a mesh changes).  Training under a mesh
-of several ranks (the gradient reduction over the data axis) is not
-ported yet, and the train and eval steps route each MoE block as one
-group.
+Every step takes ``moe_groups`` as the JAX package's do and runs under
+the caller's mesh (``distributed.sharding.use_mesh``; ``models/model.py``
+says what a mesh changes).  Under a mesh the train step takes this
+rank's shards of the training placement (``distributed.sharding.
+shard_state`` cuts the parameters and the optimizer state alike)
+and this rank's rows of the batch (``batch_coord``); microbatches split
+those rows.  After the backward:
+
+  * the leaves kept whole over "data" (the norms, the biases, any leaf
+    the divisibility fallback leaves whole) have their gradients summed
+    over "pod" and "data", in one flat all-reduce;
+  * the FSDP and expert leaves, whose gathers' backward already summed
+    over "data", are summed over "pod" (a pure data-parallel axis);
+  * the clip's norm is the global one (``optim.adamw.global_norm``);
+    the update stays elementwise on the rank's shards.
+
+The gradients' reduction carries float32 (the masters' gradients); the
+gathers' own backward carries the compute type.
 """
 
 from __future__ import annotations
@@ -23,6 +35,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..distributed.sharding import get_global_mesh, split_axes
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..models.layers import Params, jax_ndim
@@ -69,19 +82,48 @@ def _split_microbatches(batch: Dict, num: int):
     return [{k: v[i] for k, v in split_batch.items()} for i in range(num)]
 
 
+def _sum_over(mesh, grads: list, axes) -> list:
+    """``grads`` summed over ``axes`` in one flat all-reduce (a no-op
+    where every axis has size 1)."""
+    if not grads or all(mesh.shape.get(a, 1) == 1 for a in axes):
+        return grads
+    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]), axes)
+    return [x.view_as(g) for x, g in zip(flat.split([g.numel()
+                                                     for g in grads]),
+                                         grads)]
+
+
+def _reduce_grads(cfg: ModelConfig, mesh, names: list, grads: list):
+    """The rank's gradients summed over the ranks that hold the same
+    slice (module doc); returns them and each leaf's split axes."""
+    specs, _ = M.placement(cfg, mesh)
+    split = [split_axes(specs[n]) for n in names]
+    whole = [i for i, s in enumerate(split) if "data" not in s]
+    cut = [i for i, s in enumerate(split) if "data" in s]
+    out = list(grads)
+    for idx, axes in ((whole, ("pod", "data")), (cut, ("pod",))):
+        for i, g in zip(idx, _sum_over(mesh, [grads[i] for i in idx], axes)):
+            out[i] = g
+    return out, split
+
+
 def make_train_step(cfg: ModelConfig, hyper: Hyper, *,
-                    num_microbatches: int = 1, remat: bool = True,
+                    num_microbatches: int = 1, moe_groups: int = 1,
+                    remat: bool = True,
                     compute_dtype=torch.bfloat16) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), ``params`` a ``Params`` of float32 masters (made trainable
     here) and ``opt_state`` from ``optim.adamw_init``.  Both are updated
     in place and returned; ``metrics`` holds 0-d device tensors
-    ``loss``, ``lr`` and ``grad_norm``."""
+    ``loss``, ``lr`` and ``grad_norm``.  Under the caller's mesh both are
+    the rank's shards and ``batch`` its rows (module doc); the metrics
+    are the global batch's, the same on every rank."""
 
     def loss_and_grads(params, leaves, mb):
         with torch.enable_grad():
             params_c = cast_for_compute(params, compute_dtype)
-            loss = M.loss_fn(params_c, cfg, mb, remat=remat)
+            loss = M.loss_fn(params_c, cfg, mb, moe_groups=moe_groups,
+                             remat=remat)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         return loss.detach(), [torch.zeros_like(p) if g is None else g
                                for p, g in zip(leaves, grads)]
@@ -104,21 +146,27 @@ def make_train_step(cfg: ModelConfig, hyper: Hyper, *,
             inv = 1.0 / num_microbatches
             loss = loss * inv
             grads = [g * inv for g in grads]
+        mesh, split = get_global_mesh(), None
+        if mesh is not None:
+            names = [n for n, _ in params.named_parameters()]
+            grads, split = _reduce_grads(cfg, mesh, names, grads)
         params, opt_state, metrics = adamw_update(grads, opt_state, params,
-                                                  hyper)
+                                                  hyper, mesh=mesh,
+                                                  split=split)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig, *,
+def make_eval_step(cfg: ModelConfig, *, moe_groups: int = 1,
                    compute_dtype=torch.bfloat16) -> Callable:
-    """eval_step(params, batch) -> the loss, a 0-d float32 tensor."""
+    """eval_step(params, batch) -> the loss, a 0-d float32 tensor (under
+    a mesh the global batch's, from the rank's shards and rows)."""
     @torch.no_grad()
     def eval_step(params, batch):
         params_c = cast_for_compute(params, compute_dtype)
-        return M.loss_fn(params_c, cfg, batch)
+        return M.loss_fn(params_c, cfg, batch, moe_groups=moe_groups)
     return eval_step
 
 

@@ -203,7 +203,7 @@ def model_worker(payload) -> list:
     ``payload``: per (arch, mesh) this rank's logits of every step and
     its caches after the prefill."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.distributed.sharding import shard_state, use_mesh
     from repro_torch.launch.mesh import batch_coord, dp_shards, make_mesh
     from repro_torch.models import model as M
     out = []
@@ -217,7 +217,7 @@ def model_worker(payload) -> list:
             rows = toks.shape[0] // n
             toks = toks[d * rows:(d + 1) * rows]
             fed = torch.from_numpy(case["fed"])[d * rows:(d + 1) * rows]
-            mine = M.shard_params(params, cfg, mesh)
+            mine = shard_state(params, mesh)
             with use_mesh(mesh):
                 logits, cache, n_len = M.prefill(
                     mine, cfg, {"tokens": toks}, s_max=case["s_max"])
@@ -230,4 +230,150 @@ def model_worker(payload) -> list:
                     steps.append(logits.numpy())
             out.append({"logits": steps, "caches": caches,
                         "stats": dict(mesh.stats)})
+    return out
+
+
+def _mesh_of(shape):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, ("data",) if len(shape) == 1
+                     else ("data", "model"))
+
+
+def _rows(batch: dict, mesh) -> dict:
+    """This rank's rows of a global numpy batch, as tensors."""
+    from repro_torch.launch.mesh import batch_coord, dp_shards
+    n, c = dp_shards(mesh), batch_coord(mesh)
+    return {k: torch.from_numpy(v[c * (v.shape[0] // n):
+                                  (c + 1) * (v.shape[0] // n)].copy())
+            for k, v in batch.items()}
+
+
+def _train_runs(payload, mesh) -> list:
+    """Three float32 train steps of every case under ``mesh``: each step's
+    loss and gradient norm, the gathered parameters (on rank 0) and the
+    mesh's collectives; returns the runs and {arch: its final state}."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import (gather_state, shard_state,
+                                                  use_mesh)
+    from repro_torch.launch.mesh import dp_shards
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import Hyper, adamw_init
+    from repro_torch.train.steps import make_train_step
+    runs, state = [], {}
+    for case in payload["cases"]:
+        cfg = get_config(case["arch"], smoke=True)
+        params = shard_state(M.params_from_jax(case["params"], cfg,
+                                               device="cpu"), mesh)
+        opt = adamw_init(params)
+        groups = dp_shards(mesh) if cfg.n_experts else 1
+        step = make_train_step(cfg, Hyper(**payload["hyper"]),
+                               moe_groups=groups,
+                               compute_dtype=torch.float32)
+        specs, _ = M.placement(cfg, mesh)
+        losses, norms = [], []
+        with use_mesh(mesh):
+            for b in case["batches"]:
+                params, opt, m = step(params, opt, _rows(b, mesh))
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+        whole = gather_state(params, mesh, specs)
+        run = {"loss": losses, "norm": norms}
+        if dist.get_rank() == 0:
+            run["params"] = {n: p.detach().numpy().copy()
+                             for n, p in whole.named_parameters()}
+        runs.append(run)
+        state[case["arch"]] = (params, opt, specs)
+    return runs, state
+
+
+def train_mesh_worker(payload) -> dict:
+    """The port's train step under each mesh of ``payload`` (every case);
+    at four ranks also the elastic save of the last case's state at mesh
+    (2, 2) (``elastic_arch``); at two ranks also the uneven-mask loss, the restart drill
+    through ``launch.train.main`` and the elastic restores at (1, 2) and
+    (2, 1) of ``payload["elastic_dir"]``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.checkpoint import AsyncCheckpointer
+    from repro_torch.distributed.fault_tolerance import resume_or_init
+    from repro_torch.distributed.sharding import shard_state, use_mesh
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import abstract_opt_state
+    out = {"runs": {}}
+    for shape in payload["meshes"]:
+        mesh = _mesh_of(shape)
+        out["runs"][tuple(shape)], state = _train_runs(payload, mesh)
+        out.setdefault("stats", {})[tuple(shape)] = dict(mesh.stats)
+    if payload.get("save_dir"):
+        params, opt, specs = state[payload["elastic_arch"]]
+        ck = AsyncCheckpointer(payload["save_dir"], mesh=mesh)
+        ck.save(3, {"params": params, "opt": opt}, specs)
+        ck.wait()
+    if "uneven" in payload:
+        u = payload["uneven"]
+        cfg = get_config(u["arch"], smoke=True)
+        mesh = _mesh_of((2,))
+        params = shard_state(M.params_from_jax(u["params"], cfg,
+                                               device="cpu"), mesh)
+        with use_mesh(mesh):
+            out["uneven"] = float(M.loss_fn(params, cfg,
+                                            _rows(u["batch"], mesh)))
+    if "drill" in payload:
+        d = payload["drill"]
+        argv = ["--smoke", "--device", "cpu", "--steps", "6", "--seq", "64",
+                "--ckpt-every", "2", "--log-every", "100"]
+        losses = {}
+
+        def record(tag):
+            return lambda step, m: losses.setdefault(tag, {}).__setitem__(
+                step, float(m["loss"]))
+        out["drill"] = [
+            T.main(argv + ["--ckpt-dir", d["a"], "--fail-at", "4"]),
+            T.main(argv + ["--ckpt-dir", d["a"]], on_step=record("resumed")),
+            T.main(argv + ["--ckpt-dir", d["b"]], on_step=record("straight"))]
+        out["drill_losses"] = losses
+    if "elastic_dir" in payload:
+        arch = payload["elastic_arch"]
+        cfg = get_config(arch, smoke=True)
+        abstract = M.abstract_params(cfg)
+        state_abs = {"params": abstract, "opt": abstract_opt_state(abstract)}
+        out["elastic"] = {}
+        for shape in ((1, 2), (2, 1)):
+            mesh = _mesh_of(shape)
+            tree, step = resume_or_init(payload["elastic_dir"], state_abs,
+                                        lambda: None, device="cpu",
+                                        mesh=mesh)
+            out["elastic"][shape] = {
+                "step": step, "coords": dict(mesh.coords),
+                "params": {n: p.detach().numpy().copy() for n, p in
+                           tree["params"].named_parameters()},
+                "mu": {n: p.detach().numpy().copy() for n, p in
+                       tree["opt"].mu.named_parameters()}}
+    return out
+
+
+def moe_stats_worker(payload) -> dict:
+    """``moe_apply_sharded``'s forward and backward under each mesh of
+    ``payload`` on this rank's shards and rows: ``Mesh.stats`` (calls
+    and bytes) of each."""
+    from repro_torch.launch.mesh import batch_coord, dp_shards, make_mesh
+    from repro_torch.models.moe_sharded import (moe_apply_sharded,
+                                                shard_moe_params)
+    out = {}
+    for shape in payload["meshes"]:
+        mesh = make_mesh(shape, ("data", "model"))
+        n, d = dp_shards(mesh), batch_coord(mesh)
+        x = torch.from_numpy(payload["x"])
+        rows = x.shape[0] // n
+        x = x[d * rows:(d + 1) * rows].clone().requires_grad_(True)
+        shards = shard_moe_params(_tensors(payload["params"]), mesh)
+        for _, leaf in _leaves(shards):
+            leaf.requires_grad_(True)
+        moe_apply_sharded(shards, x, mesh, top_k=2, act="silu",
+                          capacity_factor=payload["cf"]).sum().backward()
+        out[tuple(shape)] = {k: v[:2] for k, v in mesh.stats.items()}
     return out

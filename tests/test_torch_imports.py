@@ -73,7 +73,7 @@ def test_import_pulls_in_no_jax_and_no_repro():
                  "repro_torch.distributed.checkpoint",
                  "repro_torch.distributed.fault_tolerance",
                  "repro_torch.distributed.compression",
-                 "repro_torch.launch.train") + MESH_MODULES:
+                 "repro_torch.launch.train") + MESH_MODULES + DRYRUN_MODULES:
         assert name in names, name
     code = ("import importlib, sys\n"
             f"for name in ['repro_torch'] + {names!r}:\n"
@@ -109,6 +109,46 @@ def test_mesh_modules_start_nothing_on_import():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
                 "MASTER_PORT"):
+        env.pop(var, None)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stderr
+
+
+DRYRUN_MODULES = ("repro_torch.launch.op_cost",
+                  "repro_torch.launch.op_analysis",
+                  "repro_torch.launch.dryrun",
+                  "repro_torch.launch.dryrun_search",
+                  "repro_torch.launch.profile_cell")
+
+
+def test_dryrun_modules_start_nothing_on_import():
+    """The five dry-run modules import neither jax nor the JAX package
+    (nor set ``XLA_FLAGS``, as the reference's do), start no process
+    group, initialise no card and leave no counter active; a counting
+    mesh's collectives start no group either."""
+    code = ("import os, sys, torch, torch.distributed as dist\n"
+            f"for name in {list(DRYRUN_MODULES)!r}:\n"
+            "    __import__(name)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\n"
+            "assert 'XLA_FLAGS' not in os.environ\n"
+            "from repro_torch.kernels import ops\n"
+            "assert ops._COUNTER is None\n"
+            "from repro_torch.launch.mesh import CountingMesh\n"
+            "m = CountingMesh((2, 16, 16), ('pod', 'data', 'model'))\n"
+            "x = torch.empty((4, 8), device='meta')\n"
+            "assert m.all_gather(x, 'data', dim=1).shape == (4, 128)\n"
+            "assert m.all_reduce(x, ('pod', 'data')) is x\n"
+            "assert m.stats == {'all_gather:data': [1, 2048, 0.0],"
+            " 'all_reduce_sum:pod': [1, 128, 0.0],"
+            " 'all_reduce_sum:data': [1, 128, 0.0]}, m.stats\n"
+            "assert not dist.is_initialized()\n"
+            "assert not torch.cuda.is_initialized()\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT", "XLA_FLAGS"):
         env.pop(var, None)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120, env=env)
