@@ -125,7 +125,8 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      must return 0;
  15. the mesh layer on torch.distributed process groups, each rank a
      process of its own, after the flash wrapper is held at yi-9b's
-     prefill shape as phase 13 holds each family's: (a) one rank
+     prefill shape as phase 13 holds each family's, and held and timed
+     at one of two model ranks' heads (16 of 32, 2 of 4 KV): (a) one rank
      (nccl), mesh (1, 1):
      granite-moe-3b-a800m through the expert-parallel MoE and yi-9b
      through the sequence-parallel decode at full width and depth (bf16
@@ -133,31 +134,38 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      models with no mesh — kept (token, slot) masks, the second rule of
      phase 7, greedy tokens where the margin is sure, 32 / 48 flash
      launches a prefill; (b) two ranks sharing the card (gloo), mesh
-     (1, 2): half the experts and half the cache slots a rank, held to
-     (a)'s rules against (a), the new K/V on the owner rank only, the
-     collectives' bytes and seconds, which collectives gloo runs on CUDA
-     tensors; (c) two data ranks on the card: granite's prefill with one
-     MoE group over both ranks' rows keeps one rank's mask, and
-     ``launch.serve`` (smollm-135m, phase 7's requests) under
-     torch.distributed.run prints one rank's tokens, its ranks' rows of
-     the prefill's and the last step's logits one rank's within 2^-5 of
-     the largest.
+     (1, 2), the dense layers tensor parallel: half the heads, ffn,
+     vocabulary (where 2 divides it), experts and cache slots a rank,
+     yi-9b's parameters a rank half of (a)'s within 1%, parameter bytes
+     and peak a rank, held to (a)'s rules against (a) over the prefill
+     and 15 decode steps (yi-9b on 2 of the 8 prompts), 32 / 48 flash
+     launches a prefill on each rank, the
+     new K/V on the owner rank only, the collectives' bytes and seconds,
+     which collectives gloo runs on CUDA tensors; (c) two data ranks on
+     the card: granite's prefill with one MoE group over both ranks'
+     rows keeps one rank's mask; ``launch.serve`` (smollm-135m, phase
+     7's requests) under torch.distributed.run with ``--model-ranks 2``
+     prints one rank's tokens, each rank's prefill's and last step's
+     logits one rank's within 2^-5 of the largest.
  16. training under a mesh of ranks and the dry-run tooling: (a)
      ``launch.dryrun``'s count of phase 12 (c)'s step (``meta`` tensors,
      mesh (1, 1)): its argument bytes equal the card's parameters,
      moments and batch exactly, its FLOPs and bytes beside the measured
      step (achieved TFLOP/s, t_bound / measured), its peak beside
      ``max_memory_allocated``; every architecture's train_4k cell counted
-     at (16, 16) in processes of their own (fits, bottleneck); (b)
+     at (16, 16) in processes of their own (bytes a rank with the dense
+     leaves over "model", fits, bottleneck); (b)
      ``python -m torch.distributed.run --nproc-per-node 2 -m
      repro_torch.launch.train`` (smollm-135m at full size, FSDP over two
      gloo ranks on the card, phase 12 (c)'s batches): losses and norms
      against phase 12's one rank, the drill (both ranks exit 13, the rerun
      resumes bit for bit), the checkpoint restored with no mesh, 60 lse
      forwards and 30 backwards a step on each rank; (c)
-     granite-moe-3b-a800m cut to 8 layers at mesh (1, 2), 20 experts a
-     rank, through ``make_train_step`` under ``use_mesh``: kept masks,
-     losses, norms and the updated expert shards against one rank.
+     granite-moe-3b-a800m cut to 8 layers at mesh (1, 2), 20 experts and
+     12 of 24 heads a rank (attention tensor parallel), through
+     ``make_train_step`` under ``use_mesh``: kept masks, losses, norms and
+     the updated expert shards against one rank, 16 lse forwards and 8
+     backwards a step on each rank.
 
 Phase 2 also sweeps the batched launches (grid.z over the batch) of the
 scan and the verify: batch 1, 3, 4 and 64, ragged n and m, shared and
@@ -198,6 +206,11 @@ REVIEW_L = 16
 REVIEW_B = 2
 PAPER_LM, PAPER_LS = 8, 11
 M_QUERIES = 64
+# phase 10 (b) holds gather_ids and gather_topk against the scan kernel
+# and a stable sort on these rows of its 64 queries (cut from all 64, each
+# a host pass over 12.9 M ids, to make room for tensor parallelism in
+# phase 15; the searches themselves still run all 64)
+GATHER_CHECK_ROWS = (0, 1, 31, 63)
 TOPK = 10
 BIG = 1 << 20
 
@@ -2021,18 +2034,18 @@ def static_sharded(torch, dev, ops, ref, err, maxerr, sketches, qs, d,
         del inside
     masks, dists, _ = res[3]
     got_ids = gather_ids(sh, masks)
-    for i in range(M_QUERIES):
+    rows = list(GATHER_CHECK_ROWS)
+    for i in rows:
         want = torch.nonzero(d[i] <= 3).flatten().cpu().numpy()
         check(np.array_equal(got_ids[i], want), f"gather_ids row {i}")
     ids, dk = gather_topk(sh, dists, TOPK)
-    dd = torch.where(d <= 3, d, BIG)
-    for r0 in range(0, M_QUERIES, 8):              # stable sort: ties by id
-        sd, si = torch.sort(dd[r0:r0 + 8], dim=1, stable=True)
-        real = sd[:, :TOPK] < BIG
-        check(np.array_equal(ids[r0:r0 + 8], torch.where(
-            real, si[:, :TOPK], -1).cpu().numpy())
-              and np.array_equal(dk[r0:r0 + 8], sd[:, :TOPK].cpu().numpy()),
-              f"gather_topk rows {r0}..{r0 + 7} != the stable sort")
+    sd, si = torch.sort(torch.where(d[rows] <= 3, d[rows], BIG), dim=1,
+                        stable=True)                # ties by id
+    real = sd[:, :TOPK] < BIG
+    check(np.array_equal(ids[rows], torch.where(
+        real, si[:, :TOPK], -1).cpu().numpy())
+          and np.array_equal(dk[rows], sd[:, :TOPK].cpu().numpy()),
+          f"gather_topk rows {rows} != the stable sort")
     for i in (0, M_QUERIES - 1):                   # host witness
         hd = (sketches != qs[i][None, :]).sum(axis=1)
         hd = np.where(hd <= 3, hd, BIG)
@@ -2040,7 +2053,7 @@ def static_sharded(torch, dev, ops, ref, err, maxerr, sketches, qs, d,
         check(np.array_equal(ids[i], np.where(hd[order] < BIG, order, -1))
               and np.array_equal(dk[i], hd[order]),
               f"gather_topk row {i} != the numpy host check")
-    del res, masks, dists, dd
+    del res, masks, dists, sd, si
     g = make_sharded_searcher(sh, 2, verify="gather")
     t0 = time.perf_counter()
     gm, gd, gov = g(qs_t[:8])
@@ -2050,8 +2063,9 @@ def static_sharded(torch, dev, ops, ref, err, maxerr, sketches, qs, d,
     check(int(gov) == 0 and torch.equal(gm, sm) and torch.equal(gd, sd),
           "verify='gather' differs from the scan at tau=2")
     print(f"(b) sharded bST exact at tau=1,2,3 against the scan kernel; "
-          f"gather_ids and gather_topk(k={TOPK}) at tau=3 against it, the "
-          f"stable sort and numpy; verify='gather' (8 queries, tau=2, the "
+          f"gather_ids and gather_topk(k={TOPK}) at tau=3 against it and "
+          f"the stable sort on rows {rows}, numpy on rows 0 and "
+          f"{M_QUERIES - 1}; verify='gather' (8 queries, tau=2, the "
           f"plain verify per query and shard) equal to the scan in "
           f"{g_s:.2f} s", flush=True)
     del gm, gd, sm, sd
@@ -3413,10 +3427,10 @@ def tools_on_card() -> None:
 
 
 # Phase 15, the mesh layer (launch/mesh.py, distributed/sharding.py,
-# models/io.py, models/moe_sharded.py, models/decode_sp.py) on
-# torch.distributed process groups, each rank a process of its own that
-# the script starts (``chip_smoke.py --mesh-child``) or that
-# torch.distributed.run starts, with PYTHONHASHSEED fixed so that every
+# models/io.py, models/moe_sharded.py, models/decode_sp.py, the
+# tensor-parallel regions of models/model.py) on torch.distributed
+# process groups, each rank a process of its own that the script starts
+# (``chip_smoke.py --mesh-child``), with PYTHONHASHSEED fixed so that every
 # rank draws the same ``synthetic_batch`` (ROADMAP F10).  The requests
 # are phase 7's: 8 prompts of 2,000 tokens (``synthetic_batch``, step 0)
 # and 48 greedy tokens, bf16 parameters drawn from --seed: yi-9b's 8.8 B
@@ -3432,23 +3446,43 @@ def tools_on_card() -> None:
 # LOGIT_RTOL of its largest logit (48 steps, the no-mesh path fed the
 # mesh path's tokens), the flash launches of a prefill 32 and 48.
 # (b) two ranks sharing the card (gloo, which NCCL's one-rank-a-card rule
-# leaves), mesh (1, 2): 20 of granite's 40 experts and 1,024 of yi-9b's
-# 2,048 cache slots a rank, (a)'s tokens fed, (a)'s rules against (a)'s
-# no-mesh run; the new K/V on the owner rank only at every decode step;
-# the collectives' bytes and seconds of a prefill and a decode step.
-# (c) data parallelism over two ranks on the card: granite's prefill at
-# two data ranks (capacity 1.25, one MoE group over both ranks' rows)
-# keeps one rank's (token, slot) mask and meets (a)'s rules on its
-# logits; the serve CLI under torch.distributed.run prints the greedy
-# tokens of one rank.
+# leaves), mesh (1, 2), the dense layers tensor parallel over "model":
+# granite's 12 of 24 heads, 4 of 8 KV heads and 20 of 40 experts (its
+# 49,155-row vocabulary whole), yi-9b's 16 of 32 heads, 2 of 4 KV heads,
+# 5,504 of 11,008 ffn, 32,000 of 64,000 vocabulary rows and 1,024 of
+# 2,048 cache slots a rank (each rank's parameter bytes printed,
+# yi-9b's checked at half of (a)'s within 1%, the peak a rank once the
+# whole parameters are dropped), (a)'s tokens fed, (a)'s rules against
+# (a)'s no-mesh run over the prefill and MESH_B_STEPS - 1 decode steps;
+# the new K/V on the owner rank only at every decode step; the
+# collectives' bytes and seconds of a prefill and a decode step.  (c) data parallelism over two ranks on the card: granite's
+# prefill at two data ranks (capacity 1.25, one MoE group over both
+# ranks' rows) keeps one rank's (token, slot) mask and meets (a)'s rules
+# on its logits.  Then the serve CLI at phase 7's requests: one rank in
+# this process, and python -m torch.distributed.run --nproc-per-node 2
+# over launch.serve --model-ranks 2 (mesh (1, 2), the dense layers
+# tensor parallel, smollm's 9 heads whole): each rank's greedy tokens
+# one rank's, its prefill's and last step's logits within LOGIT_RTOL of
+# the largest of one rank's.
 MESH_ARCHS = ["granite-moe-3b-a800m", "yi-9b"]
+# (b)'s prompts of an arch where not all SERVE_BATCH: yi-9b's tensor-
+# parallel prefill sums 131 MB over "model" twice a layer through gloo's
+# host staging (≈ 0.6 GB/s), so its prompts are cut to 2 rows
+MESH_B_ROWS = {"yi-9b": 2}
+# (b)'s steps (the prefill and MESH_B_STEPS - 1 teacher-forced decode
+# steps, of (a)'s SERVE_GEN): each tensor-parallel decode step sums over
+# "model" two or three times a layer through gloo (0.3–0.6 s a step), so
+# (b) is cut to 16 of (a)'s 48
+MESH_B_STEPS = 16
 MESH_HASH_SEED = "0"
 MESH_TIMEOUT_S = 480          # a part's ranks, build-free (phase 1 built)
 MESH_GROUP_TIMEOUT_S = 180    # a collective that waits longer fails
 MESH_OWNER_LAYERS = (0, -1)   # yi-9b layers whose slices are checked a step
+# (c)'s serve CLI: phase 7's requests, one rank and then two model ranks
 SERVE_CLI_ARGV = ["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
                   "--prompt-len", str(SERVE_PROMPT), "--gen-len",
-                  str(SERVE_GEN)]       # phase 7's requests
+                  str(SERVE_GEN)]
+SERVE_CLI_RANKS = 2
 
 
 def mesh_env() -> dict:
@@ -3595,8 +3629,9 @@ def routing_differences(torch, a, b, n_experts: int) -> int:
     return differ
 
 
-def mesh_generate(torch, cfg, params, prompts, mesh, fed=None) -> dict:
-    """Prefill ``prompts`` and decode SERVE_GEN - 1 tokens (``fed``'s when
+def mesh_generate(torch, cfg, params, prompts, mesh, fed=None,
+                  n_steps: int = SERVE_GEN) -> dict:
+    """Prefill ``prompts`` and decode ``n_steps`` - 1 tokens (``fed``'s when
     given, else the greedy ones) under ``mesh`` (None: no mesh), the MoE
     plans of the prefill recorded: per-step logits (B, V) on the card,
     the tokens, the prefill's flash launches, the prefill and decode
@@ -3627,7 +3662,7 @@ def mesh_generate(torch, cfg, params, prompts, mesh, fed=None) -> dict:
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
         tokens = [tok if fed is None else fed[:, :1]]
         t0 = time.perf_counter()
-        for i in range(SERVE_GEN - 1):
+        for i in range(n_steps - 1):
             if mesh is not None and i == 0:
                 mesh.stats.clear()
             logits, cache = M.decode_step(params, cfg, tokens[-1], cache,
@@ -3639,7 +3674,7 @@ def mesh_generate(torch, cfg, params, prompts, mesh, fed=None) -> dict:
             tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
             tokens.append(tok if fed is None else fed[:, i + 1:i + 2])
         torch.cuda.synchronize()
-        decode_ms = (time.perf_counter() - t0) * 1e3 / (SERVE_GEN - 1)
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (n_steps - 1)
     return {"logits": steps, "tokens": torch.cat(tokens, 1), "plans": plans,
             "launches": launches, "prefill_ms": prefill_ms,
             "decode_ms": decode_ms, "stats": stats, "cache": cache}
@@ -3681,6 +3716,24 @@ def second_rule(torch, got, ref, f32, what: str) -> str:
             f"{float((got - ref).abs().max()):.4f}")
 
 
+def param_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in params.parameters())
+
+
+def tp_placement(cfg, m: int) -> str:
+    """What a "model" axis of ``m`` ranks splits of ``cfg``'s dense
+    layers (the divisibility fallback keeps the rest whole)."""
+    def part(n, what):
+        return f"{what} {n // m} of {n}" if n % m == 0 else f"{what} {n} whole"
+    parts = [part(cfg.n_heads, "heads"), part(cfg.n_kv, "KV heads")]
+    if cfg.d_ff:
+        parts.append(part(cfg.d_ff, "ffn"))
+    if cfg.n_experts:
+        parts.append(part(cfg.n_experts, "experts"))
+    parts.append(part(cfg.vocab, "vocabulary"))
+    return ", ".join(parts)
+
+
 def mesh_part_a(torch, spec, work: Path) -> dict:
     """Phase 15 (a): one rank, mesh (1, 1), against no mesh.  Saves each
     model's reference for (b) and (c) beside the result."""
@@ -3702,6 +3755,7 @@ def mesh_part_a(torch, spec, work: Path) -> dict:
         cfg, params, prompts = mesh_model(torch, arch, spec["seed"])
         mine = shard_state(params, mesh)
         n_attn = M.n_attention_layers(cfg)
+        whole_bytes = param_bytes(params)
         print(f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
               f"heads {cfg.n_heads}/{cfg.n_kv} x {cfg.head_dim}, experts "
               f"{cfg.n_experts} top-{cfg.top_k}, decode_kv_shard "
@@ -3748,6 +3802,7 @@ def mesh_part_a(torch, spec, work: Path) -> dict:
               f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"flash launches a prefill {got['launches']}", flush=True)
         torch.save({"digest": batch_digest(torch, prompts),
+                    "param_bytes": whole_bytes,
                     "tokens": got["tokens"].cpu(),
                     "logits": [x.cpu() for x in ref["logits"]],
                     "f32": l32.cpu(),
@@ -3756,7 +3811,8 @@ def mesh_part_a(torch, spec, work: Path) -> dict:
                    work / f"ref_{arch}.pt")
         out[arch] = {"launches": got["launches"]["flash_attention_fwd"],
                      "prefill_ms": got["prefill_ms"],
-                     "decode_ms": got["decode_ms"]}
+                     "decode_ms": got["decode_ms"],
+                     "param_bytes": whole_bytes}
         del got, ref, l32, prompts
         torch.cuda.empty_cache()
     return out
@@ -3816,7 +3872,6 @@ def mesh_part_b(torch, spec, work: Path) -> dict:
               f"{mesh.shape}; gloo on CUDA tensors: {coll}", flush=True)
     out = {"collectives": coll}
     for arch in MESH_ARCHS:
-        torch.cuda.reset_peak_memory_stats()
         ref = torch.load(work / f"ref_{arch}.pt", weights_only=False)
         cfg, params, prompts = mesh_model(torch, arch, spec["seed"])
         digests = mesh.all_gather(torch.tensor(
@@ -3826,20 +3881,34 @@ def mesh_part_b(torch, spec, work: Path) -> dict:
         mine = shard_state(params, mesh)
         del params
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held_bytes = param_bytes(mine)
+        share = held_bytes / ref["param_bytes"]
+        if arch == MESH_ARCHS[1]:          # every dense dimension divides
+            check(abs(share - 0.5) <= 0.005, f"(b) {arch}: rank {rank} "
+                  f"holds {held_bytes} parameter bytes, {share:.4f} of "
+                  f"(a)'s {ref['param_bytes']}, not half within 1%")
+        rows = MESH_B_ROWS.get(arch, SERVE_BATCH)
         n_attn = M.n_attention_layers(cfg)
         held = {}
         if cfg.n_experts:
             e = mine["units"][0]["l0"]["moe"]["w_gate"].shape[0]
             held["experts"] = e
-        got = mesh_generate_owner(torch, cfg, mine, prompts, mesh,
-                                  ref["tokens"].to("cuda"), held)
+        got = mesh_generate_owner(torch, cfg, mine, prompts[:rows], mesh,
+                                  ref["tokens"][:rows].to("cuda"), held,
+                                  n_steps=MESH_B_STEPS)
         check(got["launches"] == {"flash_attention_fwd": n_attn,
                                   "flash_attention_fwd:bf16": n_attn},
               f"(b) {arch}: launches a prefill {got['launches']}")
         same = mesh.all_gather(got["logits"][-1].contiguous()[None], "model")
         check(torch.equal(same[0], same[1]), f"(b) {arch}: the ranks' "
               "logits differ")
-        lines = []
+        peak = torch.cuda.max_memory_allocated()
+        lines = [f"tensor parallel over 2 model ranks: "
+                 f"{tp_placement(cfg, 2)}; rank {rank} holds "
+                 f"{held_bytes / 1e9:.3f} GB of parameters, {share:.4f} of "
+                 f"(a)'s {ref['param_bytes'] / 1e9:.3f} GB; {rows} of "
+                 f"{SERVE_BATCH} prompts"]
         if cfg.n_experts:
             bad, kept = sharded_plan_mismatches(torch, got["plans"], cfg)
             check(bad == 0, f"(b) {arch}: rank {rank}: {bad} kept pairs "
@@ -3855,26 +3924,29 @@ def mesh_part_b(torch, spec, work: Path) -> dict:
             lines.append(f"rank 0 holds {held['slots']} of "
                          f"{SERVE_PROMPT + SERVE_GEN} cache slots; the new "
                          f"K/V landed on the owner rank only at all "
-                         f"{SERVE_GEN - 1} decode steps (layers "
+                         f"{MESH_B_STEPS - 1} decode steps (layers "
                          f"{MESH_OWNER_LAYERS} checked)")
         lines.append(second_rule(torch, got["logits"][0],
-                                 ref["logits"][0].to("cuda"),
-                                 ref["f32"].to("cuda"), f"(b) {arch}"))
+                                 ref["logits"][0][:rows].to("cuda"),
+                                 ref["f32"][:rows].to("cuda"), f"(b) {arch}"))
         lines.append(hold_steps(torch, got["logits"],
-                                [x.to("cuda") for x in ref["logits"]],
+                                [x[:rows].to("cuda")
+                                 for x in ref["logits"][:MESH_B_STEPS]],
                                 f"(b) {arch}"))
         lines.append(f"collectives of the prefill: "
                      f"{stats_line(got['stats']['prefill'])}; of one decode "
                      f"step: {stats_line(got['stats']['decode'])}")
         lines.append(f"prefill {got['prefill_ms']:.2f} ms, decode "
                      f"{got['decode_ms']:.3f} ms a step (two ranks on one "
-                     f"card); peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-                     " GiB a rank")
+                     f"card); peak {peak / 2**30:.2f} GiB a rank after the "
+                     "whole parameters were dropped")
         if rank == 0:
             for line in lines:
                 print(line, flush=True)
         out[arch] = {"stats": got["stats"], "prefill_ms": got["prefill_ms"],
-                     "decode_ms": got["decode_ms"]}
+                     "decode_ms": got["decode_ms"], "param_bytes": held_bytes,
+                     "peak": peak,
+                     "launches": got["launches"]["flash_attention_fwd"]}
         del got, mine, ref, prompts, same
         torch.cuda.empty_cache()
     out["c"] = mesh_data_parallel(torch, spec, work)
@@ -3882,14 +3954,15 @@ def mesh_part_b(torch, spec, work: Path) -> dict:
 
 
 def mesh_generate_owner(torch, cfg, params, prompts, mesh, fed,
-                        held: dict) -> dict:
+                        held: dict, n_steps: int = SERVE_GEN) -> dict:
     """``mesh_generate`` with, for a sequence-split cache, every decode
     step's write checked: the rank that owns slot ``cache_len`` changed
     exactly that slot of its slice, the other rank's slice is unchanged
     (MESH_OWNER_LAYERS' keys and values)."""
     from repro_torch.models import model as M
     if not (cfg.decode_kv_shard == "seq" and "model" in mesh.axis_names):
-        return mesh_generate(torch, cfg, params, prompts, mesh, fed=fed)
+        return mesh_generate(torch, cfg, params, prompts, mesh, fed=fed,
+                             n_steps=n_steps)
     step, orig = [0], M.decode_step
     layers = [(u, "l0") for u in (MESH_OWNER_LAYERS[0] % cfg.n_units,
                                   MESH_OWNER_LAYERS[1] % cfg.n_units)]
@@ -3917,7 +3990,8 @@ def mesh_generate_owner(torch, cfg, params, prompts, mesh, fed,
 
     M.decode_step = checked
     try:
-        return mesh_generate(torch, cfg, params, prompts, mesh, fed=fed)
+        return mesh_generate(torch, cfg, params, prompts, mesh, fed=fed,
+                             n_steps=n_steps)
     finally:
         M.decode_step = orig
 
@@ -3987,10 +4061,66 @@ def mesh_data_parallel(torch, spec, work: Path) -> dict:
     return {"prefill_ms": prefill_ms, "stats": stats}
 
 
+def tp_local_flash(torch, dev, seed: int, err: dict) -> dict:
+    """The flash wrapper (``models/flash.py``) at yi-9b's prefill shape
+    on one of two model ranks' heads, as (b) launches it: B SERVE_BATCH x
+    S SERVE_PROMPT, 16 of 32 q heads, 2 of 4 KV heads, D 128, causal,
+    bf16; held against ``blockwise_attention`` (phase 13's rules) and
+    timed (one call between two events) beside it, SDPA on the same
+    heads (the KV heads repeated for it) and the bound: the q, k and v
+    read once and the output written once over 3.35 TB/s, the causal
+    FLOPs over 989 TFLOP/s."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.flash import flash_attention
+    from repro_torch.models.layers import _repeat_kv, blockwise_attention
+
+    cfg = get_config(MESH_ARCHS[1])
+    B, S, H, Hkv, D = (SERVE_BATCH, SERVE_PROMPT, cfg.n_heads // 2,
+                       cfg.n_kv // 2, cfg.head_dim)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, S, H, D), device=dev, generator=gen).bfloat16()
+    k, v = (torch.randn((B, S, Hkv, D), device=dev, generator=gen)
+            .bfloat16() for _ in range(2))
+    got = flash_attention(q, k, v, causal=True)
+    want = blockwise_attention(q, k, v, causal=True)
+    e, r = float((got.float() - want.float()).abs().max()), row_rel_err(
+        got, want)
+    err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e)
+    check(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+          and r <= FLASH_BF16_ROW_RTOL, f"flash at yi-9b's local heads: max "
+          f"err {e:.4g}, row error {r:.4g}")
+    ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True))
+    plain_ms = time_ms(torch, lambda: blockwise_attention(q, k, v,
+                                                          causal=True),
+                       iters=3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (
+        q, _repeat_kv(k, H // Hkv), _repeat_kv(v, H // Hkv)))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    flops = 4 * B * H * D * (S * (S + 1) // 2)
+    nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * 2
+    t_ops, t_bytes = (flops / PEAK_BF16_FLOPS * 1e3,
+                      nbytes / PEAK_BYTES_PER_S * 1e3)
+    bnd, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                    else "bytes")
+    print(f"models/flash.py at yi-9b's prefill on one of two model ranks "
+          f"(B {B}, S {S}, heads {H}/{Hkv} x {D}, causal, bf16): max err "
+          f"{e:.4g}, row error {r:.4g}; {ms:.4f} ms a call, bound {bnd:.4f} "
+          f"ms ({by}), plain {plain_ms:.3f} ms, scaled_dot_product_attention"
+          f" {lib_ms:.4f} ms", flush=True)
+    del q, k, v, got, want, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"shape": [B, S, H, Hkv, D], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+            "max_abs_err": e}
+
+
 def record_serve(torch, argv: list, path: Path) -> int:
-    """``launch.serve.main(argv)`` with this rank's rows of the prefill's
-    and the last decode step's logits, and its tokens, saved to ``path``
-    (float32, on the host) as generation returns them."""
+    """``launch.serve.main(argv)`` with this rank's prefill's and last
+    decode step's logits, and its tokens, saved to ``path`` (float32, on
+    the host) as generation returns them."""
     from repro_torch.launch import serve
 
     orig = serve._generate
@@ -4009,24 +4139,25 @@ def record_serve(torch, argv: list, path: Path) -> int:
 
 
 def serve_child(work: Path) -> int:
-    """A rank of the serve CLI under torch.distributed.run (phase 15 (c))."""
+    """A rank of phase 15 (c)'s serve CLI under torch.distributed.run."""
     import torch
-    return record_serve(torch, SERVE_CLI_ARGV,
+    return record_serve(torch, SERVE_CLI_ARGV + ["--model-ranks",
+                                                 str(SERVE_CLI_RANKS)],
                         work / f"serve_rank{os.environ['RANK']}.pt")
 
 
 def serve_cli_ranks(torch, work: Path) -> str:
-    """Phase 15 (c): ``launch.serve`` for smollm-135m at phase 7's requests
-    in this process (one rank) and under torch.distributed.run over two
-    ranks on the card (the host mesh, gloo): the same greedy tokens
-    printed, and the ranks' rows of the prefill's and the last step's
-    logits, put together rank-major, within LOGIT_RTOL of the largest of
-    one rank's, every sure greedy token equal."""
+    """Phase 15 (c): ``launch.serve`` for smollm-135m at phase 7's
+    requests in this process (one rank), then under
+    torch.distributed.run with ``--model-ranks 2`` (two gloo ranks on
+    the card, mesh (1, 2)): rank 0 prints the same greedy tokens, and
+    each rank's tokens equal one rank's, its prefill's and last step's
+    logits within LOGIT_RTOL of the largest of one rank's."""
     import contextlib
     import io
 
     out = {}
-    for n in (1, 2):
+    for n in (1, SERVE_CLI_RANKS):
         t0 = time.perf_counter()
         if n == 1:
             buf = io.StringIO()
@@ -4036,12 +4167,13 @@ def serve_cli_ranks(torch, work: Path) -> str:
         else:
             proc = subprocess.run(
                 [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                 "--nproc-per-node", "2", str(Path(__file__).resolve()),
+                 "--nproc-per-node", str(n), str(Path(__file__).resolve()),
                  "--serve-child", str(work)], cwd=ROOT, env=mesh_env(),
                 capture_output=True, text=True, timeout=TOOL_TIMEOUT_S)
             rc, text = proc.returncode, proc.stdout
-            check(rc != 0 or "process group: backend gloo, 2 ranks" in text,
-                  f"serve over 2 ranks: {text[-2000:]}")
+            check(rc != 0 or (f"process group: backend gloo, {n} ranks" in text
+                              and f"x {n} model ranks" in text),
+                  f"serve over {n} model ranks: {text[-2000:]}")
         check(rc == 0, f"serve over {n} rank(s) returned {rc}: "
               f"{text[-2000:]}")
         lines = text.splitlines()
@@ -4053,26 +4185,26 @@ def serve_cli_ranks(torch, work: Path) -> str:
         print(f"  serve, {n} rank(s), {time.perf_counter() - t0:.1f} s "
               "(process start-up included): " + " | ".join(served),
               flush=True)
-    check(out[1] == out[2], f"serve over 2 ranks printed {out[2]}, one rank "
-          f"{out[1]}")
+    check(out[1] == out[SERVE_CLI_RANKS], f"serve over {SERVE_CLI_RANKS} "
+          f"model ranks printed {out[SERVE_CLI_RANKS]}, one rank {out[1]}")
     one = torch.load(work / "serve_one.pt")
-    ranks = [torch.load(work / f"serve_rank{r}.pt") for r in range(2)]
-    got = {k: torch.cat([r[k] for r in ranks]) for k in one}
-    check(torch.equal(got["tokens"], one["tokens"]), "serve over 2 ranks: "
-          "the ranks' rows of tokens are not one rank's")
-    for key in ("first", "last"):
-        tol = LOGIT_RTOL * float(one[key].abs().max())
-        diff = float((got[key] - one[key]).abs().max())
-        check(got[key].shape == one[key].shape and diff <= tol,
-              f"serve over 2 ranks: {key} logits {diff:.4f} from one rank's "
-              f"(tolerance {tol:.4f})")
-        print(f"  serve over 2 ranks: the {key} step's logits, rank-major, "
-              f"max |diff| {diff:.4f} to one rank's (tolerance {tol:.4f})",
-              flush=True)
-    print("  " + hold_steps(torch, [got["first"], got["last"]],
-                            [one["first"], one["last"]],
-                            "serve over 2 ranks (prefill, last step)"),
-          flush=True)
+    for r in range(SERVE_CLI_RANKS):
+        got = torch.load(work / f"serve_rank{r}.pt")
+        what = f"serve, model rank {r} of {SERVE_CLI_RANKS}"
+        check(torch.equal(got["tokens"], one["tokens"]), f"{what}: tokens "
+              "are not one rank's")
+        for key in ("first", "last"):
+            tol = LOGIT_RTOL * float(one[key].abs().max())
+            diff = float((got[key] - one[key]).abs().max())
+            check(got[key].shape == one[key].shape and diff <= tol,
+                  f"{what}: {key} logits {diff:.4f} from one rank's "
+                  f"(tolerance {tol:.4f})")
+            print(f"  {what}: the {key} step's logits max |diff| "
+                  f"{diff:.4f} to one rank's (tolerance {tol:.4f})",
+                  flush=True)
+        print("  " + hold_steps(torch, [got["first"], got["last"]],
+                                [one["first"], one["last"]],
+                                f"{what} (prefill, last step)"), flush=True)
     rows = {tuple(r) for r in one["tokens"].tolist()}
     print(f"  serve: {len(rows)} distinct token rows of "
           f"{one['tokens'].shape[0]}", flush=True)
@@ -4081,8 +4213,10 @@ def serve_cli_ranks(torch, work: Path) -> str:
 
 def mesh_layer(torch, args, dev, err: dict) -> dict:
     """Phase 15: the flash wrapper at each model's prefill shape that phase
-    13 did not hold, then (a)–(c) in processes of their own; returns the
-    flash launches of a prefill of each model under the mesh (a)."""
+    13 did not hold and at yi-9b's local heads, then (a)–(c) in processes
+    of their own; returns the flash launches of a prefill of each model
+    under the mesh (a) and on each rank of (b), and the local-head
+    wrapper's record."""
     import shutil
 
     from repro_torch.configs.registry import get_config
@@ -4091,6 +4225,7 @@ def mesh_layer(torch, args, dev, err: dict) -> dict:
         if arch not in FAMILIES:
             check_family_flash(torch, dev, get_config(arch), arch,
                                args.seed + 150 + i, err)
+    local = tp_local_flash(torch, dev, args.seed + 160, err)
     torch.cuda.empty_cache()
     print(f"phase 15 starts with {torch.cuda.memory_allocated() / 2**30:.2f}"
           " GiB held by this process", flush=True)
@@ -4101,17 +4236,20 @@ def mesh_layer(torch, args, dev, err: dict) -> dict:
         a = mesh_spawn(torch, args, "a", 1, work)[0]
         print(f"(a: {time.perf_counter() - t0:.1f} s)", flush=True)
         t0 = time.perf_counter()
-        mesh_spawn(torch, args, "b", 2, work)
+        b = mesh_spawn(torch, args, "b", 2, work)
         print(f"(b and (c)'s granite: {time.perf_counter() - t0:.1f} s)",
               flush=True)
         t0 = time.perf_counter()
         tokens = serve_cli_ranks(torch, work)
-        print(f"serve CLI: one rank and two data ranks print the same "
-              f"{tokens[:80]}... ({time.perf_counter() - t0:.1f} s)",
-              flush=True)
+        print(f"(c) serve CLI: one rank and {SERVE_CLI_RANKS} model ranks "
+              f"print the same {tokens[:80]}... "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {arch: a[arch]["launches"] for arch in MESH_ARCHS}
+    return {"a": {arch: a[arch]["launches"] for arch in MESH_ARCHS},
+            "b": {arch: [r[arch]["launches"] for r in b]
+                  for arch in MESH_ARCHS},
+            "local_heads": local}
 
 
 # Phase 16, training under a mesh of ranks (distributed/sharding.py's
@@ -4142,7 +4280,8 @@ def mesh_layer(torch, args, dev, err: dict) -> dict:
 # step on each rank.  (c) expert parallelism: granite-moe-3b-a800m cut
 # to P16_EP_LAYERS layers (f32 masters: two ranks' masters and moments,
 # and the one-rank reference before them, on one card, beside (b)'s
-# rerun), mesh (1, 2), 20 of its 40 experts a rank, P16_EP_STEPS steps
+# rerun), mesh (1, 2), 20 of its 40 experts and 12 of its 24 heads a
+# rank (the attention tensor parallel), P16_EP_STEPS steps
 # through make_train_step under use_mesh against the one-rank step on the
 # same batches: kept masks one
 # rank's plan on the same routings, losses and norms under (b)'s rule,
@@ -4487,6 +4626,7 @@ def mesh_part_ep(torch, spec, work: Path) -> dict:
     import torch.distributed as dist
 
     from repro_torch.distributed.sharding import shard_state
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as M
 
@@ -4499,19 +4639,22 @@ def mesh_part_ep(torch, spec, work: Path) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mesh.stats.clear()
+    ops.reset_kernel_stats()
     out = ep_steps(torch, cfg, mine, spec["seed"], mesh)
+    launches = ops.kernel_stats()
     bad, kept = sharded_plan_mismatches(torch, out.pop("plans"), cfg)
     check(bad == 0, f"(c) rank {dist.get_rank()}: {bad} of the kept pairs "
           "differ from one rank's plan")
-    out.update(kept=kept, experts=ep_experts(mine, cfg),
+    out.update(kept=kept, experts=ep_experts(mine, cfg), launches=launches,
                stats={k: list(v) for k, v in mesh.stats.items()},
                peak=torch.cuda.max_memory_allocated(),
                lo=mesh.coord("model") * cfg.n_experts // 2)
     return out
 
 
-def expert_parallel_training(torch, args, work: Path) -> None:
-    """Phase 16 (c): the one-rank reference here, then two ranks."""
+def expert_parallel_training(torch, args, work: Path) -> dict:
+    """Phase 16 (c): the one-rank reference here, then two ranks, whose
+    flash launches it returns by rank."""
     from repro_torch.models import model as M
 
     cfg = ep_config()
@@ -4545,7 +4688,18 @@ def expert_parallel_training(torch, args, work: Path) -> None:
             delta = w - before[key][lo:hi]
             ref = want[key][lo:hi] - before[key][lo:hi]
             worst_d = max(worst_d, float((delta - ref).norm() / ref.norm()))
+    for r, got in enumerate(ranks):
+        counts = got["launches"]
+        check(counts.get("flash_attention_fwd:lse") == 2 * cfg.num_layers
+              * P16_EP_STEPS
+              and counts.get("flash_attention_bwd") == cfg.num_layers
+              * P16_EP_STEPS
+              and not any(k.endswith(":ref") for k in counts),
+              f"(c) rank {r} launches {counts}")
     stats = ranks[0]["stats"]
+    print(f"(c) tensor parallel over 2 model ranks: {tp_placement(cfg, 2)};"
+          f" flash launches by rank over {P16_EP_STEPS} steps "
+          f"{[r['launches'] for r in ranks]}", flush=True)
     print(f"(c) {P16_EP_ARCH} cut to {P16_EP_LAYERS} layers, mesh (1, 2), "
           f"{cfg.n_experts // 2} experts a rank, {P16_EP_STEPS} steps of "
           f"{P16_EP_BATCH} x {TRAIN_SEQ}: kept masks one rank's "
@@ -4562,18 +4716,21 @@ def expert_parallel_training(torch, args, work: Path) -> None:
           f"of {P16_EP_STEPS} steps on rank 0 (calls, bytes, host s): "
           f"{ {k: [v[0], v[1], round(v[2], 3)] for k, v in stats.items()} }",
           flush=True)
+    return {r: got["launches"] for r, got in enumerate(ranks)}
 
 
 def mesh_training(torch, args) -> dict:
     """Phase 16: (a)–(c) (the comment above P16_FAIL_AT).  The train_4k
     counts need no card: they run beside (b) and (c), whose seconds are
     mostly process start-up and gloo, and nothing else timed runs beside
-    them.  Returns each rank's launches in (b)'s resumed run."""
+    them.  Returns each rank's launches in (b)'s resumed run and in
+    (c)."""
     import shutil
 
     work = ROOT / "build" / f"chip_smoke_train_mesh_{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
     counts = counted = None
+    ep: dict = {}
     try:
         t0 = time.perf_counter()
         dryrun_against_card(torch, args)
@@ -4583,7 +4740,7 @@ def mesh_training(torch, args) -> dict:
 
         def expert_parallel():
             t1 = time.perf_counter()
-            expert_parallel_training(torch, args, work)
+            ep.update(expert_parallel_training(torch, args, work))
             print(f"(c: {time.perf_counter() - t1:.1f} s, beside (b)'s "
                   "runs)", flush=True)
         launches = data_parallel_cli(torch, args, work, expert_parallel)
@@ -4603,10 +4760,15 @@ def mesh_training(torch, args) -> dict:
             rec = json.loads((counted / "dryrun" /
                               f"16x16__{arch}__train_4k.json").read_text())
             check(rec["status"] == "ok", f"(a) {arch}: {rec.get('error')}")
-            r = rec["roofline"]
+            check("dense_replicated_over_model" not in rec,
+                  f"(a) {arch}: the dense layers replicated over 'model'")
+            r, tp = rec["roofline"], rec["tensor_parallel"]
             print(f"(a) {arch} train_4k at 16x16, rank 0 (counted on meta "
                   f"in {rec['trace_s']} s): "
-                  f"{rec['memory']['total_bytes'] / 1e9:.1f} GB a rank, fits "
+                  f"{rec['memory']['total_bytes'] / 1e9:.1f} GB a rank "
+                  f"(arguments {rec['memory']['argument_bytes'] / 1e9:.2f}), "
+                  f"dense leaves over 'model' {tp['dense_leaves_split']} "
+                  f"split / {tp['dense_leaves_whole']} whole, fits "
                   f"{rec['fits']}, bottleneck {r['bottleneck']} (Tc "
                   f"{r['t_compute_s']:.3f} s, Tm {r['t_memory_s']:.3f} s, "
                   f"Tcoll {r['t_collective_s']:.3f} s), "
@@ -4621,7 +4783,7 @@ def mesh_training(torch, args) -> dict:
         shutil.rmtree(work, ignore_errors=True)
         if counted is not None:
             shutil.rmtree(counted, ignore_errors=True)
-    return launches
+    return {"b": launches, "c": ep}
 
 
 def main() -> int:
@@ -5019,7 +5181,7 @@ def main() -> int:
          "launches": launches["sparse_verify_batch"],
          "train_launches": trained["sparse_verify_batch"],
          "mesh_train_launches": {r: c.get("sparse_verify_batch", 0)
-                                 for r, c in mesh_train.items()},
+                                 for r, c in mesh_train["b"].items()},
          "max_abs_err": err["sparse_verify_batch"], "ms": sfx_ms,
          "plain_ms": sfx_plain, "bound_ms": sfx_bound, "bound_by": sfx_by,
          "library_ms": None},
@@ -5053,20 +5215,25 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attn_kernel.py:93",
          "max_abs_err": err["flash_attention_fwd"], **flash,
          "head_dims": list(ops.FLASH_HEAD_DIMS), "d80_hubert": hubert,
-         "family_launches": families, "mesh_launches": mesh},
+         "family_launches": families, "mesh_launches": mesh["a"],
+         "tp_launches": mesh["b"], "tp_local_heads": mesh["local_heads"]},
         {"name": "flash_attention_fwd_lse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn_kernel.py:93",
          "launches": trained["flash_attention_fwd:lse"],
          "mesh_train_launches": {r: c.get("flash_attention_fwd:lse", 0)
-                                 for r, c in mesh_train.items()},
+                                 for r, c in mesh_train["b"].items()},
+         "tp_train_launches": {r: c.get("flash_attention_fwd:lse", 0)
+                               for r, c in mesh_train["c"].items()},
          "max_abs_err": err["flash_attention_fwd_lse"], **attn["lse"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
          "replaces": "src/repro/models/flash.py:134",
          "launches": trained["flash_attention_bwd"],
          "mesh_train_launches": {r: c.get("flash_attention_bwd", 0)
-                                 for r, c in mesh_train.items()},
+                                 for r, c in mesh_train["b"].items()},
+         "tp_train_launches": {r: c.get("flash_attention_bwd", 0)
+                               for r, c in mesh_train["c"].items()},
          "max_abs_err": err["flash_attention_bwd"], **attn["bwd"]},
         {"name": "sparse_verify_batch_batched", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming.cu",

@@ -20,10 +20,11 @@ host copies, so a restore may target another device (``device=``).
 Under a mesh of ranks the checkpoints stay logical: ``AsyncCheckpointer``
 given the mesh and the placement's specs gathers the ``Params`` of the
 tree on the main thread, one leaf at a time in one fixed order, every
-rank joining each gather.  Rank 0 copies each whole leaf to the host as
-soon as it is gathered and the other ranks drop it, so no rank's device
-holds more than one whole leaf beside its shards; rank 0 alone hands the
-arrays to its writer thread, which issues no collective.  A restore
+rank joining each gather (over "data" and "model" alike).  Rank 0 copies
+each whole leaf to the host as soon as it is gathered and the other
+ranks drop it, so no rank's device holds more than one whole leaf beside
+its shards; rank 0 alone hands the arrays to its writer thread, which
+issues no collective.  A restore
 reads whole arrays; ``fault_tolerance.resume_or_init(mesh=)`` cuts each
 rank's shards from them by the new mesh's placement.
 

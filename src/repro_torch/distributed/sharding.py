@@ -20,29 +20,37 @@ The port's parameters hold the units unstacked (``units[u]["l{pos}"]``,
 JAX counterpart, which carries a leading ``n_units`` axis; its rule is
 the JAX leaf's rule without that axis's entry.
 
-``train_specs`` is the training placement: ``param_specs`` without the
-"model" entries of the dense leaves (the port has no tensor parallelism,
-so each model rank holds a dense leaf's data shard whole), FSDP over
-"data" kept, and the MoE leaves as the expert-parallel body reads them
-(``moe_sharded.MOE_SPECS``: experts over "model", FSDP over "data").
-``shard_state`` cuts a whole ``Params`` / ``AdamWState`` tree into this
-rank's shards by it, ``gather_state`` gathers the shards back whole.
+``train_specs`` is the placement every entry point runs on under a mesh
+(training and serving alike): ``param_specs`` — FSDP over "data", the
+dense leaves over "model" (heads, ffn, vocabulary, the SSM's d_inner)
+with the divisibility fallback — and the MoE leaves as the
+expert-parallel body reads them (``moe_sharded.MOE_SPECS``: experts over
+"model", FSDP over "data").  ``shard_state`` cuts a whole ``Params`` /
+``AdamWState`` tree into this rank's shards by it, ``gather_state``
+gathers the shards back whole.
 
 ``dp_shards`` and ``batch_coord`` give a mesh's data-parallel shard
 count and this rank's index among them (the models split the batch by
 them; ``launch.mesh`` re-exports them as the JAX package's module has
 ``dp_shards``).
 
-Placement is explicit in eager PyTorch.  The JAX package's
-``constrain`` — the activation annotation from which GSPMD derives the
-tensor parallelism of the dense layers — has no counterpart here: no
-automatic partitioner would read it, and each model rank holds a dense
-leaf's data shard whole.  What runs sharded are the two explicit-SPMD
-bodies of the reference — the MoE block under expert parallelism
-(``moe_sharded.py``) and the sequence-sharded decode cache
-(``decode_sp.py``) — and FSDP over "data": the model gathers each
-unit's shards as it runs it (``models/model.py``); the data axis splits
-the batch.
+Placement is explicit in eager PyTorch.  The JAX package annotates the
+activations with ``constrain`` and GSPMD derives the tensor-parallel
+program of the dense layers from the parameters' placement; here that
+program is written out for one rank (``models/model.py``,
+``models/ssm.py``) with the collectives below, the way the reference
+writes its two explicit-SPMD bodies (the expert-parallel MoE,
+``moe_sharded.py``, and the sequence-split decode, ``decode_sp.py``):
+
+  * ``_ToModel`` — the identity, whose backward sums the gradient over
+    "model" — takes a replicated activation, or a leaf every model rank
+    holds whole, into a region where each rank computes its slice;
+  * ``_FromModel`` — a sum over "model", whose backward is the identity —
+    brings the ranks' partial products out of it (the Megatron pair);
+  * ``_GatherModel`` gathers the ranks' slices whole (the logits the
+    entry points return); its backward keeps the rank's slice;
+  * ``_GatherData`` is FSDP's gather over "data"; its backward sums the
+    gradient over "data" and keeps the rank's slice.
 """
 
 from __future__ import annotations
@@ -234,30 +242,121 @@ def batch_specs(batch: dict, mesh) -> dict:
 # ---------------------------------------------------------------------------
 
 def train_specs(params, mesh) -> dict:
-    """``{name: spec}`` of the training placement for every parameter of a
-    whole ``Params`` (real or ``meta``), in ``named_parameters`` order:
+    """``{name: spec}`` of the placement for every parameter of a whole
+    ``Params`` (real or ``meta``), in ``named_parameters`` order:
 
       * a leaf of a MoE block (``...moe.router``, ``...moe.w_gate``,
         ``...moe.shared.w_up``, ...) takes ``moe_sharded.MOE_SPECS``'
         rule: the router FSDP over "data" and replicated over "model",
         the experts over "model" on E and over "data" on d;
-      * any other leaf takes ``param_specs``' rule without its "model"
-        entries: FSDP over "data" where the rules put it, whole over
-        "model" (no tensor parallelism), whole wherever "data" does not
-        divide the dimension (the divisibility fallback).
+      * any other leaf takes ``param_specs``' rule: FSDP over "data" and
+        tensor parallel over "model" where the rules put them, whole on
+        any dimension the axis does not divide (the divisibility
+        fallback).
     """
     from ..models.moe_sharded import MOE_SPECS   # moe_sharded imports us
 
     out = {}
     for name, p in params.named_parameters():
         _, moe, rest = name.partition(".moe.")
-        shape = tuple(p.shape)
-        if moe:
-            out[name] = _resolve(MOE_SPECS[rest], mesh, shape)
-        else:
-            spec = _resolve(leaf_logical(name, p.dim()), mesh, shape)
-            out[name] = tuple(None if e == "model" else e for e in spec)
+        rule = MOE_SPECS[rest] if moe else leaf_logical(name, p.dim())
+        out[name] = _resolve(rule, mesh, tuple(p.shape))
     return out
+
+
+def model_ranks(mesh) -> int:
+    """The size of ``mesh``'s "model" axis (1 with no mesh or no axis)."""
+    return 1 if mesh is None else mesh.shape.get("model", 1)
+
+
+def model_slice(n: int, mesh) -> Tuple[int, int]:
+    """[lo, hi): this model rank's slice of a dimension of ``n`` that the
+    "model" axis splits (the caller checked that it divides)."""
+    m = model_ranks(mesh)
+    i = mesh.coord("model") if m > 1 else 0
+    return i * (n // m), (i + 1) * (n // m)
+
+
+class _ToModel(torch.autograd.Function):
+    """Identity on each of ``xs``; the backward sums their gradients over
+    "model", in one flat all-reduce."""
+
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.mesh = mesh
+        return xs if len(xs) > 1 else xs[0]
+
+    @staticmethod
+    def backward(ctx, *gs):
+        flat = torch.cat([g.reshape(-1) for g in gs])
+        flat = ctx.mesh.all_reduce(flat, "model")
+        return (None,) + tuple(x.view_as(g) for x, g in zip(
+            flat.split([g.numel() for g in gs]), gs))
+
+
+class _FromModel(torch.autograd.Function):
+    """All-reduce (sum) over "model"; the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x.clone(), "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherModel(torch.autograd.Function):
+    """All-gather over "model" on ``dim``; the backward keeps this rank's
+    slice (the gathered tensor's consumers run on every rank alike)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.size = mesh, dim, x.shape[dim]
+        return mesh.all_gather(x.contiguous(), "model", dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.mesh.coord("model")
+        return g.narrow(ctx.dim, i * ctx.size, ctx.size), None, None
+
+
+class _GatherData(torch.autograd.Function):
+    """All-gather over "data" on ``dim``; the backward sums the gradient
+    over "data" and keeps this rank's slice (a reduce-scatter), copied so
+    that the whole gradient is freed once the slice is taken."""
+
+    @staticmethod
+    def forward(ctx, w, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.size = mesh, dim, w.shape[dim]
+        return mesh.all_gather(w, "data", dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.mesh.all_reduce(g.contiguous(), "data")
+        i = ctx.mesh.coord("data")
+        return g.narrow(ctx.dim, i * ctx.size, ctx.size).clone(), None, None
+
+
+def to_model(mesh, *xs):
+    """``xs`` into a model-parallel region (``_ToModel``); themselves when
+    ``mesh`` has no "model" axis to sum over or nothing needs a
+    gradient."""
+    if model_ranks(mesh) == 1 or not (torch.is_grad_enabled() and any(
+            x.requires_grad for x in xs)):
+        return xs if len(xs) > 1 else xs[0]
+    return _ToModel.apply(mesh, *xs)
+
+
+def from_model(x, mesh):
+    """The ranks' partial ``x`` summed over "model" (``_FromModel``)."""
+    return x if model_ranks(mesh) == 1 else _FromModel.apply(x, mesh)
+
+
+def gather_model(x, mesh, dim: int):
+    """The ranks' slices of ``x`` on ``dim`` gathered whole
+    (``_GatherModel``)."""
+    return x if model_ranks(mesh) == 1 else _GatherModel.apply(x, mesh, dim)
 
 
 def split_axes(spec: Sequence) -> Tuple[str, ...]:

@@ -24,10 +24,12 @@ step is counted at one and two units and at two and three microbatches
 and extrapolated (``_train_count``: the units are identical and so are
 the microbatches, so every tally is linear in each number).  It adds
 ``fits`` (the rank's total within an H100's 80 GB) and
-``dense_replicated_over_model``: the port has no tensor parallelism of
-the dense layers yet (the JAX package's ``constrain``), so every model
-rank holds a dense leaf's data shard whole, and the dense records count
-that.  A cell that fails is recorded with ``status: error``.
+``tensor_parallel``: the "model" axis's ranks and how many dense leaves
+(heads, ffn, vocabulary, SSM d_inner) it splits and how many the
+divisibility fallback keeps whole on it.  The dense layers run tensor
+parallel as the placement puts them (``models/model.py``), so the
+records count the rank's slices and the sums over "model".  A cell that
+fails is recorded with ``status: error``.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch gemma2-27b --shape train_4k --mesh multi
@@ -48,7 +50,8 @@ import traceback
 import torch
 
 from ..configs.registry import ARCH_IDS, all_cells, get_config, skipped_cells
-from ..distributed.sharding import dp_shards, shard_state, use_mesh
+from ..distributed.sharding import (dp_shards, leaf_logical, model_ranks,
+                                     shard_state, use_mesh)
 from ..models import model as M
 from ..models.config import SHAPES
 from ..models.io import batch_specs_for
@@ -120,6 +123,22 @@ def rank_state(cfg, mesh):
     training placement: shapes and dtypes on the ``meta`` device."""
     params = shard_state(M.abstract_params(cfg), mesh)
     return params, adamw_init(params)
+
+
+def tensor_parallel(cfg, mesh) -> dict:
+    """The "model" axis's ranks, and the dense leaves (every leaf outside
+    the MoE blocks whose rule names "model") it splits and keeps whole
+    (the divisibility fallback) at ``mesh``'s placement."""
+    specs, shapes = M.placement(cfg, mesh)
+    split = whole = 0
+    for name, spec in specs.items():
+        if ".moe." in name or "model" not in leaf_logical(
+                name, len(shapes[name])):
+            continue
+        split += "model" in spec
+        whole += "model" not in spec
+    return {"model_ranks": model_ranks(mesh), "dense_leaves_split": split,
+            "dense_leaves_whole": whole}
 
 
 def model_flops(cfg, shape) -> float:
@@ -257,7 +276,7 @@ def analyze(cost, cfg, shape, mesh, *, arch, shape_name, arg_bytes,
         "arch": arch, "shape": shape_name, "mesh": mesh_name(mesh),
         "chips": chips, "padded_dims": dict(cfg.logical),
         "kind": shape.kind, "device": "NVIDIA H100 80GB (counted on meta)",
-        "dense_replicated_over_model": "model" in mesh.axis_names,
+        "tensor_parallel": tensor_parallel(cfg, mesh),
     }
     record["memory"] = {
         "argument_bytes": int(arg_bytes), "output_bytes": int(out_bytes),

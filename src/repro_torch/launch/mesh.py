@@ -15,8 +15,9 @@ the dry-run read them without that many ranks.  ``CountingMesh`` is an
 ``AbstractMesh`` with coordinates (0 by default) whose collectives
 compute nothing: ``all_reduce`` returns its input, ``all_gather`` an
 empty tensor of the gathered shape, and each call is recorded in
-``Mesh.stats``' form — so the expert-parallel MoE, the sequence-split
-decode, the global loss and the gradient reductions run at one rank's
+``Mesh.stats``' form — so the tensor-parallel dense layers, the
+expert-parallel MoE, the sequence-split decode, the global loss and the
+gradient reductions run at one rank's
 shapes of a 256- or 512-rank mesh with no process group (the dry-run,
 ``launch/dryrun.py``).
 
@@ -202,11 +203,18 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
     return Mesh(shape, axes, device_mesh)
 
 
-def make_host_mesh() -> Mesh:
+def make_host_mesh(model_ranks: int = 1) -> Mesh:
     """Every rank of the process group on a ("data",) axis; one rank when
-    no group was started."""
+    no group was started.  With ``model_ranks`` above 1 the ranks as a
+    (ranks / model_ranks, model_ranks) mesh over ("data", "model")
+    (``launch.serve`` and ``launch.train`` take it as ``--model-ranks``)."""
     n = dist.get_world_size() if dist.is_initialized() else 1
-    return make_mesh((n,), ("data",))
+    if model_ranks == 1:
+        return make_mesh((n,), ("data",))
+    if n % model_ranks:
+        raise ValueError(f"{model_ranks} model ranks do not divide the {n} "
+                         "ranks")
+    return make_mesh((n // model_ranks, model_ranks), ("data", "model"))
 
 
 def default_backend(device: torch.device, local_world: int) -> str:

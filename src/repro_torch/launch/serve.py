@@ -16,7 +16,12 @@ every rank on a "data" axis), as the JAX package's does.  Under
 repro_torch.launch.serve ...`` each rank prefills and decodes its B/N
 rows (nccl when every rank has a card of its own, gloo when they share
 one or run on the CPU) and rank 0 gathers the tokens and prints them;
-one process is a mesh of one rank.
+one process is a mesh of one rank.  ``--model-ranks M`` lays the N ranks
+out as a (N / M, M) mesh over ("data", "model") instead: each rank
+computes on its slices of the placement (``distributed.sharding``: the
+dense layers' heads, ffn and vocabulary over "model", where M divides
+them; the experts), cut from the whole parameters as views
+(``models.model._gathered``), and runs the dense layers tensor parallel.
 
 ``--retrieval`` additionally runs the retrieval plane: the requests'
 last-step logits, mixed over the embedding table, are 0-bit-CWS-sketched
@@ -373,6 +378,9 @@ def main(argv=None) -> int:
                     help="slow-query threshold (end-to-end ms): requests "
                          "at or above it dump their span tree to the "
                          "slow-query log")
+    ap.add_argument("--model-ranks", type=int, default=1,
+                    help="ranks on the \"model\" axis (tensor parallelism "
+                         "of the dense layers); the rest on \"data\"")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
@@ -398,8 +406,9 @@ def serve_generation(args, cfg, dev) -> int:
     """Generation (and ``--retrieval``) under the host mesh: this rank's
     rows of the batch, gathered on every rank; rank 0 prints."""
     dtype = torch.float32 if dev.type == "cpu" else torch.bfloat16
-    mesh = make_host_mesh()
+    mesh = make_host_mesh(args.model_ranks)
     n, r = dp_shards(mesh), batch_coord(mesh)
+    lead = mesh.size == 1 or torch.distributed.get_rank() == 0
     if args.batch % n:
         raise SystemExit(f"--batch {args.batch} does not split over {n} "
                          "data ranks")
@@ -420,10 +429,12 @@ def serve_generation(args, cfg, dev) -> int:
     out = mesh.all_gather(out, "data").cpu()       # waits for the device
     logits = mesh.all_gather(logits.contiguous(), "data")
     dt = time.perf_counter() - t0
-    if r:
+    if not lead:
         return 0
     total_tokens = args.batch * args.gen_len
     ranks = f" over {n} data ranks" if n > 1 else ""
+    if args.model_ranks > 1:
+        ranks += f" x {args.model_ranks} model ranks"
     print(f"served {args.batch} requests x {args.gen_len} tokens on {dev}"
           f"{ranks} in {dt:.2f}s ({total_tokens / dt:.1f} tok/s incl. "
           "first-call set-up)")

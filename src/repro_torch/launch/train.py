@@ -9,8 +9,12 @@ each rank has a card, gloo when they share one or run on the CPU),
 holds its shards of the training placement (FSDP over "data") and takes
 its rows of every step's batch (``batch_coord``); rank 0 prints and
 writes the checkpoints, which stay logical (whole arrays), so a run
-resumes on another number of ranks.  At the end every rank prints its
-flash and verify launches (``kernels.ops.kernel_stats``).
+resumes on another number of ranks.  ``--model-ranks M`` lays the N
+ranks out as a (N / M, M) mesh over ("data", "model") instead: the
+dense layers train tensor parallel over "model" (the placement's heads,
+ffn and vocabulary, where M divides them; the experts over "model"
+too), FSDP over "data".  At the end every rank prints its flash and
+verify launches (``kernels.ops.kernel_stats``).
 
 Wires together the substrate: the sketch-dedup'd data pipeline
 (``--dedup``: each step's candidates are minhashed on the device and
@@ -70,6 +74,9 @@ def main(argv=None, on_step=None):
                     help="near-duplicate-filter batches through bST")
     ap.add_argument("--fail-at", type=int, default=-1,
                     help="inject a failure at this step (restart drill)")
+    ap.add_argument("--model-ranks", type=int, default=1,
+                    help="ranks on the \"model\" axis (tensor parallelism "
+                         "of the dense layers); the rest on \"data\"")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
@@ -79,7 +86,7 @@ def main(argv=None, on_step=None):
     dev = resolve_device(args.device)
     started = not dist.is_initialized() and init_distributed(args.device)
     try:
-        mesh = make_host_mesh()
+        mesh = make_host_mesh(args.model_ranks)
         with use_mesh(mesh):
             return _loop(args, dev, mesh, on_step)
     finally:
@@ -92,7 +99,8 @@ def _loop(args, dev, mesh, on_step):
     if args.batch % n:
         raise ValueError(f"batch {args.batch} does not split over {n} ranks")
     rows = args.batch // n
-    lead = coord == 0
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    lead = rank == 0
 
     def say(*a, **kw):
         if lead:
@@ -167,7 +175,7 @@ def _loop(args, dev, mesh, on_step):
         ckpt.wait()
     launched = {k: v - before.get(k, 0) for k, v in ops.kernel_stats().items()
                 if k.startswith(("flash_attention", "sparse_verify_batch"))}
-    print(f"[rank {coord}] kernel launches over {args.steps - start} "
+    print(f"[rank {rank}] kernel launches over {args.steps - start} "
           f"steps: {launched}", flush=True)
     say("train: done")
     return 0

@@ -15,6 +15,10 @@ gradient will be asked for: its forward runs
 Without one (serving) the forward runs alone, with no lse.  On a CPU
 tensor both wrappers run their plain versions.
 
+Under tensor parallelism the model hands it a rank's heads (q of its
+H / m heads, k and v of the KV heads those map to), so the repeat and
+the kernels run at the local head counts.
+
 ``set_tile_dtype`` has the meaning of the JAX package's: bfloat16 tiles
 round P (and dS) and the operands they multiply to bfloat16; the
 log-sum-exp statistics stay float32 in either mode.

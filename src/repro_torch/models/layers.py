@@ -173,6 +173,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def mlp_apply(params, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The gated MLP.  Given a rank's ffn slices of the three matrices
+    (tensor parallelism) it returns that slice's partial product; the
+    caller sums it over "model" (``model._mlp``)."""
     h = act_fn(act)(x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]
 

@@ -19,9 +19,10 @@ Numerically the reference's (same routing, same capacity-drop policy),
 asserted in tests/test_torch_moe_sharded.py.  Differentiable: the input
 and the gathered router enter the model-parallel region through an
 identity whose backward sums over "model", the output leaves it through
-an all-reduce whose backward is the identity (the Megatron pair), and an
-FSDP gather's backward sums the gradient over "data" and keeps the
-rank's slice — so each rank's gradients are its slices of the global
+an all-reduce whose backward is the identity (the Megatron pair,
+``distributed.sharding``'s, which the dense layers share), and an FSDP
+gather's backward sums the gradient over "data" and keeps the rank's
+slice — so each rank's gradients are its slices of the global
 function's.
 
 ``shard_moe_params`` cuts a rank's shards from whole weights by
@@ -33,7 +34,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import leaf_logical, local_shard
+from ..distributed.sharding import (_FromModel, _GatherData, _ToModel,
+                                     leaf_logical, local_shard)
 from . import moe
 from .layers import act_fn
 
@@ -52,9 +54,10 @@ MOE_SPECS = {
 }
 
 
-def shard_moe_params(params: dict, mesh) -> dict:
+def shard_moe_params(params: dict, mesh, copy: bool = True) -> dict:
     """This rank's shards of a MoE block (nested dict or ``Params``),
-    each a contiguous copy, keyed as the block is."""
+    each a contiguous copy (a view with ``copy=False``), keyed as the
+    block is."""
     out = {}
     for name, spec in MOE_SPECS.items():
         head, _, leaf = name.rpartition(".")
@@ -62,51 +65,10 @@ def shard_moe_params(params: dict, mesh) -> dict:
             continue
         src = params[head] if head else params
         dst = out.setdefault(head, {}) if head else out
-        dst[leaf] = local_shard(src[leaf], spec, mesh).clone(
-            memory_format=torch.contiguous_format)
+        dst[leaf] = local_shard(src[leaf], spec, mesh)
+        if copy:
+            dst[leaf] = dst[leaf].clone(memory_format=torch.contiguous_format)
     return out
-
-
-class _ToModel(torch.autograd.Function):
-    """Identity; the backward sums the gradient over "model"."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.mesh.all_reduce(g.clone(), "model"), None
-
-
-class _FromModel(torch.autograd.Function):
-    """All-reduce (sum) over "model"; the backward is the identity."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        return mesh.all_reduce(x.clone(), "model")
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _GatherData(torch.autograd.Function):
-    """All-gather over "data" on ``dim``; the backward sums the gradient
-    over "data" and keeps this rank's slice (a reduce-scatter), copied so
-    that the whole gradient is freed once the slice is taken."""
-
-    @staticmethod
-    def forward(ctx, w, mesh, dim):
-        ctx.mesh, ctx.dim, ctx.size = mesh, dim, w.shape[dim]
-        return mesh.all_gather(w, "data", dim=dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = ctx.mesh.all_reduce(g.contiguous(), "data")
-        i = ctx.mesh.coord("data")
-        return g.narrow(ctx.dim, i * ctx.size, ctx.size).clone(), None, None
 
 
 def _gather(w, mesh, dim):
@@ -145,14 +107,14 @@ def moe_apply_sharded(params, x: torch.Tensor, mesh, *, top_k: int,
                          f"the router has {E}: pass the rank's shards")
     router_full = _gather(params["router"], mesh, 0)
     if m_size > 1:          # every model rank routes: its gradient is a sum
-        router_full = _ToModel.apply(router_full, mesh)
+        router_full = _ToModel.apply(mesh, router_full)
     wg = _gather(params["w_gate"], mesh, 1)
     wu = _gather(params["w_up"], mesh, 1)
     wd = _gather(params["w_down"], mesh, 2)
 
     b_loc, s, d = x.shape
     t = b_loc * s
-    x = _ToModel.apply(x, mesh) if m_size > 1 else x
+    x = _ToModel.apply(mesh, x) if m_size > 1 else x
     xt = x.reshape(t, d)
     gates, idx = moe._route(router_full, xt, top_k)       # (t, k)
 

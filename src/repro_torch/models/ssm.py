@@ -17,6 +17,27 @@ are XLA's outside any Pallas kernel in the JAX package.
 
 Decode is the O(1) recurrent step on a (B, H, P, N) float32 state plus
 rolling depthwise-conv windows in the cache dtype.
+
+Tensor parallelism (``mesh=``, a mesh whose "model" axis of m ranks
+divides the H SSM heads; ``models/model.py`` passes it): the block runs
+on the rank's H / m heads, as GSPMD runs the JAX package's block from
+its placement (``wz``, ``wx`` and ``conv_x`` over d_inner, ``out_proj``
+row-split, JAX ``ssm.py:176``'s ``constrain`` on the x stream).  The
+replicated input enters the region through ``_ToModel``; ``wz``, ``wx``,
+``conv_x`` and ``out_proj`` arrive as the rank's d_inner slices; ``wB``,
+``wC``, ``conv_B``, ``conv_C`` and their biases stay whole on every rank
+(the B and C streams are computed whole), ``wdt``, ``A_log``, ``D``,
+``dt_bias``, ``conv_bx`` and ``norm`` are whole leaves cut to the rank's
+heads or channels — all of these enter the region through ``_ToModel``,
+so each gradient sums the ranks' shares.  The gated RMSNorm over d_inner
+sums its squares over "model" before it scales, and the output
+projection's partial product is summed over "model" (``_FromModel``).
+Under tensor parallelism an ``SSMCache`` holds the rank's d_inner
+channels of ``conv_x`` and its heads of ``state``; ``conv_B`` and
+``conv_C`` stay whole, as the port computes those streams whole — where
+the JAX package's ``cache_specs`` would split them over "model" too
+(the same values, another placement).  A "model" axis that does not
+divide the heads leaves the block whole (``model._ssm_block``).
 """
 
 from __future__ import annotations
@@ -28,6 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.hamming import resolve_device
+from ..distributed.sharding import (from_model, model_ranks, model_slice,
+                                    to_model)
 from .layers import rms_norm, scaled_normal
 
 
@@ -186,6 +209,44 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y[:, :T], final_state
 
 
+_WHOLE = ("wB", "wC", "wdt", "conv_B", "conv_bB", "conv_C", "conv_bC",
+          "conv_bx", "A_log", "D", "dt_bias", "norm")
+
+
+def _rank_leaves(params, cfg: SSMConfig, mesh):
+    """The block's leaves as this model rank computes with them (module
+    doc); ``params`` themselves with no ``mesh``."""
+    if mesh is None:
+        return params
+    h0, h1 = model_slice(cfg.n_heads, mesh)
+    c0, c1 = h0 * cfg.head_dim, h1 * cfg.head_dim
+    p = dict(zip(_WHOLE, to_model(mesh, *(params[n] for n in _WHOLE))))
+    p.update({n: params[n] for n in ("wz", "wx", "conv_x", "out_proj")})
+    p["wdt"] = p["wdt"][:, h0:h1]
+    for n in ("A_log", "D", "dt_bias"):
+        p[n] = p[n][h0:h1]
+    for n in ("conv_bx", "norm"):
+        p[n] = p[n][c0:c1]
+    return p
+
+
+def _gated_norm(y: torch.Tensor, scale: torch.Tensor, eps: float,
+                d_inner: int, mesh) -> torch.Tensor:
+    """``rms_norm`` over d_inner; under tensor parallelism the mean of
+    squares is the sum over "model" of the ranks' sums (a sum whose
+    backward sums too: every rank's share of the gradient reaches every
+    rank's slice)."""
+    if mesh is None:
+        return rms_norm(y, scale, eps)
+    dtype = y.dtype
+    y = y.to(torch.float32)
+    ss = to_model(mesh, from_model(torch.sum(y * y, dim=-1, keepdim=True),
+                                   mesh))
+    out = y * torch.rsqrt(ss / d_inner + eps) * (1.0 + scale.to(
+        torch.float32))
+    return out.to(dtype)
+
+
 def _streams(params, x: torch.Tensor, conv_state: Optional[Tuple] = None):
     """Project + causal-conv + silu the x/B/C streams; project z and dt.
     Returns (z, xs, Bm, Cm, dt_raw, new_conv_state)."""
@@ -204,10 +265,15 @@ def _streams(params, x: torch.Tensor, conv_state: Optional[Tuple] = None):
 def ssm_apply(params, x: torch.Tensor, cfg: SSMConfig, *,
               norm_eps: float = 1e-6,
               init_state: Optional[torch.Tensor] = None,
-              return_state: bool = False):
-    """Full Mamba2 block (train/prefill).  x: (B, T, d_model)."""
+              return_state: bool = False, mesh=None):
+    """Full Mamba2 block (train/prefill).  x: (B, T, d_model); under
+    ``mesh`` (module doc) the rank's heads, the output summed over
+    "model" and the state the rank's heads'."""
     Bsz, T, _ = x.shape
-    H, P = cfg.n_heads, cfg.head_dim
+    P = cfg.head_dim
+    params = _rank_leaves(params, cfg, mesh)
+    x = to_model(mesh, x)
+    H = params["A_log"].shape[0]
     z, xs, Bm, Cm, dt_raw, _ = _streams(params, x)
 
     dt = F.softplus(dt_raw.to(torch.float32) + params["dt_bias"])
@@ -217,10 +283,11 @@ def ssm_apply(params, x: torch.Tensor, cfg: SSMConfig, *,
                                  Cm.to(torch.float32), cfg.chunk,
                                  init_state=init_state)
     y = y + params["D"][None, None, :, None] * xh
-    y = y.reshape(Bsz, T, cfg.d_inner).to(x.dtype)
+    y = y.reshape(Bsz, T, H * P).to(x.dtype)
 
-    y = rms_norm(y * F.silu(z), params["norm"], norm_eps)
-    out = y @ params["out_proj"]
+    y = _gated_norm(y * F.silu(z), params["norm"], norm_eps, cfg.d_inner,
+                    mesh)
+    out = from_model(y @ params["out_proj"], mesh)
     if return_state:
         return out, final_state
     return out
@@ -234,28 +301,30 @@ class SSMCache(NamedTuple):
 
 
 def ssm_cache_init(batch: int, cfg: SSMConfig, dtype=torch.bfloat16, *,
-                   device="cuda") -> SSMCache:
+                   device="cuda", mesh=None) -> SSMCache:
     """Empty caches on ``device``: conv windows in ``dtype``, the state in
-    float32."""
+    float32; under ``mesh`` the rank's heads and channels (module doc)."""
     K = cfg.d_conv
     dev = resolve_device(device)
+    H = cfg.n_heads // model_ranks(mesh)
 
     def z(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=dev)
 
     return SSMCache(
-        conv_x=z(batch, K - 1, cfg.d_inner),
+        conv_x=z(batch, K - 1, H * cfg.head_dim),
         conv_B=z(batch, K - 1, cfg.d_state),
         conv_C=z(batch, K - 1, cfg.d_state),
-        state=z(batch, cfg.n_heads, cfg.head_dim, cfg.d_state,
-                dt=torch.float32))
+        state=z(batch, H, cfg.head_dim, cfg.d_state, dt=torch.float32))
 
 
 def ssm_prefill_cache(params, x_pre: torch.Tensor, state: torch.Tensor,
-                      cfg: SSMConfig, dtype=torch.bfloat16) -> SSMCache:
+                      cfg: SSMConfig, dtype=torch.bfloat16, *,
+                      mesh=None) -> SSMCache:
     """Cache from a prefill: trailing conv windows of the *pre-conv*
     streams + the final SSD state.  x_pre: (B, T, d_model) block input
-    (post-ln)."""
+    (post-ln); under ``mesh`` the rank's slices (module doc)."""
+    params = _rank_leaves(params, cfg, mesh)
     K = cfg.d_conv
     tail = x_pre[:, -(K - 1):]
     pad = (K - 1) - tail.shape[1]
@@ -269,10 +338,14 @@ def ssm_prefill_cache(params, x_pre: torch.Tensor, state: torch.Tensor,
 
 
 def ssm_decode_step(params, x: torch.Tensor, cache: SSMCache,
-                    cfg: SSMConfig, *, norm_eps: float = 1e-6):
-    """One-token recurrent step.  x: (B, 1, d_model) -> (y, new_cache)."""
+                    cfg: SSMConfig, *, norm_eps: float = 1e-6, mesh=None):
+    """One-token recurrent step.  x: (B, 1, d_model) -> (y, new_cache);
+    under ``mesh`` on the rank's heads (module doc)."""
     Bsz = x.shape[0]
-    H, P = cfg.n_heads, cfg.head_dim
+    P = cfg.head_dim
+    params = _rank_leaves(params, cfg, mesh)
+    x = to_model(mesh, x)
+    H = params["A_log"].shape[0]
     z, xs, Bm, Cm, dt_raw, (c_x, c_B, c_C) = _streams(
         params, x, conv_state=(cache.conv_x, cache.conv_B, cache.conv_C))
     xs, Bm, Cm = xs[:, 0], Bm[:, 0], Cm[:, 0]
@@ -287,10 +360,11 @@ def ssm_decode_step(params, x: torch.Tensor, cache: SSMCache,
     state = cache.state * dA[..., None, None] + dBx
     y = torch.einsum("bn,bhpn->bhp", Cm.to(torch.float32), state)
     y = y + params["D"][None, :, None] * xh
-    y = y.reshape(Bsz, 1, cfg.d_inner).to(x.dtype)
+    y = y.reshape(Bsz, 1, H * P).to(x.dtype)
 
-    y = rms_norm(y * F.silu(z), params["norm"], norm_eps)
-    out = y @ params["out_proj"]
+    y = _gated_norm(y * F.silu(z), params["norm"], norm_eps, cfg.d_inner,
+                    mesh)
+    out = from_model(y @ params["out_proj"], mesh)
     return out, SSMCache(conv_x=c_x.to(cache.conv_x.dtype),
                          conv_B=c_B.to(cache.conv_B.dtype),
                          conv_C=c_C.to(cache.conv_C.dtype),

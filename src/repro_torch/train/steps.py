@@ -15,15 +15,21 @@ says what a mesh changes).  Under a mesh the train step takes this
 rank's shards of the training placement (``distributed.sharding.
 shard_state`` cuts the parameters and the optimizer state alike)
 and this rank's rows of the batch (``batch_coord``); microbatches split
-those rows.  After the backward:
+those rows.  The model's tensor-parallel regions already sum over
+"model" every gradient that needs it (``models/model.py``: a leaf every
+model rank holds whole but reads in a region enters it through
+``_ToModel``), so no leaf is summed over "model" here.  After the
+backward:
 
   * the leaves kept whole over "data" (the norms, the biases, any leaf
-    the divisibility fallback leaves whole) have their gradients summed
-    over "pod" and "data", in one flat all-reduce;
+    the divisibility fallback leaves whole, the leaves split only over
+    "model") have their gradients summed over "pod" and "data", in one
+    flat all-reduce;
   * the FSDP and expert leaves, whose gathers' backward already summed
     over "data", are summed over "pod" (a pure data-parallel axis);
-  * the clip's norm is the global one (``optim.adamw.global_norm``);
-    the update stays elementwise on the rank's shards.
+  * the clip's norm is the global one (``optim.adamw.global_norm``,
+    a leaf split over "model" counted once, its squares summed over
+    "model"); the update stays elementwise on the rank's shards.
 
 The gradients' reduction carries float32 (the masters' gradients); the
 gathers' own backward carries the compute type.

@@ -254,7 +254,10 @@ def test_smollm_train_4k_traces_at_full_size():
     assert shard < whole / 8               # FSDP over 16 data ranks
     rows = 256 // 16 * 4096 * 4 * 2        # the rank's tokens and targets
     assert rec["memory"]["argument_bytes"] == 3 * shard + 4 + rows
-    assert rec["fits"] and rec["dense_replicated_over_model"]
+    assert rec["fits"] and rec["tensor_parallel"] == {   # every layer's
+        "model_ranks": 16, "dense_leaves_split": 7 * cfg.num_layers + 1,
+        "dense_leaves_whole": 0}     # wq, wk, wv, wo and MLP; the embed
+    assert rec["collectives"]["stats"]["all_reduce_sum:model"][0] > 0
     assert rec["collectives"]["count_by_kind"]["all-gather"] > 0
     assert rec["roofline"]["param_count"] == cfg.param_count()
 

@@ -4,7 +4,9 @@ run.
 
 SMOKE granite-moe-3b-a800m (its MoE blocks on the expert-parallel path,
 each model rank holding half the experts) and yi-9b (its decode cache
-split over the sequence axis, ``decode_kv_shard="seq"``), with the JAX
+split over the sequence axis, ``decode_kv_shard="seq"``), their dense
+layers tensor parallel over "model" (granite's KV caches split over the
+heads), with the JAX
 package's parameters carried across: prefill and three teacher-forced
 decode steps in a group of 2 gloo ranks at meshes (1, 2) and (2, 1),
 every rank's rows assembled.  Tolerances: the prefill logits within
@@ -113,15 +115,21 @@ def test_mesh_prefill_decode_match(arch, mesh, runs):
         got = np.concatenate(rows)
         _close(got, one[step], 1e-5)
         _close(got, want[step], 1e-4 if step == 0 else 2e-2)
-    # caches: the ranks' rows (data) and sequence slices (model, yi's
-    # global layers) put back together are the one-rank run's
+    # caches: the ranks' rows (data), sequence slices (model, yi's
+    # global layers) and KV heads (model, where it divides granite's) put
+    # back together are the one-rank run's
     cfg = get_config(arch, smoke=True)
     seq = cfg.decode_kv_shard == "seq" and M > 1
+    heads = not seq and M > 1 and cfg.n_kv % M == 0
     for li, layer in enumerate(caches):
         for ti, whole in enumerate(layer):
             parts = [[ranks[d * M + m]["caches"][li][ti] for m in range(M)]
                      for d in range(D)]
-            if not seq:
+            if heads:
+                assert parts[0][0].shape[2] == cfg.n_kv // M
+                got = np.concatenate([np.concatenate(row, axis=2)
+                                      for row in parts])
+            elif not seq:
                 for row in parts:
                     for p in row[1:]:
                         np.testing.assert_array_equal(p, row[0])
@@ -138,6 +146,8 @@ def test_mesh_prefill_decode_match(arch, mesh, runs):
         assert stats["all_reduce_max:model"][0] == GEN * cfg.num_layers
     if D > 1 and cfg.n_experts:         # the experts' FSDP shards
         assert stats["all_gather:data"][0] > 0
+    if M > 1:                           # tensor parallelism of the dense
+        assert stats["all_reduce_sum:model"][0] > 0     # layers
     if not cfg.n_experts and not seq:   # dense rows: only the FSDP gathers
         assert set(stats) == ({"all_gather:data"} if D > 1 else set())
 
