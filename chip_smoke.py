@@ -65,7 +65,7 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      verify, one per call over all queries) and the verify (one per call
      over all shards) counted and timed; (c) ``SegmentedIndex`` with the
      multi and sharded backends and ``ShardedSegmentedIndex`` over bst
-     stacks on 2,400,000 of phase 5's token sets (delta_cap 2^19), 1%
+     stacks on 1,200,000 of phase 5's token sets (delta_cap 2^18), 1%
      deleted and a live delta buffer: top-k and range planes against the
      scan kernel, the fan-out against the fused path, the stacks' Jaccard
      re-rank against numpy; (d) SIH, MIH and HmSearch on 2^19 of phase
@@ -166,6 +166,22 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      ``make_train_step`` under ``use_mesh``: kept masks, losses, norms and
      the updated expert shards against one rank, 16 lse forwards and 8
      backwards a step on each rank.
+ 17. the families trained: mamba2-1.3b, hubert-xlarge,
+     granite-moe-3b-a800m (all 32 layers) and zamba2-2.7b at full width
+     and depth through ``launch.train.main`` (f32 masters, bf16 compute,
+     remat, AdamW, weights drawn on the card), each step first counted by
+     ``launch.dryrun`` at mesh (1, 1) in a process of its own (started
+     beside phase 16 (b)): 8 x 2,048 tokens (hubert: frames) a step, the
+     batch halved where the count passes 72 GB (granite: 4 x 2,048), in
+     the count's microbatches; 3 steps with finite losses and norms, the
+     step time, tokens/s and the peak beside the count; the flash
+     launches derived from the config (two lse forwards under remat and
+     one backward for each attention layer a microbatch runs); step 1
+     held against ``attn_impl="ref"`` (mamba2: float32 compute) on the
+     same weights and batch, granite's routings that differ printed;
+     then rows 6l and 7 at zamba2's causal and hubert's bidirectional
+     D 80 training shapes held against their plain versions and timed
+     beside the bound and SDPA.
 
 Phase 2 also sweeps the batched launches (grid.z over the batch) of the
 scan and the verify: batch 1, 3, 4 and 64, ragged n and m, shared and
@@ -301,13 +317,14 @@ BATCH_M = [1, 3, 8]
 # over SHARDS shards on phase 3's sketches; the segmented backends on the
 # first SEG10_N of phase 5's token sets with a delta buffer of DELTA10_CAP
 # (cut from 12,886,488 rows and 2^20 to keep the three ingests within the
-# phase's time; each of the SHARDS stacks needs more than DELTA10_CAP rows
-# for a segment of its own); the baselines on BASE_N of phase 3's rows for
+# phase's time, then from 2,400,000 and 2^19 to make room for phase 17;
+# each of the SHARDS stacks needs more than DELTA10_CAP rows for a segment
+# of its own); the baselines on BASE_N of phase 3's rows for
 # BASE_Q queries (host numpy indexes: the full size's HmSearch sorts
 # ≈ 116 M keys a block), MIH at τ = 2, where its block thresholds keep the
 # pigeonhole bound.
 MI_BLOCKS, SHARDS = 2, 4
-SEG10_N, DELTA10_CAP = 2_400_000, 1 << 19
+SEG10_N, DELTA10_CAP = 1_200_000, 1 << 18
 RS_N = 4_500_000
 BASE_N, BASE_Q = 1 << 19, 16
 SIH_TAU, MIH_TAU, HM_TAU = 2, 2, 3
@@ -315,8 +332,8 @@ SIH_TAU, MIH_TAU, HM_TAU = 2, 2, 3
 # (L 16, b 2, Wp 8, delta_cap 2^20, auto_merge; rows cut from 12,886,488
 # because durability writes the stack three times — journal, snapshots
 # at every seal and merge, recovery's rebuild — and phase 5 already
-# ingests the full size; not cut to phase 10 (c)'s 2,400,000: at that
-# size the served queries climb τ-ladder rungs that the scheduler's
+# ingests the full size; not cut to 2,400,000 (phase 10 (c)'s size once):
+# at that size the served queries climb τ-ladder rungs that the scheduler's
 # warm-up on zero queries does not build, and phase 11 holds 0 builds
 # after the warm-up).  Inserts in chunks of
 # RS_CHUNK; RS_CLIENTS client threads send RS_TOPK_REQ single top-k
@@ -3158,15 +3175,16 @@ def train_smollm(torch, args, ops) -> dict:
     return launches
 
 
-def record_routes(fn):
-    """Run ``fn`` with every MoE routing recorded: the (1, T, k) expert
-    indices of each layer, in order."""
+def record_routes(fn, limit=None):
+    """Run ``fn`` with every MoE routing recorded (the first ``limit``
+    when given): the (1, T, k) expert indices of each layer, in order."""
     from repro_torch.models import moe
     routes, route = [], moe._route
 
     def recording(router_w, x, top_k):
         gates, idx = route(router_w, x, top_k)
-        routes.append(idx)
+        if limit is None or len(routes) < limit:
+            routes.append(idx)
         return gates, idx
 
     moe._route = recording
@@ -4719,11 +4737,11 @@ def expert_parallel_training(torch, args, work: Path) -> dict:
     return {r: got["launches"] for r, got in enumerate(ranks)}
 
 
-def mesh_training(torch, args) -> dict:
+def mesh_training(torch, args, start_counts=lambda: None) -> dict:
     """Phase 16: (a)–(c) (the comment above P16_FAIL_AT).  The train_4k
     counts need no card: they run beside (b) and (c), whose seconds are
-    mostly process start-up and gloo, and nothing else timed runs beside
-    them.  Returns each rank's launches in (b)'s resumed run and in
+    mostly process start-up and gloo, and so do phase 17's
+    (``start_counts``); nothing else timed runs beside them.  Returns each rank's launches in (b)'s resumed run and in
     (c)."""
     import shutil
 
@@ -4737,6 +4755,7 @@ def mesh_training(torch, args) -> dict:
         print(f"(a: {time.perf_counter() - t0:.1f} s)", flush=True)
         t0 = time.perf_counter()
         counts, counted = dryrun_counts()
+        start_counts()
 
         def expert_parallel():
             t1 = time.perf_counter()
@@ -4786,12 +4805,330 @@ def mesh_training(torch, args) -> dict:
     return {"b": launches, "c": ep}
 
 
+# Phase 17, the families trained: mamba2-1.3b (SSD under autograd and
+# remat), hubert-xlarge (the encoder: D 80, not causal),
+# granite-moe-3b-a800m (all 32 layers: the MoE dispatch's backward) and
+# zamba2-2.7b (the hybrid's shared block: D 80, causal) at their published
+# width and depth, each through launch.train.main as phase 12 (c) trains
+# smollm-135m (f32 masters, bf16 compute, remat, AdamW; no --dedup: phase
+# 12 drives the pipeline), P17_STEPS steps of P17_BATCH x P17_SEQ tokens
+# (hubert: frames, a multiple of 1,024: F2) from --seed, the weights drawn
+# on the card (--device-init: a CPU generator's draws of the four
+# families' 8.2 B weights take minutes).  Each step is first counted by
+# launch.dryrun at mesh (1, 1) (a process of its own, --count-child,
+# started beside phase 16 (b) and read here); where the counted peak
+# passes P17_PEAK the batch is halved, never the width or the depth, and
+# the step takes the count's microbatches (the reference's remat-stash
+# rule, STASH_BUDGET).  Flash launches a step: two forwards with lse (one
+# recomputed under remat) and one backward for each attention layer a
+# microbatch runs.  One step is held against a plain path on the same
+# parameters (drawn again from the seed once the run's are freed: one
+# model at a time) and batch 0: attn_impl="ref" for the three with
+# attention, under phase 12's TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL; mamba2,
+# which launches no kernel, against float32 compute.  That distance is
+# the compute copy's rounding itself, as between phase 12's two bf16
+# paths: every matmul operand rounded to bf16's 8 significant bits (2^-9
+# relative) once, the loss a mean of 16,384 tokens' NLLs whose roundings
+# fall either way, the gradient norm a sum of 1.3 B squares whose
+# roundings do too; so the same limits, 2^-7 and 2^-5 relative.  Then
+# rows 6l and 7 at the two D 80 training shapes (a microbatch's rows, the
+# model's strided views): held against their plain versions, timed beside
+# the bound and SDPA.
+P17_ARCHS = ["mamba2-1.3b", "hubert-xlarge", "granite-moe-3b-a800m",
+             "zamba2-2.7b"]
+P17_BATCH, P17_SEQ, P17_STEPS = 8, 2048, 3
+P17_PEAK = 72e9
+P17_COUNT_TIMEOUT_S = 300
+
+
+def count_child(work: Path) -> int:
+    """Phase 17's counts, in a process of its own: each family's step at
+    mesh (1, 1) on ``meta`` tensors (``launch.dryrun.trace_cell``), the
+    batch halved while the counted peak passes P17_PEAK; one JSON file a
+    family under ``work``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import CountingMesh
+    from repro_torch.models.config import ShapeConfig
+
+    for arch in P17_ARCHS:
+        cfg, batch, tried = get_config(arch), P17_BATCH, []
+        while True:
+            shape = ShapeConfig("phase17", P17_SEQ, batch, "train")
+            rec, cost = trace_cell(arch, shape.name, CountingMesh(
+                (1, 1), ("data", "model")), cfg=cfg, shape=shape)
+            tried.append([batch, rec["memory"]["total_bytes"]])
+            if rec["memory"]["total_bytes"] <= P17_PEAK or batch == 1:
+                break
+            batch //= 2
+        out = {"batch": batch, "tried": tried,
+               "mb": rec["num_microbatches"], "memory": rec["memory"],
+               "flops": cost.flops, "trace_s": rec["trace_s"],
+               "kernels": {k: v[0] for k, v in cost.kernels.items()}}
+        tmp = work / f"{arch}.json.tmp"
+        tmp.write_text(json.dumps(out))
+        os.replace(tmp, work / f"{arch}.json")      # read whole or not at all
+    return 0
+
+
+def count_start():
+    """Start ``count_child`` under a temporary ``build/`` directory (no
+    card touched, one host thread).  Returns (the process, the
+    directory)."""
+    work = ROOT / "build" / f"chip_smoke_p17_counts_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    env = dict(mesh_env(), OMP_NUM_THREADS="1")
+    log = open(work / "count.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--count-child",
+         str(work)], cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return proc, work
+
+
+def count_read(counts, arch: str) -> dict:
+    """The count of ``arch`` from ``count_start``'s process, waited for."""
+    proc, work = counts
+    path = work / f"{arch}.json"
+    deadline = time.perf_counter() + P17_COUNT_TIMEOUT_S
+    while not path.exists():
+        check(proc.poll() in (None, 0) and time.perf_counter() < deadline,
+              f"phase 17's count of {arch}: rc {proc.poll()}:\n"
+              f"{(work / 'count.log').read_text()[-3000:]}")
+        time.sleep(0.2)
+    return json.loads(path.read_text())
+
+
+def train_family(torch, args, ops, arch: str, plan: dict) -> dict:
+    """Phase 17, one family: P17_STEPS steps through ``launch.train.main``
+    at ``plan``'s batch and microbatches, the flash launches against the
+    config's, one step against the plain path, the peak beside the count.
+    Returns the run's launches and the microbatch's shape."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SketchDedupPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import Hyper, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config(arch)
+    B, mb = plan["batch"], plan["mb"]
+    n_attn = M.n_attention_layers(cfg)
+    tokens = B * P17_SEQ
+    argv = ["--arch", arch, "--steps", str(P17_STEPS), "--batch", str(B),
+            "--seq", str(P17_SEQ), "--microbatches", str(mb), "--log-every",
+            "1", "--seed", str(args.seed), "--device-init"]
+    routed = 2 * cfg.num_layers * mb if cfg.n_experts else 0
+    full = {}
+
+    def on_step(step, metrics):
+        full[step] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                      time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_kernel_stats()                       # the main path's window
+    t0 = time.perf_counter()
+    rc, r_kern = record_routes(lambda: train.main(argv, on_step=on_step),
+                               limit=routed)
+    run_s = time.perf_counter() - t0
+    launches = ops.kernel_stats()
+    peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.empty_cache()
+    check(rc == 0 and sorted(full) == list(range(P17_STEPS)),
+          f"{arch}: launch.train returned {rc} after steps {sorted(full)}")
+    losses = [full[s][0] for s in range(P17_STEPS)]
+    norms = [full[s][1] for s in range(P17_STEPS)]
+    check(all(np.isfinite(losses + norms)), f"{arch}: losses {losses} "
+          f"gnorms {norms}")
+    fwd, bwd = 2 * n_attn * mb * P17_STEPS, n_attn * mb * P17_STEPS
+    want = ({"flash_attention_fwd": fwd, "flash_attention_fwd:lse": fwd,
+             "flash_attention_fwd:bf16": fwd, "flash_attention_bwd": bwd,
+             "flash_attention_bwd:bf16": bwd} if n_attn else {})
+    check(launches == want, f"{arch}: launches {launches}, want {want} "
+          f"({n_attn} attention layers, {mb} microbatches, remat)")
+    stamps = [t0] + [full[s][2] for s in range(P17_STEPS)]
+    loop_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    step_ms = statistics.median(loop_ms[1:])
+    mem = plan["memory"]
+    print(f"{arch} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{n_attn} attention layers a microbatch): {P17_STEPS} steps of "
+          f"{B} x {P17_SEQ} in {mb} microbatches in {run_s:.1f} s; losses "
+          f"{[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in norms]}; a step {step_ms:.1f} ms after "
+          f"the first ({[round(x, 1) for x in loop_ms]}), "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s; peak "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated above "
+          f"{base / 2**30:.2f}) against the count's "
+          f"{mem['total_bytes'] / 2**30:.2f} GiB (arguments "
+          f"{mem['argument_bytes'] / 2**30:.2f} + live "
+          f"{mem['temp_bytes'] / 2**30:.2f}; counted at batch "
+          f"{[b for b, _ in plan['tried']]}: "
+          f"{[round(t / 1e9, 1) for _, t in plan['tried']]} GB, "
+          f"{plan['trace_s']} s); launches {launches}", flush=True)
+
+    # one step on the plain path: the same weights, batch 0
+    p0 = M.init_params(torch.Generator(device="cuda").manual_seed(args.seed),
+                       cfg, device="cuda")
+    batch = SketchDedupPipeline(DataConfig(
+        vocab=cfg.vocab, batch=B, seq=P17_SEQ, seed=args.seed, dedup=False,
+        embeds_dim=cfg.d_model if cfg.inputs_embeds else 0),
+        device="cuda").batch_for_step(0)
+    if n_attn:
+        plain, what = dataclasses.replace(cfg, attn_impl="ref"), \
+            "attn_impl='ref'"
+        dtype = torch.bfloat16
+    else:
+        plain, what, dtype = cfg, "float32 compute", torch.float32
+    step = make_train_step(plain, Hyper(warmup_steps=2,
+                                        total_steps=P17_STEPS),
+                           num_microbatches=mb, compute_dtype=dtype)
+    ops.reset_kernel_stats()
+    t1 = time.perf_counter()
+    (_, _, m), r_plain = record_routes(
+        lambda: step(p0, adamw_init(p0), batch), limit=routed)
+    l_p, g_p = float(m["loss"]), float(m["grad_norm"])
+    plain_s = time.perf_counter() - t1
+    check(ops.kernel_stats() == {}, f"{arch}: the plain path launched "
+          f"{ops.kernel_stats()}")
+    (l_k, g_k) = full[0][:2]
+    print(f"{arch} step 1, the run's against {what} ({plain_s:.1f} s): "
+          f"loss {l_k:.6f} vs {l_p:.6f} (|diff| / loss "
+          f"{abs(l_k - l_p) / abs(l_p):.3g}, limit {TRAIN_LOSS_RTOL:.3g}), "
+          f"grad norm {g_k:.5f} vs {g_p:.5f} (|diff| / norm "
+          f"{abs(g_k - g_p) / abs(g_p):.3g}, limit {TRAIN_GNORM_RTOL:.3g})",
+          flush=True)
+    check(abs(l_k - l_p) <= TRAIN_LOSS_RTOL * abs(l_p)
+          and abs(g_k - g_p) <= TRAIN_GNORM_RTOL * abs(g_p),
+          f"{arch}: kernel path loss {l_k} gnorm {g_k} vs {what} {l_p} "
+          f"{g_p}")
+    if cfg.n_experts:
+        check(len(r_kern) == len(r_plain) == routed,
+              f"{arch}: {len(r_kern)} / {len(r_plain)} routings recorded, "
+              f"want {routed}")
+        differ = routing_differences(torch, r_kern, r_plain, cfg.n_experts)
+        pairs = routed * (tokens // mb) * cfg.top_k
+        print(f"{arch} step 1's MoE routing (forward and recompute): "
+              f"{differ} of {pairs} (token, slot) routings differ between "
+              f"the kernel and plain paths ({differ / pairs:.4%})",
+              flush=True)
+    del p0, batch, step, m, r_kern, r_plain
+    torch.cuda.empty_cache()
+    return {"launches": launches, "shape": (B // mb, cfg.n_heads,
+                                            P17_SEQ, cfg.head_dim,
+                                            cfg.causal)}
+
+
+def check_d80_train(torch, ops, ref, dev, gen, err, B: int, H: int, S: int,
+                    D: int, causal: bool) -> dict:
+    """Rows 6l and 7 at a D 80 training shape (the model's strided views
+    of (B, S, H, D)): the forward's output and lse and the backward
+    against their plain versions (bf16 tiles; BWD_BF16_RTOL), then each
+    timed beside its bound, its plain version and SDPA."""
+    import torch.nn.functional as F
+
+    def views():
+        return (torch.randn((B, S, H, D), device=dev, generator=gen)
+                .bfloat16().transpose(1, 2) for _ in range(4))
+
+    q, k, v, do = views()
+    what = f"B={B} H={H} S={S} D={D} bf16 causal={causal}"
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                       return_lse=True)
+    out_r, lse_r = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           return_lse=True)
+    e_out = float((out.float() - out_r.float()).abs().max())
+    e_lse = float((lse - lse_r).abs().max())
+    err["flash_attention_fwd_lse"] = max(err["flash_attention_fwd_lse"],
+                                         e_lse)
+    check(e_out <= 2e-2 and e_lse <= 1e-4, f"lse forward {what}: max err "
+          f"{e_out} (out), {e_lse} (lse)")
+    del out_r, lse_r
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                       tile_bf16=True)
+    errs = []
+    for a, w, name in zip(got, want, ("dq", "dk", "dv")):
+        e = float((a.float() - w.float()).abs().max())
+        top = float(w.float().abs().max())
+        err["flash_attention_bwd"] = max(err["flash_attention_bwd"], e)
+        check(e <= BWD_BF16_RTOL * top and bool(torch.isfinite(a).all()),
+              f"{name} {what}: max err {e} (largest {top})")
+        errs.append(e)
+    del got, want
+    fwd_ms = time_ms(torch, lambda: ops.flash_attention_fwd(
+        q, k, v, causal=causal, return_lse=True))
+    bwd_ms = time_ms(torch, lambda: ops.flash_attention_bwd(
+        q, k, v, out, lse, do, causal=causal))
+    fwd_plain = time_ms(torch, lambda: ref.flash_attention_ref(
+        q, k, v, causal=causal, return_lse=True), iters=3)
+    bwd_plain = time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, causal=causal), iters=3)
+    with torch.no_grad():
+        sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal))
+    qq, kk, vv = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    sdpa_fwd_ag = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, is_causal=causal))
+    sdpa_total = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, is_causal=causal).backward(do))
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    elems = B * H * S * D
+    fwd_bound, fwd_by = max_bound(4 * pairs * D,
+                                  2 * 4 * elems + 4 * B * H * S)
+    bwd_bound, bwd_by = max_bound(10 * pairs * D,
+                                  2 * 8 * elems + 4 * B * H * S)
+    print(f"flash at {what} (strided views): lse forward {fwd_ms:.4f} ms, "
+          f"bound {fwd_bound:.4f} ({fwd_by}), plain {fwd_plain:.3f}, SDPA "
+          f"{sdpa_fwd:.4f}; backward {bwd_ms:.4f} ms, bound "
+          f"{bwd_bound:.4f} ({bwd_by}), plain {bwd_plain:.3f}, SDPA's "
+          f"backward {sdpa_total - sdpa_fwd_ag:.4f}; max err out {e_out:.3g}"
+          f", lse {e_lse:.3g}, dq/dk/dv "
+          f"{'/'.join(f'{e:.3g}' for e in errs)}", flush=True)
+    del q, k, v, do, out, lse, qq, kk, vv
+    torch.cuda.empty_cache()
+    shape = {"B": B, "H": H, "S": S, "D": D, "causal": causal}
+    return {"lse": {"shape": shape, "ms": fwd_ms, "plain_ms": fwd_plain,
+                    "bound_ms": fwd_bound, "bound_by": fwd_by,
+                    "library_ms": sdpa_fwd},
+            "bwd": {"shape": shape, "ms": bwd_ms, "plain_ms": bwd_plain,
+                    "bound_ms": bwd_bound, "bound_by": bwd_by,
+                    "library_ms": sdpa_total - sdpa_fwd_ag}}
+
+
+def family_training(torch, args, ops, ref, dev, gen, err, counts) -> dict:
+    """Phase 17: the families trained at full width (the comment above
+    P17_ARCHS) on ``count_start``'s counts, then rows 6l and 7 at their
+    D 80 training shapes.  Returns each family's launches and the rows'
+    D 80 fields."""
+    out = {"launches": {}, "d80": {}}
+    for arch in P17_ARCHS:
+        t0 = time.perf_counter()
+        got = train_family(torch, args, ops, arch, count_read(counts, arch))
+        out["launches"][arch] = got["launches"]
+        B, H, S, D, causal = got["shape"]
+        if D == 80:
+            out["d80"][arch] = (B, H, S, D, causal)
+        print(f"({arch}: {time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    for arch, shape in out["d80"].items():
+        out["d80"][arch] = check_d80_train(torch, ops, ref, dev, gen, err,
+                                           *shape)
+    print(f"(rows 6l and 7 at D 80: {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--crash-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--serve-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--count-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -4807,6 +5144,8 @@ def main() -> int:
         return mesh_child(json.loads(args.mesh_child))
     if args.serve_child:                 # a rank of phase 15 (c)'s serve CLI
         return serve_child(Path(args.serve_child))
+    if args.count_child:                 # phase 17's counts, beside phase 16
+        return count_child(Path(args.count_child))
     from repro_torch.core import (LinearScan, build_bst, make_batch_searcher,
                                   topk_batch)
     from repro_torch.core.cost_model import frontier_capacities
@@ -5170,9 +5509,23 @@ def main() -> int:
     mesh = mesh_layer(torch, args, dev, err)
     phase_done("15 (the mesh layer: expert-parallel MoE, sequence-parallel "
                "decode, data-parallel serving)")
-    mesh_train = mesh_training(torch, args)
-    phase_done("16 (training under a mesh of ranks, the dry-run against the "
-               "card)")
+    import shutil
+
+    p17_counts = []                      # phase 17's counts, started in 16
+    try:
+        mesh_train = mesh_training(torch, args, lambda: p17_counts.append(
+            count_start()))
+        phase_done("16 (training under a mesh of ranks, the dry-run against "
+                   "the card)")
+        families_trained = family_training(torch, args, ops, ref, dev, gen,
+                                           err, p17_counts[0])
+    finally:
+        for proc, work in p17_counts:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            shutil.rmtree(work, ignore_errors=True)
+    phase_done("17 (the families trained at full width)")
 
     kernels = [
         {"name": "sparse_verify_batch", "route": "cuda",
@@ -5225,6 +5578,11 @@ def main() -> int:
                                  for r, c in mesh_train["b"].items()},
          "tp_train_launches": {r: c.get("flash_attention_fwd:lse", 0)
                                for r, c in mesh_train["c"].items()},
+         "family_train_launches": {
+             a: c.get("flash_attention_fwd:lse", 0)
+             for a, c in families_trained["launches"].items()},
+         "d80_train": {a: t["lse"]
+                       for a, t in families_trained["d80"].items()},
          "max_abs_err": err["flash_attention_fwd_lse"], **attn["lse"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
@@ -5234,6 +5592,11 @@ def main() -> int:
                                  for r, c in mesh_train["b"].items()},
          "tp_train_launches": {r: c.get("flash_attention_bwd", 0)
                                for r, c in mesh_train["c"].items()},
+         "family_train_launches": {
+             a: c.get("flash_attention_bwd", 0)
+             for a, c in families_trained["launches"].items()},
+         "d80_train": {a: t["bwd"]
+                       for a, t in families_trained["d80"].items()},
          "max_abs_err": err["flash_attention_bwd"], **attn["bwd"]},
         {"name": "sparse_verify_batch_batched", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming.cu",

@@ -27,7 +27,9 @@ drill (``--fail-at N`` exits 13 at step N; a rerun with the same
 monitor.  ``--device`` is ``cuda`` by default and raises without a
 card; ``--device cpu`` runs the plain kernels.  Weights are drawn from
 ``--seed`` by a CPU generator, so both devices start from the same
-parameters.
+parameters; ``--device-init`` draws them with a generator on the device
+instead (seconds where the CPU's draws of a few billion weights take
+minutes; the same seed gives other weights than the CPU's).
 """
 
 from __future__ import annotations
@@ -78,6 +80,8 @@ def main(argv=None, on_step=None):
                     help="ranks on the \"model\" axis (tensor parallelism "
                          "of the dense layers); the rest on \"data\"")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device-init", action="store_true",
+                    help="draw the weights with a generator on --device")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
@@ -126,8 +130,9 @@ def _loop(args, dev, mesh, on_step):
     monitor = StragglerMonitor(n_workers=1)
 
     def init():
-        return shard_state(M.init_params(
-            torch.Generator().manual_seed(args.seed), cfg, device=dev), mesh)
+        gen = torch.Generator(device=dev if args.device_init else "cpu")
+        return shard_state(M.init_params(gen.manual_seed(args.seed), cfg,
+                                         device=dev), mesh)
 
     if args.ckpt_dir:
         state_abs = {"params": abstract, "opt": abstract_opt_state(abstract)}

@@ -8,12 +8,18 @@ group — and saves what it returns.  The parent waits up to ``timeout``
 seconds for the group, kills every rank on expiry, and raises if a rank
 failed; it returns the ranks' results in rank order.  Workers import
 torch and the port only: the JAX package never enters a rank.
+
+``run_cli(cmd)`` runs one command line of the port's drivers (one
+interpreter, or ``python -m torch.distributed.run`` and its ranks) as
+the CLI tests launch them, and returns its standard output.
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
 import os
+import signal
+import subprocess
 import time
 import traceback
 from pathlib import Path
@@ -21,6 +27,10 @@ from pathlib import Path
 import torch
 
 GROUP_TIMEOUT_S = 60.0
+# A launch of a driver takes 7-20 s on an 8-core CPU host, 9-31 s there
+# beside the rest of the suite under ``-n 6``; the limit is a hang's, not
+# a slow host's.
+CLI_TIMEOUT_S = 300.0
 
 
 def _child(worker, rank: int, world: int, tmp: str, payload) -> None:
@@ -84,6 +94,41 @@ def env_with_src() -> dict:
     env["PYTHONPATH"] = str(root / "src") + os.pathsep + env.get(
         "PYTHONPATH", "")
     return env
+
+
+def run_cli(cmd: list, timeout: float = CLI_TIMEOUT_S) -> str:
+    """Run ``cmd`` with ``src`` on its path and return its standard
+    output.  Every process of it runs one intra-op thread (what
+    ``torch.distributed.run`` gives its ranks, so a one-rank run and the
+    ranks it is held against share the arithmetic and the host is not
+    oversubscribed beside the suite's workers), one ``PYTHONHASHSEED``
+    (F10), and glibc's resolver one 1-s try a lookup: c10d reverse-
+    resolves every store connection of a launch (its "hostname of the
+    client socket cannot be retrieved" warnings), a v4-mapped address
+    that ``/etc/hosts`` does not name, so each lookup asks the DNS
+    resolver, however long it takes to answer.  ``cmd`` runs
+    in a session of its own: on ``timeout`` the whole session is killed,
+    the launcher's ranks too.  A nonzero exit or a timeout raises with
+    the exit code, the seconds and the tails of both streams."""
+    env = dict(env_with_src(), OMP_NUM_THREADS="1", PYTHONHASHSEED="0",
+               RES_OPTIONS="timeout:1 attempts:1")
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+        what = f"exited {proc.returncode}"
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        what = f"timed out after {timeout:g} s (session killed)"
+    if what != "exited 0":
+        raise AssertionError(
+            f"{' '.join(cmd[1:])} {what} in {time.monotonic() - t0:.1f} s\n"
+            f"--- stdout (tail):\n{out[-2000:]}\n--- stderr (tail):\n"
+            f"{err[-3000:]}")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,6 @@ capacity spans both ranks' rows).
 """
 
 import re
-import subprocess
 import sys
 
 import jax
@@ -33,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_ranks import env_with_src, model_worker, run_ranks
+from _torch_ranks import model_worker, run_cli, run_ranks
 from repro.configs.registry import get_config as jget_config
 from repro.models import model as JM
 from repro.train.steps import make_decode_step as jdecode_step
@@ -165,12 +164,10 @@ def test_serve_cli_over_two_ranks_prints_one_rank_s_tokens(arch, capsys):
             "--prompt-len", "9", "--gen-len", "5"]
     assert serve.main(argv) == 0
     want = _continuation(capsys.readouterr().out)
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "2", "-m", "repro_torch.launch.serve", *argv],
-        env=env_with_src(), capture_output=True, text=True, timeout=180)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert _continuation(proc.stdout) == want
-    assert "process group: backend gloo, 2 ranks" in proc.stdout
+    out = run_cli([sys.executable, "-m", "torch.distributed.run",
+                   "--standalone", "--nproc-per-node", "2", "-m",
+                   "repro_torch.launch.serve", *argv])
+    assert _continuation(out) == want
+    assert "process group: backend gloo, 2 ranks" in out
     assert re.search(r"served 4 requests x 5 tokens on cpu over 2 data "
-                     r"ranks", proc.stdout)
+                     r"ranks", out)

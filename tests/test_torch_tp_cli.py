@@ -13,23 +13,14 @@ decimals; float32 sums in another order move them by ~1e-6 relative).
 """
 
 import re
-import subprocess
 import sys
 
 import pytest
 
-from _torch_ranks import env_with_src
+from _torch_ranks import run_cli as _launch
 
 RUN = [sys.executable, "-m", "torch.distributed.run", "--standalone",
        "--nproc-per-node", "2"]
-
-
-def _launch(cmd: list) -> str:
-    env = dict(env_with_src(), PYTHONHASHSEED="0")
-    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                          timeout=240)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return proc.stdout
 
 
 def _continuation(out: str) -> str:

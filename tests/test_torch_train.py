@@ -221,23 +221,35 @@ def test_train_step_matches_jax(arch):
                                    rtol=0, atol=1e-5, err_msg=name)
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-1.3b"])
-def test_three_train_steps_match_jax(arch):
+@pytest.mark.parametrize("arch,microbatches", [
+    pytest.param(a, 1, id=a) for a in
+    ("smollm-135m", "mamba2-1.3b", "zamba2-2.7b", "granite-moe-3b-a800m",
+     "hubert-xlarge")] + [
+    pytest.param("granite-moe-3b-a800m", 2, id="granite-moe-3b-a800m-mb2")])
+def test_three_train_steps_match_jax(arch, microbatches):
     """Three steps on three batches (the per-layer vectors decayed in both
     packages, F8): the losses within 1e-5 relative, the parameters within
     1e-5 absolute after the last, except where a step was ill-conditioned
     (the clipped |g| of JAX's gradient within ten eps at some step, as in
     ``test_train_step_matches_jax``; mamba2: 1 weight of 8,192 in one
-    matrix)."""
+    matrix; at most 2).  The hybrid, MoE and encoder families too, and
+    the MoE in two microbatches (gradients summed over both, the capacity
+    a microbatch's) as the card's full-width training runs it; where the
+    hybrid's shared block and rarely routed experts see clipped gradients
+    near eps, as in the one-step test, at most one weight in 10,000 lands
+    off (zamba2: 6 of 170,144, each at an ill-conditioned step)."""
     cfg = get_config(arch, smoke=True)
     jcfg = jget_config(arch, smoke=True)
     jparams = JM.init_params(jax.random.PRNGKey(1), jcfg)
     jhyper = JHyper(base_lr=1e-3, total_steps=10, warmup_steps=1)
     jstep = jax.jit(jmake_train_step(jcfg, jhyper,
+                                     num_microbatches=microbatches,
                                      compute_dtype=jnp.float32))
     params = M.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
                                cfg, device="cpu")
-    step = make_train_step(cfg, Hyper(*jhyper), compute_dtype=torch.float32)
+    step = make_train_step(cfg, Hyper(*jhyper),
+                           num_microbatches=microbatches,
+                           compute_dtype=torch.float32)
     jgrad = jax.jit(jax.grad(lambda p, b: JM.loss_fn(p, jcfg, b,
                                                      remat=True)))
     jopt, opt = jadamw_init(jparams), adamw_init(params)
@@ -264,7 +276,9 @@ def test_three_train_steps_match_jax(arch):
         off_total += int(off.sum())
         np.testing.assert_allclose(a.detach()[~off].numpy(), b[~off].numpy(),
                                    rtol=0, atol=1e-5, err_msg=name)
-    assert off_total <= 2
+    cap = 2 if arch in ("smollm-135m", "mamba2-1.3b") else sum(
+        p.numel() for p in want.parameters()) // 10_000
+    assert off_total <= cap
 
 
 def _grads_both(jcfg, jparams, cfg, batch):
