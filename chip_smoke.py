@@ -2998,13 +2998,10 @@ def check_flash_bwd(torch, ops, ref, dev, gen, err) -> dict:
                     "library_ms": sdpa_fwd}}
 
 
-# the bf16 backward kernels by head dim: the wgmma kernels at D 64 and 128,
-# the mma.sync ones at D 16 and 80 (an 80-wide row is 160 bytes, past the
-# 128-byte swizzle span of the TMA tiles)
-BWD_BF16_KERNELS = {f"flash_bwd_{p}_{k}_kernel<{d}>"
-                    for p in ("dq", "dkdv")
-                    for k, ds in (("wg", (64, 128)), ("tc", (16, 80)))
-                    for d in ds}
+# the bf16 backward kernels by head dim: the wgmma kernels at every D (D 80
+# and 16 with a 16-column tail under the 32-byte swizzle)
+BWD_BF16_KERNELS = {f"flash_bwd_{p}_wg_kernel<{d}>"
+                    for p in ("dq", "dkdv") for d in (16, 64, 80, 128)}
 
 
 def bf16_bwd_ptxas(_build) -> dict:
@@ -3013,7 +3010,7 @@ def bf16_bwd_ptxas(_build) -> dict:
     import re
     out = {}
     for name, v in _build.ptxas_kernels(_build.BUILD_INFO["report"]).items():
-        m = re.search(r"(flash_bwd_(?:dq|dkdv)_(?:wg|tc)_kernel)ILi(\d+)E",
+        m = re.search(r"(flash_bwd_(?:dq|dkdv)_wg_kernel)ILi(\d+)E",
                       name)
         if m:
             out[f"{m.group(1)}<{m.group(2)}>"] = v
@@ -5026,8 +5023,10 @@ def check_d80_train(torch, ops, ref, dev, gen, err, B: int, H: int, S: int,
                     D: int, causal: bool) -> dict:
     """Rows 6l and 7 at a D 80 training shape (the model's strided views
     of (B, S, H, D)): the forward's output and lse and the backward
-    against their plain versions (bf16 tiles; BWD_BF16_RTOL), then each
-    timed beside its bound, its plain version and SDPA."""
+    against their plain versions (bf16 tiles; BWD_BF16_RTOL; the backward
+    twice, for the same bits), then each timed beside its bound, its
+    plain version and SDPA; the backward also 20 calls queued (beside
+    SDPA's backward, queued) and each of its two passes alone, queued."""
     import torch.nn.functional as F
 
     def views():
@@ -5048,20 +5047,39 @@ def check_d80_train(torch, ops, ref, dev, gen, err, B: int, H: int, S: int,
           f"{e_out} (out), {e_lse} (lse)")
     del out_r, lse_r
     got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                        tile_bf16=True)
     errs = []
-    for a, w, name in zip(got, want, ("dq", "dk", "dv")):
+    for a, b, w, name in zip(got, again, want, ("dq", "dk", "dv")):
+        check(torch.equal(a, b), f"{name} {what}: two runs differ")
         e = float((a.float() - w.float()).abs().max())
         top = float(w.float().abs().max())
         err["flash_attention_bwd"] = max(err["flash_attention_bwd"], e)
         check(e <= BWD_BF16_RTOL * top and bool(torch.isfinite(a).all()),
               f"{name} {what}: max err {e} (largest {top})")
         errs.append(e)
-    del got, want
+    del got, again, want
+    from repro_torch.kernels import _build
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    _, args_ = ops.flash_bwd_args(q, k, v, out, lse, do, causal=causal,
+                                  window=0, cap=0.0, scale=D ** -0.5,
+                                  q_offset=0, tile_bf16=False)
+
+    def one_pass(passes):
+        code = lib.flash_attention_bwd_launch(*args_, passes, stream)
+        check(code == 0, f"flash_attention_bwd_launch passes={passes}: {code}")
+
+    # each pass alone, 20 launches queued: the device's time of each
+    dq_ms = queued_ms(torch, lambda: one_pass(1))
+    dkdv_ms = queued_ms(torch, lambda: one_pass(2))
+    del args_
     fwd_ms = time_ms(torch, lambda: ops.flash_attention_fwd(
         q, k, v, causal=causal, return_lse=True))
     bwd_ms = time_ms(torch, lambda: ops.flash_attention_bwd(
+        q, k, v, out, lse, do, causal=causal))
+    bwd_queued = queued_ms(torch, lambda: ops.flash_attention_bwd(
         q, k, v, out, lse, do, causal=causal))
     fwd_plain = time_ms(torch, lambda: ref.flash_attention_ref(
         q, k, v, causal=causal, return_lse=True), iters=3)
@@ -5075,6 +5093,10 @@ def check_d80_train(torch, ops, ref, dev, gen, err, B: int, H: int, S: int,
         qq, kk, vv, is_causal=causal))
     sdpa_total = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qq, kk, vv, is_causal=causal).backward(do))
+    sdpa_bwd_queued = queued_ms(torch, lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, is_causal=causal).backward(do)) - queued_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=causal))
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     elems = B * H * S * D
     fwd_bound, fwd_by = max_bound(4 * pairs * D,
@@ -5085,8 +5107,10 @@ def check_d80_train(torch, ops, ref, dev, gen, err, B: int, H: int, S: int,
           f"bound {fwd_bound:.4f} ({fwd_by}), plain {fwd_plain:.3f}, SDPA "
           f"{sdpa_fwd:.4f}; backward {bwd_ms:.4f} ms, bound "
           f"{bwd_bound:.4f} ({bwd_by}), plain {bwd_plain:.3f}, SDPA's "
-          f"backward {sdpa_total - sdpa_fwd_ag:.4f}; max err out {e_out:.3g}"
-          f", lse {e_lse:.3g}, dq/dk/dv "
+          f"backward {sdpa_total - sdpa_fwd_ag:.4f}; queued: backward "
+          f"{bwd_queued:.4f} ms a call (dq pass {dq_ms:.4f}, dk/dv pass "
+          f"{dkdv_ms:.4f}), SDPA's backward {sdpa_bwd_queued:.4f}; max err "
+          f"out {e_out:.3g}, lse {e_lse:.3g}, dq/dk/dv "
           f"{'/'.join(f'{e:.3g}' for e in errs)}", flush=True)
     del q, k, v, do, out, lse, qq, kk, vv
     torch.cuda.empty_cache()
@@ -5096,7 +5120,10 @@ def check_d80_train(torch, ops, ref, dev, gen, err, B: int, H: int, S: int,
                     "library_ms": sdpa_fwd},
             "bwd": {"shape": shape, "ms": bwd_ms, "plain_ms": bwd_plain,
                     "bound_ms": bwd_bound, "bound_by": bwd_by,
-                    "library_ms": sdpa_total - sdpa_fwd_ag}}
+                    "library_ms": sdpa_total - sdpa_fwd_ag,
+                    "queued_ms": bwd_queued,
+                    "library_queued_ms": sdpa_bwd_queued,
+                    "dq_ms": dq_ms, "dkdv_ms": dkdv_ms}}
 
 
 def family_training(torch, args, ops, ref, dev, gen, err, counts) -> dict:

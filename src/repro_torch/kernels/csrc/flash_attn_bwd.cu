@@ -42,7 +42,7 @@
 // seven products (S and dP in both) and two exponentials a score, so the
 // design's own floor is 1.4x that bound.
 //
-// bfloat16 at D = 64 and 128: flash_bwd_dq_wg_kernel and
+// bfloat16 (D = 16, 64, 80 and 128): flash_bwd_dq_wg_kernel and
 // flash_bwd_dkdv_wg_kernel, warp-specialised for Hopper (primitives in
 // sm90.cuh).  A CTA owns 128 rows (q rows, or keys) and has three
 // warpgroups: a producer warp that TMA-loads the CTA's own two operands
@@ -57,25 +57,29 @@
 // (Pᵀ) and dS (dSᵀ) rounded to bf16 as register A operands and the
 // streamed tile as the MN-major B.  Each group is issued before the
 // element work it overlaps: P is made while dP runs, dS while dV runs.
-// Tiles are the TMA's 128-byte swizzle (a D = 128 operand is two 64-
-// column blocks), the layout the wgmma descriptors name.  What bounds the
-// kernels now: the element work between the products (an exponential a
-// score, a MUFU op at 16 a clock an SM, besides the masks and the bf16
-// packing) serialises with each warpgroup's own products, and the two
-// warpgroups overlap each other's only in part; the dq pass recomputes S
-// and dP (the seven products above).  Rounding P and dS to bf16 is the
-// one numeric difference from the float32 tiles of the plain version, as
-// P's is in the forward; with bf16 inputs it is what the JAX package's
-// set_tile_dtype(bfloat16) does, so the tile flag changes nothing here.
-//
-// bfloat16 at D = 16 and 80: flash_bwd_dq_tc_kernel and
-// flash_bwd_dkdv_tc_kernel, the forward's tensor-core structure
-// (flash_attn.cu; primitives in flash_mma.cuh), as TMA tiles with the
-// 128-byte swizzle cannot hold an 80-wide row (160 bytes) and D = 16
-// (the SMOKE configs) would need a third swizzle mode.  4 warps of 16
-// rows a CTA, 64 rows a tile; the streamed side comes in a 2-stage
-// cp.async ring; every product is mma.sync m16n8k16 from ldmatrix
-// fragments, K's and V's (dk/dv pass) loaded again for each tile.
+// An operand's rows are split where the TMA's swizzle spans end: 64-
+// column blocks of 128-byte rows under the 128-byte swizzle (D = 128 is
+// two), and for D = 80 (hubert-xlarge, zamba2-2.7b: 160-byte rows, past
+// the 128-byte span) a 16-column tail of 32-byte rows under the 32-byte
+// swizzle (D = 16, the SMOKE configs, is that tail alone).  Each operand
+// has a tensor map for each box shape (64 x 64 at column 0, 16 x 64 at
+// column 64), both loads completing on one mbarrier that counts the whole
+// rows' bytes; the wgmma descriptors name each part's swizzle.  A product
+// over D takes its four k16 steps in each block and one in the tail; a
+// product whose N is D issues an n64 (n128) over the blocks and an n16
+// over the tail, whose 8 sums a thread follow the block's in one
+// accumulator.  At D = 80 a CTA holds 82 KB of shared memory and a dk/dv
+// consumer 40 + 40 float32 sums besides S and dP: no spill under 240
+// registers.  What bounds the kernels now: the element work between the
+// products (an exponential a score, a MUFU op at 16 a clock an SM,
+// besides the masks and the bf16 packing) serialises with each
+// warpgroup's own products, and the two warpgroups overlap each other's
+// only in part; the dq pass recomputes S and dP (the seven products
+// above); the n16 tail products use the tensor cores at a quarter of an
+// n64's width.  Rounding P and dS to bf16 is the one numeric difference
+// from the float32 tiles of the plain version, as P's is in the forward;
+// with bf16 inputs it is what the JAX package's set_tile_dtype(bfloat16)
+// does, so the tile flag changes nothing here.
 //
 // float32: flash_bwd_dq_kernel and flash_bwd_dkdv_kernel, scalar FMAs on
 // the CUDA cores as the float32 forward: 4 threads own one row and split
@@ -415,433 +419,38 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at D = 16 and 80: tensor-core kernels (mma.sync m16n8k16,
-// ldmatrix, cp.async)
-// ---------------------------------------------------------------------------
-
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = 32 * kTcWarps;
-constexpr int kTcRows = 16 * kTcWarps;   // the rows a CTA owns, 16 a warp
-constexpr int kTcTile = 64;              // rows of a streamed tile
-
-// Shared memory of both passes: six 64-row tiles of D bf16, rows padded
-// by 8 elements (16 bytes: the 8 rows of an ldmatrix phase fall in 8
-// bank groups), and the dk/dv pass's lse and delta of two q tiles.
-template <int D>
-struct BwdTc {
-  static constexpr int kPitch = D + 8;
-  static constexpr int kTile = kTcTile * kPitch;
-  static constexpr int kBytes = 6 * kTile * 2 + 4 * kTcTile * 4;
-};
-
-// p and dS of one score, from its raw dot product s = q·k (unscaled),
-// dp = dout·v, its query row's lse and delta; both 0 where !ok
-__device__ __forceinline__ void tc_pair(float s, float dp, float lse,
-                                        float dlt, bool ok, float cap,
-                                        float scale, float& p, float& ds) {
-  float sc = s * scale;
-  float dt = 1.f;
-  if (cap > 0.f) {
-    const float th = tanhf(sc / cap);
-    sc = th * cap;
-    dt = 1.f - th * th;
-  }
-  p = (ok && lse != -INFINITY) ? ex2((sc - lse) * kLog2e) : 0.f;
-  ds = p * (dp - dlt) * dt;
-}
-
-// A fragment (16 rows x k16) of accumulator tiles 2kk and 2kk + 1, to bf16
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// the warp's A fragments (its 16 rows x D) of a padded shared tile
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4],
-                                             uint32_t tile, int warp,
-                                             int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(f[kk], tile + (uint32_t)(((warp * 16 + (lane & 15)) * (D + 8)
-                                          + kk * 16 + (lane >> 4) * 8) * 2));
-}
-
-// c[0 .. 7] (16 rows x 64 columns) += A (16 x D) · Xᵀ, X a 64-row tile
-// (B fragments by ldmatrix, as K in the forward's S = Q·Kᵀ)
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&c)[kTcTile / 8][4],
-                                        const uint32_t (&a)[D / 16][4],
-                                        uint32_t tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int nb2 = 0; nb2 < kTcTile / 16; ++nb2) {
-      uint32_t f[4];
-      const int row = nb2 * 16 + (lane & 7) + ((lane >> 4) << 3);
-      const int d = kk * 16 + ((lane >> 3) & 1) * 8;
-      ldmatrix_x4(f, tile + (uint32_t)((row * (D + 8) + d) * 2));
-      mma_bf16(c[2 * nb2], a[kk], f[0], f[1]);
-      mma_bf16(c[2 * nb2 + 1], a[kk], f[2], f[3]);
-    }
-  }
-}
-
-// c[0 .. D/8) (16 rows x D) += A (16 x 64, from the accumulators `x`,
-// rounded to bf16) · X, X a 64-row tile (B fragments by ldmatrix.trans,
-// as V in the forward's P·V)
-template <int D>
-__device__ __forceinline__ void mma_ab(float (&c)[D / 8][4],
-                                       const float (&x)[kTcTile / 8][4],
-                                       uint32_t tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kTcTile / 16; ++kk) {
-    uint32_t a[4];
-    acc_to_a(a, x[2 * kk], x[2 * kk + 1]);
-#pragma unroll
-    for (int dn2 = 0; dn2 < D / 16; ++dn2) {
-      uint32_t f[4];
-      const int row = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int d = dn2 * 16 + (lane >> 4) * 8;
-      ldmatrix_x4_trans(f, tile + (uint32_t)((row * (D + 8) + d) * 2));
-      mma_bf16(c[2 * dn2], a, f[0], f[1]);
-      mma_bf16(c[2 * dn2 + 1], a, f[2], f[3]);
-    }
-  }
-}
-
-// rows g and g + 8 of a warp's 16 x D accumulator, times `mul`, as bf16
-// pairs through the (b, h, s) strides; rows at or past `limit` skipped
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long s,
-                                           int row0, int limit,
-                                           const float (&c)[D / 8][4],
-                                           float mul, int g, int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= limit) continue;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<uint32_t*>(&base[(long long)row * s + i * 8 + 2 * t]) =
-          pack_bf16(c[i][2 * r] * mul, c[i][2 * r + 1] * mul);
-  }
-}
-
-// pass 1: dq and delta, one CTA per (b·h, 64 q rows); Q and dO fragments
-// in registers, K and V tiles streamed
-template <int D>
-__global__ void __launch_bounds__(kTcThreads, 1)
-flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const __nv_bfloat16* __restrict__ out,
-                       const __nv_bfloat16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       float* __restrict__ delta,
-                       __nv_bfloat16* __restrict__ dq, int H, int Sq,
-                       int Skv, Strides sq, Strides sk, Strides sv,
-                       Strides so, Strides sdo, Strides sdq, int causal,
-                       int window, float cap, float scale, int q_offset) {
-  static_assert(D % 16 == 0 && D <= 128, "D: a multiple of 16, at most 128");
-  using Cfg = BwdTc<D>;
-  constexpr int kNB = kTcTile / 8;
-  constexpr int kDB = D / 8;
-  constexpr uint32_t kTileBytes = Cfg::kTile * 2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t sQ = smem_addr(smem_raw);
-  const uint32_t sDO = sQ + kTileBytes;
-  const uint32_t sK = sDO + kTileBytes;            // 2 stages
-  const uint32_t sV = sK + 2 * kTileBytes;         // 2 stages
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int n_qt = gridDim.y;
-  const int qt = causal ? (n_qt - 1 - (int)blockIdx.y) : (int)blockIdx.y;
-  const int q0 = qt * kTcRows;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int w_row = q0 + warp * 16;                // the warp's first row
-
-  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
-  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
-  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
-  const __nv_bfloat16* ob = out + b * so.b + h * so.h;
-  const __nv_bfloat16* dob = dout + b * sdo.b + h * sdo.h;
-
-  int k_lo = 0;
-  int k_hi = Skv;
-  if (window > 0) k_lo = max(0, q_offset + q0 - window + 1);
-  if (causal) k_hi = min(Skv, max(0, q_offset + q0 + kTcRows));
-  k_lo = (k_lo / kTcTile) * kTcTile;
-  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kTcTile - 1) / kTcTile : 0;
-
-  load_tile<D, kTcThreads, kTcRows>(sQ, qb, sq.s, q0, Sq, tid);
-  load_tile<D, kTcThreads, kTcRows>(sDO, dob, sdo.s, q0, Sq, tid);
-  if (n_tiles > 0) {
-    load_tile<D, kTcThreads, kTcTile>(sK, kb, sk.s, k_lo, Skv, tid);
-    load_tile<D, kTcThreads, kTcTile>(sV, vb, sv.s, k_lo, Skv, tid);
-  }
-  cp_async_commit();
-
-  // delta of the warp's 16 rows (float32 sums over the lanes); this
-  // thread keeps those of its rows g and g + 8, and their lse
-  float dlt[2] = {0.f, 0.f};
-  float lse_r[2];
-  for (int r = 0; r < 16; ++r) {
-    const int qi = w_row + r;
-    float acc = 0.f;
-    if (qi < Sq) {
-      const __nv_bfloat16* o_row = ob + (long long)qi * so.s;
-      const __nv_bfloat16* d_row = dob + (long long)qi * sdo.s;
-      for (int d = lane; d < D; d += 32)
-        acc = fmaf(__bfloat162float(d_row[d]), __bfloat162float(o_row[d]),
-                   acc);
-    }
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, m);
-    if (r == g) dlt[0] = acc;
-    if (r == g + 8) dlt[1] = acc;
-    if (lane == 0 && qi < Sq) delta[(long long)bh * Sq + qi] = acc;
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = w_row + g + 8 * r;
-    lse_r[r] = qi < Sq ? lse[(long long)bh * Sq + qi] : -INFINITY;
-  }
-
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  float acc[kDB][4];
-#pragma unroll
-  for (int i = 0; i < kDB; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = k_lo + it * kTcTile;
-    if (it + 1 < n_tiles) {          // the next tile into the other stage
-      const uint32_t off = ((it + 1) & 1) * kTileBytes;
-      load_tile<D, kTcThreads, kTcTile>(sK + off, kb, sk.s, k0 + kTcTile, Skv,
-                                        tid);
-      load_tile<D, kTcThreads, kTcTile>(sV + off, vb, sv.s, k0 + kTcTile, Skv,
-                                        tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (it == 0) {
-      load_a_frags<D>(qf, sQ, warp, lane);
-      load_a_frags<D>(df, sDO, warp, lane);
-    }
-    const uint32_t stage = (it & 1) * kTileBytes;
-    float s[kNB][4], dp[kNB][4];
-#pragma unroll
-    for (int i = 0; i < kNB; ++i) {
-      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-    }
-    mma_abt<D>(s, qf, sK + stage, lane);           // S = Q·Kᵀ
-    mma_abt<D>(dp, df, sV + stage, lane);          // dP = dO·Vᵀ
-    const bool cut = (k0 + kTcTile > Skv) || (w_row + 16 > Sq)
-        || (causal && k0 + kTcTile - 1 > q_offset + w_row)
-        || (window > 0 && q_offset + w_row + 15 - k0 >= window);
-#pragma unroll
-    for (int i = 0; i < kNB; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        bool ok = true;
-        if (cut) {
-          const int qi = w_row + g + 8 * r;
-          ok = qi < Sq && visible(q_offset + qi, k0 + i * 8 + 2 * t + (e & 1),
-                                  Skv, causal, window);
-        }
-        float p;
-        tc_pair(s[i][e], dp[i][e], lse_r[r], dlt[r], ok, cap, scale, p,
-                s[i][e]);
-      }
-    }
-    mma_ab<D>(acc, s, sK + stage, lane);           // dQ += dS·K
-    __syncthreads();                 // this stage is free for tile it + 2
-  }
-  cp_async_wait<0>();
-  store_rows<D>(dq + b * sdq.b + h * sdq.h, sdq.s, w_row, Sq, acc, scale, g,
-                t);
-}
-
-// pass 2: dk and dv, one CTA per (b·h, 64 keys); K and V in shared memory,
-// Q and dO tiles (with their rows' lse and delta) streamed
-template <int D>
-__global__ void __launch_bounds__(kTcThreads, 1)
-flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int H, int Sq,
-                         int Skv, Strides sq, Strides sk, Strides sv,
-                         Strides sdo, Strides sdk, Strides sdv, int causal,
-                         int window, float cap, float scale, int q_offset) {
-  static_assert(D % 16 == 0 && D <= 128, "D: a multiple of 16, at most 128");
-  using Cfg = BwdTc<D>;
-  constexpr int kNB = kTcTile / 8;
-  constexpr int kDB = D / 8;
-  constexpr uint32_t kTileBytes = Cfg::kTile * 2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t sK = smem_addr(smem_raw);
-  const uint32_t sV = sK + kTileBytes;
-  const uint32_t sQ = sV + kTileBytes;             // 2 stages
-  const uint32_t sDO = sQ + 2 * kTileBytes;        // 2 stages
-  float (*s_lse)[kTcTile] = reinterpret_cast<float (*)[kTcTile]>(
-      smem_raw + 6 * kTileBytes);                  // [2][64]
-  float (*s_dlt)[kTcTile] = s_lse + 2;             // [2][64]
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int k0 = blockIdx.y * kTcRows;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int kw = k0 + warp * 16;                   // the warp's first key
-
-  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
-  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
-  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
-  const __nv_bfloat16* dob = dout + b * sdo.b + h * sdo.h;
-  const float* lseb = lse + (long long)bh * Sq;
-  const float* dltb = delta + (long long)bh * Sq;
-
-  // the q rows that can see any key of this tile
-  int q_lo = 0;
-  int q_hi = Sq;
-  if (causal) q_lo = max(0, k0 - q_offset);
-  if (window > 0) q_hi = min(Sq, max(0, k0 + kTcRows - 1 + window - q_offset));
-  q_lo = (q_lo / kTcTile) * kTcTile;
-  const int n_tiles = q_hi > q_lo ? (q_hi - q_lo + kTcTile - 1) / kTcTile : 0;
-
-  load_tile<D, kTcThreads, kTcRows>(sK, kb, sk.s, k0, Skv, tid);
-  load_tile<D, kTcThreads, kTcRows>(sV, vb, sv.s, k0, Skv, tid);
-  if (n_tiles > 0) {
-    load_tile<D, kTcThreads, kTcTile>(sQ, qb, sq.s, q_lo, Sq, tid);
-    load_tile<D, kTcThreads, kTcTile>(sDO, dob, sdo.s, q_lo, Sq, tid);
-    if (tid < kTcTile) {
-      const int qi = q_lo + tid;
-      s_lse[0][tid] = qi < Sq ? lseb[qi] : -INFINITY;
-      s_dlt[0][tid] = qi < Sq ? dltb[qi] : 0.f;
-    }
-  }
-  cp_async_commit();
-
-  float dk_acc[kDB][4], dv_acc[kDB][4];
-#pragma unroll
-  for (int i = 0; i < kDB; ++i) {
-    dk_acc[i][0] = dk_acc[i][1] = dk_acc[i][2] = dk_acc[i][3] = 0.f;
-    dv_acc[i][0] = dv_acc[i][1] = dv_acc[i][2] = dv_acc[i][3] = 0.f;
-  }
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int q0 = q_lo + it * kTcTile;
-    if (it + 1 < n_tiles) {          // the next tile into the other stage
-      const int nx = (it + 1) & 1;
-      const uint32_t off = nx * kTileBytes;
-      load_tile<D, kTcThreads, kTcTile>(sQ + off, qb, sq.s, q0 + kTcTile, Sq,
-                                        tid);
-      load_tile<D, kTcThreads, kTcTile>(sDO + off, dob, sdo.s, q0 + kTcTile,
-                                        Sq, tid);
-      if (tid < kTcTile) {
-        const int qi = q0 + kTcTile + tid;
-        s_lse[nx][tid] = qi < Sq ? lseb[qi] : -INFINITY;
-        s_dlt[nx][tid] = qi < Sq ? dltb[qi] : 0.f;
-      }
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int st = it & 1;
-    const uint32_t stage = st * kTileBytes;
-    float s[kNB][4], dp[kNB][4];
-#pragma unroll
-    for (int i = 0; i < kNB; ++i) {
-      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-    }
-    {    // K's and V's fragments again each tile: held across the loop
-         // they spill at D = 80
-      uint32_t f[D / 16][4];
-      load_a_frags<D>(f, sK, warp, lane);
-      mma_abt<D>(s, f, sQ + stage, lane);          // Sᵀ = K·Qᵀ
-      load_a_frags<D>(f, sV, warp, lane);
-      mma_abt<D>(dp, f, sDO + stage, lane);        // dPᵀ = V·dOᵀ
-    }
-    const bool cut = (kw + 16 > Skv) || (q0 + kTcTile > Sq)
-        || (causal && kw + 15 > q_offset + q0)
-        || (window > 0 && q_offset + q0 + kTcTile - 1 - kw >= window);
-#pragma unroll
-    for (int i = 0; i < kNB; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = i * 8 + 2 * t + (e & 1);     // the q row in the tile
-        bool ok = true;
-        if (cut)
-          ok = q0 + c < Sq && visible(q_offset + q0 + c, kw + g + 8 * (e >> 1),
-                                      Skv, causal, window);
-        tc_pair(s[i][e], dp[i][e], s_lse[st][c], s_dlt[st][c], ok, cap,
-                scale, s[i][e], dp[i][e]);
-      }
-    }
-    mma_ab<D>(dv_acc, s, sDO + stage, lane);       // dV += Pᵀ·dO
-    mma_ab<D>(dk_acc, dp, sQ + stage, lane);       // dK += dSᵀ·Q
-    __syncthreads();                 // this stage is free for tile it + 2
-  }
-  cp_async_wait<0>();
-  store_rows<D>(dk + b * sdk.b + h * sdk.h, sdk.s, kw, Skv, dk_acc, scale, g,
-                t);
-  store_rows<D>(dv + b * sdv.b + h * sdv.h, sdv.s, kw, Skv, dv_acc, 1.f, g,
-                t);
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16 at D = 64 and 128: warp-specialised wgmma kernels (TMA,
-// mbarriers, setmaxnreg)
+// bfloat16: warp-specialised wgmma kernels (TMA, mbarriers, setmaxnreg)
 // ---------------------------------------------------------------------------
 
 constexpr int kWgThreads = 384;      // a producer warpgroup, two consumers
 constexpr int kWgRows = 128;         // the rows a CTA owns, 64 a consumer
 constexpr int kWgTile = 64;          // rows of a streamed tile
 constexpr int kWgStages = 2;         // the ring of streamed tiles
-constexpr int kBox = 64;             // TMA boxes: 64 rows x 64 columns
+constexpr int kBox = 64;             // TMA boxes: 64 rows (x 64 or 16 columns)
 constexpr int kProducerRegs = 24;    // 128 x 24 + 256 x 240 <= 65,536
 constexpr int kConsumerRegs = 240;
 constexpr int kEmptyArrivals = 8;    // one a consumer warp
 
 // Shared memory, from a 1024-byte aligned base: the CTA's own two operands
 // (128 rows each: K and V, or Q and dO), a ring of kWgStages pairs of
-// streamed tiles (kWgTile rows each: Q and dO, or K and V), each operand
-// D / 64 swizzled blocks of 64 columns (128-byte rows); then 2 x kWgTile
-// floats a stage (the dk/dv pass's lse·log2(e) and delta of the tile's q
-// rows; the dq pass keeps its rows' delta there) and the mbarriers:
-// full[stage], empty[stage] and one for the own operands.
+// streamed tiles (kWgTile rows each: Q and dO, or K and V); each operand
+// is D / 64 swizzled blocks of 64 columns (128-byte rows, the 128-byte
+// swizzle) and, where D is not a multiple of 64, a tail of the last 16
+// columns (32-byte rows, the 32-byte swizzle: D = 80 is one block and a
+// tail, D = 16 a tail alone); then 2 x kWgTile floats a stage (the dk/dv
+// pass's lse·log2(e) and delta of the tile's q rows; the dq pass keeps its
+// rows' delta there) and the mbarriers: full[stage], empty[stage] and one
+// for the own operands.  Every block and tail starts 1024-byte aligned.
 template <int D>
 struct BwdWg {
-  static_assert(D == 64 || D == 128, "the wgmma kernels take D 64 and 128");
+  static_assert(D == 16 || D == 64 || D == 80 || D == 128,
+                "the wgmma kernels take D 16, 64, 80 and 128");
   static constexpr int kBlocks = D / 64;
+  static constexpr int kTail = D % 64;                        // 0 or 16
   static constexpr uint32_t kOwnBlock = kWgRows * 128;
-  static constexpr uint32_t kOwn = kBlocks * kOwnBlock;       // one operand
+  static constexpr uint32_t kOwn = kBlocks * kOwnBlock + kWgRows * kTail * 2;
   static constexpr uint32_t kTileBlock = kWgTile * 128;
-  static constexpr uint32_t kTile = kBlocks * kTileBlock;     // one operand
+  static constexpr uint32_t kTile = kBlocks * kTileBlock + kWgTile * kTail * 2;
   static constexpr uint32_t kRing = 2 * kOwn;
   static constexpr uint32_t kVec = kRing + kWgStages * 2 * kTile;
   static constexpr uint32_t kBar = kVec + kWgStages * 2 * kWgTile * 4;
@@ -849,32 +458,45 @@ struct BwdWg {
   static constexpr int kLaunchBytes = (int)kBytes + 1024;   // + alignment
   static constexpr uint32_t kOwnTx = 2 * kWgRows * D * 2;   // bytes by TMA
   static constexpr uint32_t kTileTx = 2 * kWgTile * D * 2;
+  static_assert(kTail == 0 || kTail == 16, "a tail is 16 columns");
+  static_assert(kOwn % 1024 == 0 && kTile % 1024 == 0, "1024-byte tiles");
 };
 
 // A K-major operand of 64 rows x 16 columns (depth step kk) from row `row`
-// of a swizzled operand whose blocks are `block` bytes apart
+// of a swizzled operand whose blocks are `block` bytes apart: steps 0-3 of
+// each 128-byte block, then the 32-byte tail's one step
+template <int D>
 __device__ __forceinline__ uint64_t desc_k(uint32_t base, uint32_t block,
                                            int row, int kk) {
-  return wgmma_desc(base + (kk >> 2) * block + row * 128 + (kk & 3) * 32, 16,
-                    1024);
+  constexpr int kBlockSteps = 4 * (D / 64);
+  if (kk < kBlockSteps)
+    return wgmma_desc(base + (kk >> 2) * block + row * 128 + (kk & 3) * 32,
+                      16, 1024, kSwizzle128B);
+  return wgmma_desc(base + (D / 64) * block + row * 32, 16, 256,
+                    kSwizzle32B);
 }
 
-// An MN-major operand of 16 rows (depth step kq) x D columns of a
-// streamed tile whose blocks are `block` bytes apart
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, uint32_t block,
-                                            int kq) {
-  return wgmma_desc(tile + kq * 16 * 128, block, 1024);
-}
-
-// d += A · B with B (16 x N) MN-major: n64 or n128
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 64) {
-    wgmma_rs_n64(d, a, b, 1);
-  } else {
-    wgmma_rs_n128(d, a, b, 1);
+// d += A · B over a streamed tile whose blocks are `block` bytes apart,
+// B its 16 rows of depth step kq as an MN-major operand of D columns: one
+// n64 or n128 over the 128-byte blocks (d[0 .. 64·blocks / 2)), one n16
+// over the 32-byte tail (the next 8 floats)
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint32_t tile, uint32_t block,
+                                         int kq) {
+  constexpr int kBlocks = D / 64;
+  if constexpr (kBlocks == 1) {
+    wgmma_rs_n64(d, a, wgmma_desc(tile + kq * 16 * 128, block, 1024,
+                                  kSwizzle128B), 1);
+  } else if constexpr (kBlocks == 2) {
+    wgmma_rs_n128(d, a, wgmma_desc(tile + kq * 16 * 128, block, 1024,
+                                   kSwizzle128B), 1);
   }
+  if constexpr (D % 64 != 0)    // one swizzle span wide: lbo is not read
+    wgmma_rs_n16<32 * kBlocks>(
+        d, a, wgmma_desc(tile + kBlocks * block + kq * 16 * 32, 256, 256,
+                         kSwizzle32B), 1);
 }
 
 // x = A·Bᵀ of a consumer's 64 own rows (operand `own`) against a streamed
@@ -886,8 +508,8 @@ __device__ __forceinline__ void wg_issue_scores(float (&x)[kWgTile / 2],
   using Cfg = BwdWg<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n64(x, desc_k(own, Cfg::kOwnBlock, 64 * w, kk),
-                 desc_k(tile, Cfg::kTileBlock, 0, kk), kk > 0);
+    wgmma_ss_n64(x, desc_k<D>(own, Cfg::kOwnBlock, 64 * w, kk),
+                 desc_k<D>(tile, Cfg::kTileBlock, 0, kk), kk > 0);
   wgmma_commit();
 }
 
@@ -1014,14 +636,42 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* base, long long s,
   }
 }
 
+// The tensor maps of one (B, H, S, D) bf16 operand: 64 x 64 boxes of its
+// 64-column blocks under the 128-byte swizzle and, where D has a 16-column
+// tail, 16-column x 64-row boxes of it under the 32-byte swizzle (else
+// zeroed and never read)
+struct OperandMaps {
+  CUtensorMap block, tail;
+};
+
+// rows [row0, row0 + ROWS) of an operand into its swizzled blocks at `dst`
+// (`block` bytes apart) and its tail after them, completing on `bar`
+template <int D, int ROWS>
+__device__ __forceinline__ void wg_load_rows(uint32_t dst,
+                                             const OperandMaps* m,
+                                             uint32_t bar, uint32_t block,
+                                             int row0, int h, int b) {
+  constexpr int kBlocks = D / 64;
+#pragma unroll
+  for (int r = 0; r < ROWS; r += kBox) {
+#pragma unroll
+    for (int j = 0; j < kBlocks; ++j)
+      tma_load_4d(dst + j * block + r * 128, &m->block, bar, 64 * j,
+                  row0 + r, h, b);
+    if constexpr (D % 64 != 0)
+      tma_load_4d(dst + kBlocks * block + r * 32, &m->tail, bar,
+                  64 * kBlocks, row0 + r, h, b);
+  }
+}
+
 // The producer warp: the CTA's own rows of two operands (maps own0 and
 // own1 from row own_row), then n_tiles streamed kWgTile-row tiles of two
 // operands (maps t0 and t1 from row tile_row) through the ring; with LSE
 // also the tile's rows' lse·log2(e) and delta (+inf and 0 past Sq).
 template <int D, bool LSE>
 __device__ __forceinline__ void wg_produce(
-    uint32_t base, const CUtensorMap* own0, const CUtensorMap* own1,
-    const CUtensorMap* t0, const CUtensorMap* t1, int own_row, int tile_row,
+    uint32_t base, const OperandMaps* own0, const OperandMaps* own1,
+    const OperandMaps* t0, const OperandMaps* t1, int own_row, int tile_row,
     int n_tiles, int h, int b, const float* lse_row, const float* dlt_row,
     int Sq, int lane) {
   using Cfg = BwdWg<D>;
@@ -1030,15 +680,10 @@ __device__ __forceinline__ void wg_produce(
   if (n_tiles == 0) return;
   if (lane == 0) {
     mbar_expect_tx(own_bar, Cfg::kOwnTx);
-#pragma unroll
-    for (int j = 0; j < Cfg::kBlocks; ++j)
-#pragma unroll
-      for (int r = 0; r < kWgRows; r += kBox) {
-        const uint32_t off = j * Cfg::kOwnBlock + r * 128;
-        tma_load_4d(base + off, own0, own_bar, 64 * j, own_row + r, h, b);
-        tma_load_4d(base + Cfg::kOwn + off, own1, own_bar, 64 * j,
-                    own_row + r, h, b);
-      }
+    wg_load_rows<D, kWgRows>(base, own0, own_bar, Cfg::kOwnBlock, own_row, h,
+                             b);
+    wg_load_rows<D, kWgRows>(base + Cfg::kOwn, own1, own_bar, Cfg::kOwnBlock,
+                             own_row, h, b);
     mbar_arrive(own_bar);
   }
   for (int it = 0; it < n_tiles; ++it) {
@@ -1050,15 +695,9 @@ __device__ __forceinline__ void wg_produce(
     const uint32_t tile = base + Cfg::kRing + st * 2 * Cfg::kTile;
     if (lane == 0) {
       mbar_expect_tx(full, Cfg::kTileTx);
-#pragma unroll
-      for (int j = 0; j < Cfg::kBlocks; ++j)
-#pragma unroll
-        for (int r = 0; r < kWgTile; r += kBox) {
-          const uint32_t off = j * Cfg::kTileBlock + r * 128;
-          tma_load_4d(tile + off, t0, full, 64 * j, r0 + r, h, b);
-          tma_load_4d(tile + Cfg::kTile + off, t1, full, 64 * j, r0 + r, h,
-                      b);
-        }
+      wg_load_rows<D, kWgTile>(tile, t0, full, Cfg::kTileBlock, r0, h, b);
+      wg_load_rows<D, kWgTile>(tile + Cfg::kTile, t1, full, Cfg::kTileBlock,
+                               r0, h, b);
     }
     if (LSE) {
       float* vec = reinterpret_cast<float*>(
@@ -1094,10 +733,10 @@ __device__ __forceinline__ void wg_init_barriers(uint32_t bar) {
 // (dS a register operand).
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
-flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap mq,
-                       const __grid_constant__ CUtensorMap mk,
-                       const __grid_constant__ CUtensorMap mv,
-                       const __grid_constant__ CUtensorMap mdo,
+flash_bwd_dq_wg_kernel(const __grid_constant__ OperandMaps mq,
+                       const __grid_constant__ OperandMaps mk,
+                       const __grid_constant__ OperandMaps mv,
+                       const __grid_constant__ OperandMaps mdo,
                        const __nv_bfloat16* __restrict__ out,
                        const __nv_bfloat16* __restrict__ dout,
                        const float* __restrict__ lse,
@@ -1241,7 +880,7 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_fence();
 #pragma unroll
       for (int kq = 0; kq < kWgTile / 16; ++kq)             // dQ += dS·K
-        wgmma_rs<D>(acc, da[kq], desc_mn(tile, Cfg::kTileBlock, kq));
+        wgmma_rs<D>(acc, da[kq], tile, Cfg::kTileBlock, kq);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -1261,10 +900,10 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap mq,
 // register operands).
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
-flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap mq,
-                         const __grid_constant__ CUtensorMap mk,
-                         const __grid_constant__ CUtensorMap mv,
-                         const __grid_constant__ CUtensorMap mdo,
+flash_bwd_dkdv_wg_kernel(const __grid_constant__ OperandMaps mq,
+                         const __grid_constant__ OperandMaps mk,
+                         const __grid_constant__ OperandMaps mv,
+                         const __grid_constant__ OperandMaps mdo,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dk,
@@ -1345,8 +984,8 @@ flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_fence();
 #pragma unroll
       for (int kq = 0; kq < kWgTile / 16; ++kq)             // dV += Pᵀ·dO
-        wgmma_rs<D>(dv_acc, pa[kq],
-                    desc_mn(tile + Cfg::kTile, Cfg::kTileBlock, kq));
+        wgmma_rs<D>(dv_acc, pa[kq], tile + Cfg::kTile, Cfg::kTileBlock,
+                    kq);
       wgmma_commit();
       wgmma_wait<1>();                                   // dPᵀ landed
       fence_regs(dp);
@@ -1371,7 +1010,7 @@ flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_fence();
 #pragma unroll
       for (int kq = 0; kq < kWgTile / 16; ++kq)             // dK += dSᵀ·Q
-        wgmma_rs<D>(dk_acc, da[kq], desc_mn(tile, Cfg::kTileBlock, kq));
+        wgmma_rs<D>(dk_acc, da[kq], tile, Cfg::kTileBlock, kq);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv_acc);
@@ -1416,16 +1055,15 @@ EncodeTiledFn encode_tiled() {
   return f;
 }
 
-// A (B, H, S, D) bf16 operand (unit stride along D, (b, h, s) element
-// strides `st`) as a 4-d tensor map {D, S, H, B} of 64 x 64 boxes with the
-// 128-byte swizzle; rows past S read as zeros.  A dimension of size 1 is
-// never stepped, so its stride is replaced by a packed one.  TMA needs a
-// 16-byte aligned base and strides (ops.py copies an operand that has
-// not).  S = 0: a zeroed map that is never read.
-cudaError_t bf16_map(CUtensorMap* m, const void* base, int B, int H, int S,
-                     int D, Strides st) {
-  memset(m, 0, sizeof(*m));
-  if (S <= 0) return cudaSuccess;
+// One box shape of a (B, H, S, D) bf16 operand (unit stride along D,
+// (b, h, s) element strides `st`) as a 4-d tensor map {D, S, H, B}: boxes
+// of `cols` columns x kBox rows under `swizzle`; rows past S read as
+// zeros.  A dimension of size 1 is never stepped, so its stride is
+// replaced by a packed one.  TMA needs a 16-byte aligned base and strides
+// (ops.py copies an operand that has not).
+cudaError_t bf16_box_map(CUtensorMap* m, const void* base, int B, int H,
+                         int S, int D, Strides st, int cols,
+                         CUtensorMapSwizzle swizzle) {
   const long long ss = S > 1 ? st.s : D;
   const long long sh = H > 1 ? st.h : ss * S;
   const long long sb = B > 1 ? st.b : sh * H;
@@ -1438,14 +1076,30 @@ cudaError_t bf16_map(CUtensorMap* m, const void* base, int B, int H, int S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)kBox, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)kBox, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// An operand's OperandMaps: the 64 x 64 boxes of its 128-byte-swizzled
+// blocks (D >= 64) and the 16 x 64 boxes of its 32-byte-swizzled tail
+// (D % 64 = 16), the rest zeroed.  S = 0: zeroed maps that are never read.
+cudaError_t bf16_maps(OperandMaps* m, const void* base, int B, int H, int S,
+                      int D, Strides st) {
+  memset(m, 0, sizeof(*m));
+  if (S <= 0) return cudaSuccess;
+  cudaError_t e = cudaSuccess;
+  if (D >= 64)
+    e = bf16_box_map(&m->block, base, B, H, S, D, st, 64,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess && D % 64 != 0)
+    e = bf16_box_map(&m->tail, base, B, H, S, D, st, 16,
+                     CU_TENSOR_MAP_SWIZZLE_32B);
+  return e;
 }
 
 // ---------------------------------------------------------------------------
@@ -1492,11 +1146,11 @@ int launch_wg(const BwdArgs& a, long long bh, int passes, cudaStream_t s) {
   using Bf = __nv_bfloat16;
   constexpr int kBytes = BwdWg<D>::kLaunchBytes;
   static std::atomic<unsigned long long> raised_dq{0}, raised_dkdv{0};
-  CUtensorMap mq, mk, mv, mdo;
-  cudaError_t e = bf16_map(&mq, a.q, a.B, a.H, a.Sq, D, a.sq);
-  if (e == cudaSuccess) e = bf16_map(&mk, a.k, a.B, a.H, a.Skv, D, a.sk);
-  if (e == cudaSuccess) e = bf16_map(&mv, a.v, a.B, a.H, a.Skv, D, a.sv);
-  if (e == cudaSuccess) e = bf16_map(&mdo, a.dout, a.B, a.H, a.Sq, D, a.sdo);
+  OperandMaps mq, mk, mv, mdo;
+  cudaError_t e = bf16_maps(&mq, a.q, a.B, a.H, a.Sq, D, a.sq);
+  if (e == cudaSuccess) e = bf16_maps(&mk, a.k, a.B, a.H, a.Skv, D, a.sk);
+  if (e == cudaSuccess) e = bf16_maps(&mv, a.v, a.B, a.H, a.Skv, D, a.sv);
+  if (e == cudaSuccess) e = bf16_maps(&mdo, a.dout, a.B, a.H, a.Sq, D, a.sdo);
   if (e != cudaSuccess) return (int)e;
   // the dq pass reads out's rows with 16-byte loads for delta
   if ((uintptr_t)a.out % 16 != 0
@@ -1529,53 +1183,12 @@ int launch_wg(const BwdArgs& a, long long bh, int passes, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// D 16 and 80: the mma.sync kernels
-template <int D>
-int launch_tc(const BwdArgs& a, long long bh, int passes, cudaStream_t s) {
-  using Bf = __nv_bfloat16;
-  constexpr int kBytes = BwdTc<D>::kBytes;
-  static std::atomic<unsigned long long> raised_dq{0}, raised_dkdv{0};
-  if (passes & 1) {
-    const long long n_qt = (a.Sq + kTcRows - 1) / kTcRows;
-    if (n_qt > 65535) return (int)cudaErrorInvalidValue;
-    cudaError_t e =
-        raise_smem_limit(flash_bwd_dq_tc_kernel<D>, kBytes, raised_dq);
-    if (e != cudaSuccess) return (int)e;
-    flash_bwd_dq_tc_kernel<D><<<dim3((unsigned)bh, (unsigned)n_qt),
-                                kTcThreads, kBytes, s>>>(
-        (const Bf*)a.q, (const Bf*)a.k, (const Bf*)a.v, (const Bf*)a.out,
-        (const Bf*)a.dout, a.lse, a.delta, (Bf*)a.dq, a.H, a.Sq, a.Skv, a.sq,
-        a.sk, a.sv, a.so, a.sdo, a.sdq, a.causal, a.window, a.cap, a.scale,
-        a.q_offset);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  if ((passes & 2) && a.Skv > 0) {
-    const long long n_kt = (a.Skv + kTcRows - 1) / kTcRows;
-    if (n_kt > 65535) return (int)cudaErrorInvalidValue;
-    const cudaError_t e =
-        raise_smem_limit(flash_bwd_dkdv_tc_kernel<D>, kBytes, raised_dkdv);
-    if (e != cudaSuccess) return (int)e;
-    flash_bwd_dkdv_tc_kernel<D><<<dim3((unsigned)bh, (unsigned)n_kt),
-                                  kTcThreads, kBytes, s>>>(
-        (const Bf*)a.q, (const Bf*)a.k, (const Bf*)a.v, (const Bf*)a.dout,
-        a.lse, a.delta, (Bf*)a.dk, (Bf*)a.dv, a.H, a.Sq, a.Skv, a.sq, a.sk,
-        a.sv, a.sdo, a.sdk, a.sdv, a.causal, a.window, a.cap, a.scale,
-        a.q_offset);
-  }
-  return (int)cudaGetLastError();
-}
-
-// float32 (dtype 0) takes the scalar kernels, bfloat16 (1) the tensor-core
+// float32 (dtype 0) takes the scalar kernels, bfloat16 (1) the wgmma
 // ones; D in {16, 64, 80, 128}
 template <int D>
 int launch_d(const BwdArgs& a, int tile_bf16, int dtype, long long bh,
              int passes, cudaStream_t s) {
-  if constexpr (D == 64 || D == 128) {
-    if (dtype == 1) return launch_wg<D>(a, bh, passes, s);
-  } else {
-    if (dtype == 1) return launch_tc<D>(a, bh, passes, s);
-  }
+  if (dtype == 1) return launch_wg<D>(a, bh, passes, s);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   return tile_bf16 ? launch_f32<D, true>(a, bh, passes, s)
                    : launch_f32<D, false>(a, bh, passes, s);
@@ -1592,8 +1205,8 @@ extern "C" {
 // (B, H, Sq) float32.  dtype: 0 float32, 1 bfloat16 (all eight alike;
 // q, k, v, out and dout then with 16-byte aligned base pointers and
 // (b, h, s) strides of whole 16 bytes wherever the dimension has more
-// than one index: TMA tensor maps at D 64 and 128, which refuse another
-// layout with cudaErrorInvalidValue, cp.async at D 16 and 80).  D in
+// than one index: the TMA tensor maps, which refuse another layout with
+// cudaErrorInvalidValue, and the dq pass's 16-byte loads of out).  D in
 // {16, 64, 80, 128}.  tile_bf16: the float32 kernels' rounding (the
 // bfloat16 ones always round).  passes: 1 the dq pass (with delta), 2 the
 // dk/dv pass (reads delta), 3 both in that order.

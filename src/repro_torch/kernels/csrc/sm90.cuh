@@ -4,7 +4,10 @@
 // Shared tiles are the TMA's 128-byte swizzle: rows of 64 bf16 (128 bytes)
 // whose 16-byte chunks are XORed with the row's index mod 8, so a tile's
 // base must be 1024-byte aligned; a D = 128 operand is two such tiles of
-// 64 columns.  Everything sits in an unnamed namespace, as flash_mma.cuh.
+// 64 columns.  A 16-column tail (D = 80's last columns, or all of D = 16)
+// is a tile of the 32-byte swizzle: rows of 32 bytes whose two chunks are
+// swapped in rows 4-7 of every 8 (a 256-byte pattern).  Everything sits in
+// an unnamed namespace, as flash_mma.cuh.
 
 #pragma once
 
@@ -75,15 +78,21 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
 // warpgroup MMA
 // ---------------------------------------------------------------------------
 
-// The descriptor of a 128-byte-swizzled shared operand at `addr`: `lbo`
-// the byte stride between 64-column blocks along M or N (MN-major only),
-// `sbo` the byte stride between groups of 8 rows (1024: rows of 128 bytes)
+// the layout types of a descriptor (bits 62-63)
+constexpr uint32_t kSwizzle128B = 1;
+constexpr uint32_t kSwizzle32B = 3;
+
+// The descriptor of a swizzled shared operand at `addr`: `lbo` the byte
+// stride between swizzle-wide blocks along M or N (MN-major only: 64
+// columns under the 128-byte swizzle), `sbo` the byte stride between
+// groups of 8 rows (1024 for rows of 128 bytes, 256 for rows of 32)
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+                                               uint32_t sbo,
+                                               uint32_t swizzle) {
   return (uint64_t)((addr & 0x3FFFF) >> 4)
          | (uint64_t)((lbo >> 4) & 0x3FFF) << 16
          | (uint64_t)((sbo >> 4) & 0x3FFF) << 32
-         | (uint64_t)1 << 62;                    // 128-byte swizzle
+         | (uint64_t)swizzle << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -128,11 +137,13 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// d (64 x 64, f32) = d · [scale_d] + A · B: A (64 x 16) a bf16 register
-// fragment, B (16 x 64) in shared memory, MN-major (descriptor b)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+// d[0 .. 32) (64 x 64, f32) = d · [scale_d] + A · B: A (64 x 16) a bf16
+// register fragment, B (16 x 64) in shared memory, MN-major (descriptor b)
+template <int M>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[M],
                                              const uint32_t (&a)[4],
                                              uint64_t b, int scale_d) {
+  static_assert(M >= 32, "an n64 accumulator is 32 floats a thread");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -150,11 +161,13 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// d (64 x 128, f32) = d · [scale_d] + A · B: A (64 x 16) a bf16 register
-// fragment, B (16 x 128) in shared memory, MN-major (descriptor b)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+// d[0 .. 64) (64 x 128, f32) = d · [scale_d] + A · B: A (64 x 16) a bf16
+// register fragment, B (16 x 128) in shared memory, MN-major (descriptor b)
+template <int M>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[M],
                                               const uint32_t (&a)[4],
                                               uint64_t b, int scale_d) {
+  static_assert(M >= 64, "an n128 accumulator is 64 floats a thread");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -178,6 +191,24 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d[O .. O + 8) (64 x 16, f32) = d · [scale_d] + A · B: A (64 x 16) a
+// bf16 register fragment, B (16 x 16) in shared memory, MN-major
+// (descriptor b); O places the n16 accumulator after an n64 one
+template <int O, int M>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[M],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  static_assert(O + 8 <= M, "an n16 accumulator is 8 floats a thread");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[O]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]),
+        "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 

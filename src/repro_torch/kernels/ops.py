@@ -816,13 +816,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On the card, two launches of ``csrc/flash_attn_bwd.cu``: the dq pass
     (which also writes delta = rowsum(dout·out)) and the dk/dv pass,
     float32 sums, no atomics (the same bits every run).  bfloat16 runs
-    the tensor-core kernels (P and dS rounded to bf16 for their products,
-    as ``tile_bf16`` does): at D 64 and 128 the warp-specialised wgmma
-    kernels, which read q, k, v and dout through TMA tensor maps, at D 16
-    and 80 the mma.sync ones; q, k, v, out and dout are copied first where
-    their base or strides fail ``_tma_ok``.  float32 runs the scalar
-    kernels.  One count per call.  On the CPU the plain
-    ``ref.flash_attention_bwd_ref``."""
+    the warp-specialised wgmma kernels at every head dim (P and dS
+    rounded to bf16 for their products, as ``tile_bf16`` does), which
+    read q, k, v and dout through TMA tensor maps: 64-column blocks under
+    the 128-byte swizzle and, at D 80 and 16, a 16-column tail under the
+    32-byte swizzle; q, k, v, out and dout are copied first where their
+    base or strides fail ``_tma_ok``, and a launch the card refuses
+    raises.  float32 runs the scalar kernels.  One count per call.  On
+    the CPU the plain ``ref.flash_attention_bwd_ref``."""
     if _COUNTER is not None:
         return _count_call(flash_attention_bwd, _flash_bwd_cost, q, k, v,
                            out, lse, dout, causal=causal, window=window,

@@ -58,12 +58,14 @@ per slab pass (a variant; by default the wrapper picks it from T).
 
   * bwd: the FA-2 backward (``ops.flash_attention_bwd``) at smollm-135m's
     train shape (B 8, H 9, S 2,048, D 64, causal, bf16, the model's
-    strided views) and at the windowed, capped D = 128 case of
-    ``chip_smoke.py``'s BWD_CASES, checked against the plain version
-    (2^-7 of each gradient's largest magnitude); the wrapper, its dq and
-    dk/dv passes alone (queued), the wrapper's host time a call (queued,
-    without waiting), the bound (operations: five products of the
-    visible pairs) and, at the train shape,
+    strided views), at the windowed, capped D = 128 case of
+    ``chip_smoke.py``'s BWD_CASES and at the two D 80 training shapes
+    of its phase 17 (zamba2-2.7b: B 2, H 32, S 2,048, causal;
+    hubert-xlarge: B 4, H 16, S 2,048, bidirectional), checked against
+    the plain version (2^-7 of each gradient's largest magnitude); the
+    wrapper, its dq and dk/dv passes alone (queued), the wrapper's host
+    time a call (queued, without waiting), the bound (operations: five
+    products of the visible pairs) and, but for the D = 128 case,
     ``scaled_dot_product_attention``'s backward (forward and backward
     less the forward, queued).
 
@@ -452,7 +454,8 @@ def bench_bwd(ops, ref, gen, iters: int) -> dict:
     through the launcher's ``passes`` argument, beside
     ``scaled_dot_product_attention``'s backward and the bound; then the
     D = 128 case of ``chip_smoke.py``'s BWD_CASES (B 2, H 4, S 1,024,
-    window 256, cap 50)."""
+    window 256, cap 50) and the D 80 shapes of zamba2-2.7b's and
+    hubert-xlarge's training (each beside SDPA's backward too)."""
     import torch.nn.functional as F
     from repro_torch.kernels import _build
     dev = torch.device("cuda")
@@ -462,7 +465,9 @@ def bench_bwd(ops, ref, gen, iters: int) -> dict:
     for key, (B, H, S, D, kw) in (
             ("smollm", (8, 9, 2048, 64, dict(causal=True))),
             ("d128", (2, 4, 1024, 128, dict(causal=True, window=256,
-                                            cap=50.0)))):
+                                            cap=50.0))),
+            ("zamba2_d80", (2, 32, 2048, 80, dict(causal=True))),
+            ("hubert_d80", (4, 16, 2048, 80, dict(causal=False)))):
         q, k, v, do = (torch.randn((B, S, H, D), device=dev, generator=gen)
                        .bfloat16().transpose(1, 2) for _ in range(4))
         o, lse = ops.flash_attention_fwd(q, k, v, return_lse=True, **kw)
@@ -491,18 +496,18 @@ def bench_bwd(ops, ref, gen, iters: int) -> dict:
              "dq_pass": queued_ms(lambda: one_pass(1)),
              "dkdv_pass": queued_ms(lambda: one_pass(2))}
         window = kw.get("window", 0)
-        pairs = sum(min(i + 1, window) if window else i + 1
-                    for i in range(S)) * B * H
+        pairs = sum(min(i + 1, window) if window else
+                    (i + 1 if kw["causal"] else S) for i in range(S)) * B * H
         flops = 10 * pairs * D
         t = r["bwd"]["queued"]
         msg = ""
-        if key == "smollm":
+        if key != "d128":
             qq, kk, vv = (x.detach().clone().requires_grad_(True)
                           for x in (q, k, v))
             fwd = queued_ms(lambda: F.scaled_dot_product_attention(
-                qq, kk, vv, is_causal=True))
+                qq, kk, vv, is_causal=kw["causal"]))
             both_ = queued_ms(lambda: F.scaled_dot_product_attention(
-                qq, kk, vv, is_causal=True).backward(do))
+                qq, kk, vv, is_causal=kw["causal"]).backward(do))
             r["sdpa_bwd"] = both_ - fwd
             msg = (f"; scaled_dot_product_attention backward "
                    f"{r['sdpa_bwd']:.4f} ms ({both_:.4f} forward and "
