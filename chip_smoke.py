@@ -10,7 +10,10 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
   1. device: the card's name and power limit; the CUDA kernels are built
      from ``src/repro_torch/kernels/csrc`` (build seconds printed);
   2. each kernel against its plain PyTorch version on the card, bit-exact,
-     over (b, L), ragged n and m, τ and base planes with BIG lanes;
+     over (b, L), ragged n and m, τ and base planes with BIG lanes; the
+     flash forward at head dim 80, and ptxas's registers of every bf16
+     forward instance (``flash_fwd_wg_kernel``, D 16/64/80/128, with and
+     without the lse), none with a spill;
   3. the main path at the size of the paper's Review dataset
      (n = 12,886,488, L = 16, b = 2): ``build_bst``, ``make_batch_searcher``
      at τ = 1, 2, 3 and ``topk_batch(k=10)`` for 64 queries, checked
@@ -36,11 +39,11 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
   7. serving smollm-135m at full width (30 layers, d_model 576, GQA 9/3,
      vocabulary 49,152; random weights from ``--seed``, f32 masters,
      bf16 compute): the flash kernel against its plain version over
-     masks, dtypes (bf16: the tensor-core kernel; float32: the scalar
+     masks, dtypes (bf16: the wgmma kernel; float32: the scalar
      one), D 16/64/128, S up to 2,000 (ragged) and query blocks at an
      offset, and the GQA path; then 8 requests of 2,000 prompt tokens
      and 48 greedy tokens through ``launch.serve.generate`` with the
-     tensor-core kernel's 30 launches per prefill counted, its logits
+     wgmma kernel's 30 launches per prefill counted, its logits
      and greedy tokens held against the plain ``attn_impl="ref"`` path,
      prefill and decode times, peak memory, and the kernel timed on
      contiguous and on the model's strided views beside its bound, its
@@ -375,7 +378,7 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "smollm-135m", 8, 2048
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 4
 TRAIN_WARMUP = 2             # steps left out of the step-time median
 # the backward kernel against its plain version: float32 to 5e-4, the
-# tolerance of tests/test_flash.py's gradients; bfloat16 (the tensor-core
+# tolerance of tests/test_flash.py's gradients; bfloat16 (the wgmma
 # kernels, P and dS rounded to bf16 as the plain version's bf16 tiles do):
 # both sum in float32 from the same bf16 operands and round each gradient
 # to bf16 once, so an element may land a bf16 ulp (2^-8 of its magnitude)
@@ -1362,7 +1365,7 @@ def check_flash_kernel(torch, ops, ref, dev, gen, err) -> tuple:
 
 def check_flash_d80(torch, ops, ref, dev, gen, err) -> int:
     """Phase 2, flash at hubert-xlarge's head dim 80 against its plain
-    version: both routes (float32 scalar, bf16 tensor cores), causal and
+    version: both routes (float32 scalar, bf16 wgmma), causal and
     bidirectional, ragged S up to 1,500 at hubert's 16 heads, and a
     windowed, capped query block at an offset; bf16 also row by row.
     Returns the number of shapes checked."""
@@ -1444,7 +1447,7 @@ def hubert_forward(torch, args, dev, ops, ref) -> dict:
     check(launches == {"flash_attention_fwd": cfg.num_layers,
                        "flash_attention_fwd:bf16": cfg.num_layers},
           f"hubert flash launches {launches}, want {cfg.num_layers} of the "
-          "bf16 tensor-core kernel and no plain version")
+          "bf16 wgmma kernel and no plain version")
     check(logits.shape == (B, S, cfg.vocab)
           and bool(torch.isfinite(logits).all()), "hubert logits")
     cfg_ref = dataclasses.replace(cfg, attn_impl="ref")
@@ -1653,7 +1656,7 @@ def serving_smollm(torch, args, dev, ops, ref) -> dict:
     check(launches == {"flash_attention_fwd": cfg.num_layers,
                        "flash_attention_fwd:bf16": cfg.num_layers},
           f"flash launches per prefill {launches}, want {cfg.num_layers} "
-          "of the bf16 tensor-core kernel and no plain version")
+          "of the bf16 wgmma kernel and no plain version")
     check(tokens.shape == (B, G) and tokens.dtype == torch.int32
           and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
           f"generated tokens {tuple(tokens.shape)} {tokens.dtype}")
@@ -1787,7 +1790,7 @@ def serving_smollm(torch, args, dev, ops, ref) -> dict:
     print(f"flash_attention_fwd float32 route (scalar kernel, B={B} H={H} "
           f"S={S} D={D} causal): {f32_ms:.3f} ms per launch", flush=True)
     print(f"flash_attention_fwd (B={B} H={H} S={S} D={D} bf16 causal, "
-          f"tensor cores): {ms:.4f} ms per launch on (B, H, S, D), "
+          f"wgmma): {ms:.4f} ms per launch on (B, H, S, D), "
           f"{strided_ms:.4f} ms on the strided (B, S, H, D) views (the "
           f"scalar kernel before it: {FLASH_SCALAR_MS} ms), bound "
           f"{bnd:.4f} ms ({by}; bytes {t_bytes:.4f} ms), "
@@ -3015,6 +3018,40 @@ def bf16_bwd_ptxas(_build) -> dict:
         if m:
             out[f"{m.group(1)}<{m.group(2)}>"] = v
     return out
+
+
+# the bf16 forward kernel's instances: the wgmma kernel at every D, without
+# and with the lse (D 80 and 16 with a 16-column tail under the 32-byte
+# swizzle)
+FWD_BF16_KERNELS = {f"flash_fwd_wg_kernel<{d}, {lse}>"
+                    for d in (16, 64, 80, 128) for lse in (0, 1)}
+
+
+def bf16_fwd_ptxas(_build) -> dict:
+    """ptxas's (registers, spill store bytes, spill load bytes) of each
+    bf16 forward instance in the last build's report, by a short name."""
+    import re
+    out = {}
+    for name, v in _build.ptxas_kernels(_build.BUILD_INFO["report"]).items():
+        m = re.search(r"(flash_fwd_wg_kernel)ILi(\d+)ELb([01])E", name)
+        if m:
+            out[f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"] = v
+    return out
+
+
+def check_fwd_ptxas(_build) -> dict:
+    """Phase 2: every bf16 forward instance (FWD_BF16_KERNELS) in ptxas's
+    report, none with a spill.  Returns them for row 6's JSON line."""
+    kern = bf16_fwd_ptxas(_build)
+    check(set(kern) == FWD_BF16_KERNELS,
+          f"ptxas report: bf16 forward kernels {sorted(kern)}, want "
+          f"{sorted(FWD_BF16_KERNELS)}")
+    spilled = {k: v for k, v in kern.items() if v[1] or v[2]}
+    check(not spilled, f"ptxas spills in bf16 forward kernels: {spilled}")
+    print(f"ptxas: the {len(kern)} bf16 forward kernels spill nothing "
+          f"(registers {', '.join(f'{k} {v[0]}' for k, v in kern.items())})",
+          flush=True)
+    return {k: list(v) for k, v in sorted(kern.items())}
 
 
 def max_bound(flops: float, nbytes: float):
@@ -5215,7 +5252,8 @@ def main() -> int:
     for line in _build.BUILD_INFO["report"].splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
-    for name, (regs, st, ld) in bf16_bwd_ptxas(_build).items():
+    for name, (regs, st, ld) in {**bf16_fwd_ptxas(_build),
+                                 **bf16_bwd_ptxas(_build)}.items():
         print(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, "
               f"{ld} bytes spill loads")
     phase_done("1 (device and build)")
@@ -5291,6 +5329,7 @@ def main() -> int:
           f"2e-5 (f32) / 2e-2 (bf16), bf16 rows within "
           f"{FLASH_BF16_ROW_RTOL} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
+    fwd_ptxas = check_fwd_ptxas(_build)
     phase_done("2 (kernels against their plain versions)")
 
     # -- 3. main path at the Review size -------------------------------------
@@ -5594,7 +5633,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn_kernel.py:93",
          "max_abs_err": err["flash_attention_fwd"], **flash,
-         "head_dims": list(ops.FLASH_HEAD_DIMS), "d80_hubert": hubert,
+         "head_dims": list(ops.FLASH_HEAD_DIMS), "ptxas": fwd_ptxas,
+         "d80_hubert": hubert,
          "family_launches": families, "mesh_launches": mesh["a"],
          "tp_launches": mesh["b"], "tp_local_heads": mesh["local_heads"]},
         {"name": "flash_attention_fwd_lse", "route": "cuda",

@@ -89,17 +89,13 @@
 // version.  tile_bf16 rounds p, ds and the operands they multiply to
 // bfloat16 first, as repro/models/flash.py's TILE_DTYPE does.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <string.h>
 
 #include <atomic>
-#include <type_traits>
 
-#include "flash_mma.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -426,7 +422,6 @@ constexpr int kWgThreads = 384;      // a producer warpgroup, two consumers
 constexpr int kWgRows = 128;         // the rows a CTA owns, 64 a consumer
 constexpr int kWgTile = 64;          // rows of a streamed tile
 constexpr int kWgStages = 2;         // the ring of streamed tiles
-constexpr int kBox = 64;             // TMA boxes: 64 rows (x 64 or 16 columns)
 constexpr int kProducerRegs = 24;    // 128 x 24 + 256 x 240 <= 65,536
 constexpr int kConsumerRegs = 240;
 constexpr int kEmptyArrivals = 8;    // one a consumer warp
@@ -462,43 +457,6 @@ struct BwdWg {
   static_assert(kOwn % 1024 == 0 && kTile % 1024 == 0, "1024-byte tiles");
 };
 
-// A K-major operand of 64 rows x 16 columns (depth step kk) from row `row`
-// of a swizzled operand whose blocks are `block` bytes apart: steps 0-3 of
-// each 128-byte block, then the 32-byte tail's one step
-template <int D>
-__device__ __forceinline__ uint64_t desc_k(uint32_t base, uint32_t block,
-                                           int row, int kk) {
-  constexpr int kBlockSteps = 4 * (D / 64);
-  if (kk < kBlockSteps)
-    return wgmma_desc(base + (kk >> 2) * block + row * 128 + (kk & 3) * 32,
-                      16, 1024, kSwizzle128B);
-  return wgmma_desc(base + (D / 64) * block + row * 32, 16, 256,
-                    kSwizzle32B);
-}
-
-// d += A · B over a streamed tile whose blocks are `block` bytes apart,
-// B its 16 rows of depth step kq as an MN-major operand of D columns: one
-// n64 or n128 over the 128-byte blocks (d[0 .. 64·blocks / 2)), one n16
-// over the 32-byte tail (the next 8 floats)
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint32_t tile, uint32_t block,
-                                         int kq) {
-  constexpr int kBlocks = D / 64;
-  if constexpr (kBlocks == 1) {
-    wgmma_rs_n64(d, a, wgmma_desc(tile + kq * 16 * 128, block, 1024,
-                                  kSwizzle128B), 1);
-  } else if constexpr (kBlocks == 2) {
-    wgmma_rs_n128(d, a, wgmma_desc(tile + kq * 16 * 128, block, 1024,
-                                   kSwizzle128B), 1);
-  }
-  if constexpr (D % 64 != 0)    // one swizzle span wide: lbo is not read
-    wgmma_rs_n16<32 * kBlocks>(
-        d, a, wgmma_desc(tile + kBlocks * block + kq * 16 * 32, 256, 256,
-                         kSwizzle32B), 1);
-}
-
 // x = A·Bᵀ of a consumer's 64 own rows (operand `own`) against a streamed
 // kWgTile-row tile (operand `tile`), issued as one wgmma group
 template <int D>
@@ -512,15 +470,6 @@ __device__ __forceinline__ void wg_issue_scores(float (&x)[kWgTile / 2],
                  desc_k<D>(tile, Cfg::kTileBlock, 0, kk), kk > 0);
   wgmma_commit();
 }
-
-// The softmax constants of a call: scale·log2(e) (no cap), or scale / cap
-// and cap·log2(e) (under a cap)
-struct WgSoft {
-  float sl, sc, cl;
-  __device__ __forceinline__ WgSoft(float scale, float cap)
-      : sl(scale * kLog2e), sc(cap > 0.f ? scale / cap : 0.f),
-        cl(cap * kLog2e) {}
-};
 
 // p of one score and p·dt (dt = 1 - tanh² under a cap, else 1), from its
 // raw dot product s = q·k; lse2 is its row's lse·log2(e) (+inf where the
@@ -599,19 +548,6 @@ __device__ __forceinline__ void wg_p_tile(float (&s)[kWgTile / 2],
   }
 }
 
-// f(CAP, MASK) with both as std::integral_constant, so that the element
-// loop of each kind of tile is compiled without branches
-template <typename F>
-__device__ __forceinline__ void tile_kind(bool cap, bool mask, F&& f) {
-  using Y = std::true_type;
-  using N = std::false_type;
-  if (cap) {
-    if (mask) f(Y{}, Y{}); else f(Y{}, N{});
-  } else {
-    if (mask) f(N{}, Y{}); else f(N{}, N{});
-  }
-}
-
 // lse·log2(e), +inf for a row that sees no key (lse -inf) or lies past Sq
 __device__ __forceinline__ float lse_log2(float lse, bool valid) {
   return valid && lse != -INFINITY ? lse * kLog2e : INFINITY;
@@ -633,34 +569,6 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* base, long long s,
     for (int nb = 0; nb < D / 8; ++nb)
       *reinterpret_cast<uint32_t*>(&base[(long long)row * s + nb * 8 + 2 * t]) =
           pack_bf16(c[4 * nb + 2 * r] * mul, c[4 * nb + 2 * r + 1] * mul);
-  }
-}
-
-// The tensor maps of one (B, H, S, D) bf16 operand: 64 x 64 boxes of its
-// 64-column blocks under the 128-byte swizzle and, where D has a 16-column
-// tail, 16-column x 64-row boxes of it under the 32-byte swizzle (else
-// zeroed and never read)
-struct OperandMaps {
-  CUtensorMap block, tail;
-};
-
-// rows [row0, row0 + ROWS) of an operand into its swizzled blocks at `dst`
-// (`block` bytes apart) and its tail after them, completing on `bar`
-template <int D, int ROWS>
-__device__ __forceinline__ void wg_load_rows(uint32_t dst,
-                                             const OperandMaps* m,
-                                             uint32_t bar, uint32_t block,
-                                             int row0, int h, int b) {
-  constexpr int kBlocks = D / 64;
-#pragma unroll
-  for (int r = 0; r < ROWS; r += kBox) {
-#pragma unroll
-    for (int j = 0; j < kBlocks; ++j)
-      tma_load_4d(dst + j * block + r * 128, &m->block, bar, 64 * j,
-                  row0 + r, h, b);
-    if constexpr (D % 64 != 0)
-      tma_load_4d(dst + kBlocks * block + r * 32, &m->tail, bar,
-                  64 * kBlocks, row0 + r, h, b);
   }
 }
 
@@ -1022,84 +930,6 @@ flash_bwd_dkdv_wg_kernel(const __grid_constant__ OperandMaps mq,
   store_acc<D>(dk + b * sdk.b + h * sdk.h, sdk.s, kw, Skv, dk_acc, scale, g,
                t);
   store_acc<D>(dv + b * sdv.b + h * sdv.h, sdv.s, kw, Skv, dv_acc, 1.f, g, t);
-}
-
-// ---------------------------------------------------------------------------
-// tensor maps: the driver's cuTensorMapEncodeTiled, fetched through the
-// runtime (the library links no libcuda)
-// ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static std::atomic<EncodeTiledFn> fn{nullptr};
-  EncodeTiledFn f = fn.load(std::memory_order_acquire);
-  if (f != nullptr) return f;
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  const cudaError_t e = cudaGetDriverEntryPointByVersion(
-      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-  const cudaError_t e = cudaGetDriverEntryPoint(
-      "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-  if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-  f = reinterpret_cast<EncodeTiledFn>(p);
-  fn.store(f, std::memory_order_release);
-  return f;
-}
-
-// One box shape of a (B, H, S, D) bf16 operand (unit stride along D,
-// (b, h, s) element strides `st`) as a 4-d tensor map {D, S, H, B}: boxes
-// of `cols` columns x kBox rows under `swizzle`; rows past S read as
-// zeros.  A dimension of size 1 is never stepped, so its stride is
-// replaced by a packed one.  TMA needs a 16-byte aligned base and strides
-// (ops.py copies an operand that has not).
-cudaError_t bf16_box_map(CUtensorMap* m, const void* base, int B, int H,
-                         int S, int D, Strides st, int cols,
-                         CUtensorMapSwizzle swizzle) {
-  const long long ss = S > 1 ? st.s : D;
-  const long long sh = H > 1 ? st.h : ss * S;
-  const long long sb = B > 1 ? st.b : sh * H;
-  if ((uintptr_t)base % 16 != 0 || ss <= 0 || sh <= 0 || sb <= 0
-      || ss % 8 != 0 || sh % 8 != 0 || sb % 8 != 0)
-    return cudaErrorInvalidValue;
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)kBox, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// An operand's OperandMaps: the 64 x 64 boxes of its 128-byte-swizzled
-// blocks (D >= 64) and the 16 x 64 boxes of its 32-byte-swizzled tail
-// (D % 64 = 16), the rest zeroed.  S = 0: zeroed maps that are never read.
-cudaError_t bf16_maps(OperandMaps* m, const void* base, int B, int H, int S,
-                      int D, Strides st) {
-  memset(m, 0, sizeof(*m));
-  if (S <= 0) return cudaSuccess;
-  cudaError_t e = cudaSuccess;
-  if (D >= 64)
-    e = bf16_box_map(&m->block, base, B, H, S, D, st, 64,
-                     CU_TENSOR_MAP_SWIZZLE_128B);
-  if (e == cudaSuccess && D % 64 != 0)
-    e = bf16_box_map(&m->tail, base, B, H, S, D, st, 16,
-                     CU_TENSOR_MAP_SWIZZLE_32B);
-  return e;
 }
 
 // ---------------------------------------------------------------------------

@@ -664,16 +664,9 @@ def _check_flash(name: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{name}: window {window} and cap {cap} must be >= 0")
 
 
-def _cp_async_ok(x: torch.Tensor) -> bool:
-    """A bf16 operand the forward's tensor-core kernel can copy 16 bytes
-    at a time: an aligned base pointer and (b, h, s) strides of whole
-    8-element chunks."""
-    return x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3])
-
-
 def _tma_ok(x: torch.Tensor) -> bool:
-    """A bf16 operand the backward kernels can read through a TMA tensor
-    map (and cp.async, or 16-byte loads): a 16-byte aligned base pointer
+    """A bf16 operand the wgmma kernels can read through a TMA tensor map
+    (and the backward with 16-byte loads): a 16-byte aligned base pointer
     and positive (b, h, s) strides of whole 8-element chunks wherever the
     dimension has more than one index (a size-1 dimension is never
     stepped: its stride does not matter)."""
@@ -722,9 +715,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     free.  ``tile_bf16`` rounds P and V to bfloat16 for P·V (the JAX
     package's ``set_tile_dtype(bfloat16)``).
 
-    On the card, bfloat16 runs the tensor-core kernel (P always rounded
-    to bf16 for P·V; q, k and v need 16-byte aligned base pointers and
-    (b, h, s) strides) and float32 the scalar kernel, exact to 2e-5."""
+    On the card, bfloat16 runs the warp-specialised wgmma kernel fed by
+    TMA at every head dim (P always rounded to bf16 for P·V; q, k and v
+    need 16-byte aligned base pointers and (b, h, s) strides of whole
+    8-element chunks, which ``_tma_ok`` checks: any other raises; a
+    launch the card refuses raises) and float32 the scalar kernel, exact
+    to 2e-5."""
     if _COUNTER is not None:
         return _count_call(flash_attention_fwd, _flash_fwd_cost, q, k, v,
                            causal=causal, window=window, cap=cap,
@@ -744,9 +740,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                        return_lse=return_lse,
                                        tile_bf16=tile_bf16)
     q, k, v = _kernel_operands(name, (q, k, v))
-    if q.dtype == torch.bfloat16:      # the tensor-core kernel's cp.async
+    if q.dtype == torch.bfloat16:      # the wgmma kernel's tensor maps
         for what, x in (("q", q), ("k", k), ("v", v)):
-            if not _cp_async_ok(x):
+            if not _tma_ok(x):
                 raise ValueError(
                     f"{name}: bfloat16 {what} needs a 16-byte aligned base "
                     f"pointer and (b, h, s) strides (multiples of 8 "

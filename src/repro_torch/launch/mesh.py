@@ -40,6 +40,7 @@ each collective's calls, bytes and host seconds.
 from __future__ import annotations
 
 import datetime
+import gc
 import math
 import os
 import time
@@ -270,3 +271,29 @@ def init_distributed(device="cuda", *, backend: Optional[str] = None,
               f"({local_world} on this host{cards}), timeout {timeout_s:g} s",
               flush=True)
     return True
+
+
+def shutdown_distributed(*, clean: bool = True) -> None:
+    """Destroy the process group once every rank is done with it, and
+    with it every group's worker threads.
+
+    After a run that ended normally (``clean``) every rank first meets
+    at a barrier, so that no rank closes its gloo pairs while a peer
+    still has traffic on them.  A rank that leaves on an error passes
+    ``clean=False`` and destroys the group at once, since its peers may
+    never reach the barrier.
+
+    ``destroy_process_group`` drops c10d's references to the groups, but
+    a mesh's ``DeviceMesh`` holds them from reference cycles, so they
+    lived on until the collector ran, often at interpreter exit.  There
+    a gloo worker thread that released a finished collective's tensor
+    (whose Python object it then had to free) asked for the GIL of a
+    finalising interpreter, was ended by it and aborted the rank
+    (SIGABRT after all its output; ROADMAP Queue 3, F12).  Collecting
+    here frees those groups now: their destructors join the worker
+    threads while the interpreter still runs, so none outlives the
+    teardown."""
+    if clean:
+        dist.barrier()
+    dist.destroy_process_group()
+    gc.collect()

@@ -62,7 +62,8 @@ from ..serving import (AdmissionConfig, BreakerConfig, CollectionConfig,
                        CollectionRegistry, DegradePolicy, Scheduler,
                        SchedulerConfig)
 from ..train.steps import cast_for_compute, make_decode_step, make_prefill_step
-from .mesh import batch_coord, dp_shards, init_distributed, make_host_mesh
+from .mesh import (batch_coord, dp_shards, init_distributed, make_host_mesh,
+                   shutdown_distributed)
 
 
 @torch.no_grad()
@@ -395,11 +396,14 @@ def main(argv=None) -> int:
               "(see DESIGN.md §Arch-applicability)")
         return 0
     started = init_distributed(dev)
+    clean = False
     try:
-        return serve_generation(args, cfg, dev)
+        rc = serve_generation(args, cfg, dev)
+        clean = True
     finally:
         if started:
-            torch.distributed.destroy_process_group()
+            shutdown_distributed(clean=clean)
+    return rc
 
 
 def serve_generation(args, cfg, dev) -> int:

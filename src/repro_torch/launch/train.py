@@ -50,7 +50,7 @@ from ..distributed.fault_tolerance import (FailurePlan, SimulatedFailure,
 from ..distributed.sharding import shard_state, use_mesh
 from ..kernels import ops
 from ..launch.mesh import batch_coord, dp_shards, init_distributed, \
-    make_host_mesh
+    make_host_mesh, shutdown_distributed
 from ..models import model as M
 from ..optim.adamw import Hyper, abstract_opt_state, adamw_init
 from ..train.steps import make_train_step
@@ -89,13 +89,17 @@ def main(argv=None, on_step=None):
 
     dev = resolve_device(args.device)
     started = not dist.is_initialized() and init_distributed(args.device)
+    clean = False
     try:
         mesh = make_host_mesh(args.model_ranks)
         with use_mesh(mesh):
-            return _loop(args, dev, mesh, on_step)
+            rc = _loop(args, dev, mesh, on_step)
+        del mesh               # the teardown frees it and the groups it holds
+        clean = True
     finally:
         if started:
-            dist.destroy_process_group()
+            shutdown_distributed(clean=clean)
+    return rc
 
 
 def _loop(args, dev, mesh, on_step):

@@ -34,9 +34,7 @@ CLI_TIMEOUT_S = 300.0
 
 
 def _child(worker, rank: int, world: int, tmp: str, payload) -> None:
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.launch.mesh import init_distributed, shutdown_distributed
 
     torch.set_num_threads(1)
     out = Path(tmp) / f"rank{rank}.pt"
@@ -44,10 +42,12 @@ def _child(worker, rank: int, world: int, tmp: str, payload) -> None:
         init_distributed("cpu", rank=rank, world_size=world,
                          init_method=f"file://{tmp}/group",
                          timeout_s=GROUP_TIMEOUT_S)
+        clean = False
         try:
             result = worker(payload)
+            clean = True
         finally:
-            dist.destroy_process_group()
+            shutdown_distributed(clean=clean)
         torch.save({"ok": result}, out)
     except BaseException:                  # reported by the parent
         torch.save({"error": traceback.format_exc()}, out)
@@ -147,6 +147,19 @@ def _leaves(tree, prefix=""):
             yield from _leaves(v, f"{prefix}{k}.")
     else:
         yield prefix[:-1], tree
+
+
+def leave_after_collective_worker(payload) -> float:
+    """One all_reduce, then rank 1 returns at once while rank 0 sleeps
+    ``payload`` seconds first: ``_child``'s teardown
+    (``launch.mesh.shutdown_distributed``) must hold rank 1 at its
+    barrier until rank 0 is done, and neither rank may abort."""
+    import torch.distributed as dist
+    x = torch.full((1024,), float(dist.get_rank() + 1))
+    dist.all_reduce(x)
+    if dist.get_rank() == 0:
+        time.sleep(payload)
+    return float(x[0])
 
 
 def moe_sharded_worker(payload) -> list:

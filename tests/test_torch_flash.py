@@ -314,6 +314,17 @@ def test_model_flash_refuses_grad_and_ragged_noncausal():
         flash_attention(y, y, y, causal=False, kv_block=4)
 
 
+def _assert_lse(got: torch.Tensor, want: torch.Tensor) -> None:
+    """A kernel's lse against the plain version's: -inf at the same rows
+    (those with no visible key), the rest within 1e-4 (float32 sums in
+    another order, ex2.approx; chip_smoke.py's limit)."""
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert bool(torch.isneginf(got[~fin]).all())
+    if bool(fin.any()):
+        assert float((got[fin] - want[fin]).abs().max()) <= 1e-4
+
+
 @pytest.mark.cuda
 class TestCudaKernel:
     """The CUDA kernel against its plain version on the card."""
@@ -350,71 +361,100 @@ class TestCudaKernel:
 
     @pytest.mark.parametrize("D", [16, 64, 80, 128])
     @pytest.mark.parametrize("causal", [True, False])
-    def test_bf16_head_dims(self, cuda_device, D, causal):
-        """The tensor-core route at every head dim, ragged S (not a
-        multiple of the 64-row tiles), at the bf16 tolerance."""
-        rng = np.random.default_rng(D + causal)
+    @pytest.mark.parametrize("Sq,Skv", [
+        (257, 257), (1, 1), (127, 127), (129, 129), (1000, 1000),
+        (127, 129), (129, 127), (1, 1000)])
+    @pytest.mark.parametrize("lse", [False, True])
+    def test_bf16_head_dims(self, cuda_device, D, causal, Sq, Skv, lse):
+        """The wgmma route at every head dim, with and without the lse,
+        at Sq and Skv around the 128-row q tile and the 128-key kv tile
+        (1, 127, 129, 1,000 and a ragged 257), at the bf16 tolerance; the
+        lse within 1e-4, -inf exactly where the plain version's is."""
+        rng = np.random.default_rng(D + causal + Sq + 3 * Skv)
         q, k, v = (as_torch(a, "bfloat16", cuda_device)
-                   for a in qkv(rng, 2, 3, 257, D))
+                   for a in qkv(rng, 2, 3, Sq, D, Skv))
+        kw = dict(causal=causal, q_offset=Skv - Sq if causal else 0)
         ops.reset_kernel_stats()
-        got = ops.flash_attention_fwd(q, k, v, causal=causal)
-        assert ops.kernel_stats() == {"flash_attention_fwd": 1,
-                                      "flash_attention_fwd:bf16": 1}
-        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        got = ops.flash_attention_fwd(q, k, v, return_lse=lse, **kw)
+        want = ref.flash_attention_ref(q, k, v, return_lse=lse, **kw)
+        assert ops.kernel_stats() == {
+            "flash_attention_fwd": 1, "flash_attention_fwd:bf16": 1,
+            **({"flash_attention_fwd:lse": 1} if lse else {})}
         torch.cuda.synchronize()
+        if lse:
+            (got, got_lse), (want, want_lse) = got, want
+            _assert_lse(got_lse, want_lse)
         assert got.dtype == torch.bfloat16
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                    atol=2e-2)
 
     @pytest.mark.parametrize("Sq,Skv,q_offset", [
-        (64, 300, 236), (17, 129, 112), (100, 40, 0), (130, 200, -30)])
+        (64, 300, 236), (17, 129, 112), (100, 40, 0), (130, 200, -30),
+        (1, 1000, 999), (127, 1000, 873), (129, 1000, 871),
+        (300, 300, -200)])
     def test_bf16_q_offset(self, cuda_device, Sq, Skv, q_offset):
         """Sq != Skv with the query block at absolute position q_offset:
-        a decode-style chunk at the end of the keys, a short one, keys
-        fewer than queries and an offset that hides some rows entirely."""
+        a decode-style chunk at the end of the keys (one row, and 127 or
+        129 rows across the q tile), a short one, keys fewer than
+        queries, and offsets that hide rows entirely: at -200 every row
+        of the first 128-row q tile sees no key (output 0, lse -inf)."""
         rng = np.random.default_rng(Sq + Skv)
         q, k, v = (as_torch(a, "bfloat16", cuda_device)
                    for a in qkv(rng, 2, 3, Sq, 64, Skv))
         for kw in (dict(causal=True), dict(causal=True, window=50)):
-            got = ops.flash_attention_fwd(q, k, v, q_offset=q_offset, **kw)
-            want = ref.flash_attention_ref(q, k, v, q_offset=q_offset, **kw)
+            got, got_lse = ops.flash_attention_fwd(
+                q, k, v, q_offset=q_offset, return_lse=True, **kw)
+            want, want_lse = ref.flash_attention_ref(
+                q, k, v, q_offset=q_offset, return_lse=True, **kw)
             torch.cuda.synchronize()
             torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                        atol=2e-2)
+            _assert_lse(got_lse, want_lse)
+            blind = q_offset + torch.arange(Sq, device=cuda_device) < 0
+            assert bool((got[:, :, blind] == 0).all())
+            assert bool(torch.isneginf(got_lse[:, :, blind]).all())
 
-    @pytest.mark.parametrize("D", [64, 128])
+    @pytest.mark.parametrize("D", [16, 64, 80, 128])
     def test_bf16_window_and_cap(self, cuda_device, D):
         rng = np.random.default_rng(D)
         q, k, v = (as_torch(a, "bfloat16", cuda_device)
                    for a in qkv(rng, 2, 3, 500, D))
         for kw in (dict(causal=True, window=96, cap=30.0),
                    dict(causal=False, window=70, cap=20.0),
-                   dict(causal=True, window=1)):
+                   dict(causal=True, window=1),
+                   dict(causal=True, window=200, cap=50.0)):
             got = ops.flash_attention_fwd(q, k, v, **kw)
             want = ref.flash_attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
             torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                        atol=2e-2)
 
-    def test_bf16_strided_views(self, cuda_device):
+    @pytest.mark.parametrize("S,H,D", [(300, 9, 64), (1000, 16, 80),
+                                       (129, 4, 16), (257, 8, 128)])
+    def test_bf16_strided_views(self, cuda_device, S, H, D):
         """The model's (B, S, H, D) bf16 tensors read as (B, H, S, D)
-        views by the tensor-core kernel, no copy; the output is written
-        through its strides."""
-        rng = np.random.default_rng(6)
+        views by the wgmma kernel's tensor maps, no copy (smollm-135m's
+        9 heads of 64, hubert-xlarge's 16 of 80, and D 16 and 128); the
+        output and the lse are written through their strides."""
+        rng = np.random.default_rng(6 + D)
         x = [as_torch(a, "bfloat16", cuda_device).transpose(1, 2)
-             for a in qkv(rng, 2, 300, 9, 64)]
+             for a in qkv(rng, 2, S, H, D)]
         assert not x[0].is_contiguous()
-        got = ops.flash_attention_fwd(*x, causal=True)
-        want = ref.flash_attention_ref(*x, causal=True)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                                   atol=2e-2)
+        for causal in (True, False):
+            got, got_lse = ops.flash_attention_fwd(*x, causal=causal,
+                                                   return_lse=True)
+            want, want_lse = ref.flash_attention_ref(*x, causal=causal,
+                                                     return_lse=True)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2e-2, atol=2e-2)
+            _assert_lse(got_lse, want_lse)
 
     @pytest.mark.parametrize("D", [16, 64, 80, 128])
     def test_bf16_every_head_dim(self, cuda_device, D):
-        """The tensor-core kernel at each head dim (each with its own CTA
-        shape) over the masks, a ragged S and a query block at an
-        offset."""
+        """The wgmma kernel at each head dim (D 80 and 16 with the
+        16-column tail) over the masks, a ragged S and a query block at
+        an offset."""
         rng = np.random.default_rng(D + 5)
         q, k, v = (as_torch(a, "bfloat16", cuda_device)
                    for a in qkv(rng, 2, 3, 333, D, 400))
@@ -457,8 +497,8 @@ class TestCudaKernel:
                                        want.float(), rtol=t, atol=t)
 
     def test_bf16_misaligned_raises(self, cuda_device):
-        """cp.async moves 16 bytes: a row stride or base pointer that is
-        not 16-byte aligned is refused, not read wrong."""
+        """A tensor map reads 16-byte aligned rows: a row stride or base
+        pointer that is not 16-byte aligned is refused, not read wrong."""
         wide = torch.zeros((1, 8, 2, 68), dtype=torch.bfloat16,
                            device=cuda_device)
         odd_stride = wide[..., :64].transpose(1, 2)   # h stride 68

@@ -32,7 +32,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_ranks import model_worker, run_cli, run_ranks
+from _torch_ranks import (leave_after_collective_worker, model_worker,
+                          run_cli, run_ranks)
 from repro.configs.registry import get_config as jget_config
 from repro.models import model as JM
 from repro.train.steps import make_decode_step as jdecode_step
@@ -171,3 +172,10 @@ def test_serve_cli_over_two_ranks_prints_one_rank_s_tokens(arch, capsys):
     assert "process group: backend gloo, 2 ranks" in out
     assert re.search(r"served 4 requests x 5 tokens on cpu over 2 data "
                      r"ranks", out)
+
+
+def test_rank_leaving_after_a_collective_waits_for_its_peer(tmp_path):
+    """Rank 1 leaves straight after a collective while rank 0 is held
+    back: both exit 0 through ``shutdown_distributed``'s barrier (F12)."""
+    assert run_ranks(leave_after_collective_worker, 2, tmp_path, 0.5) \
+        == [3.0, 3.0]

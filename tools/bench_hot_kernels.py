@@ -12,11 +12,12 @@ unpacked with ``git archive`` — are timed by the same script on the same
 card, in turns.  Each kernel is first checked against its plain version
 on the same inputs (bit-exact for the verifies and the re-rank's float32
 bit patterns, 2e-2 for bf16 attention).  Every time is of the wrapper,
-two ways: one call between two events (``wrapper``: its host work
-included, as a caller that waits on each call sees it) and the mean of
-20 calls queued back to back (``queued``: the host works ahead of the
+three ways: one call between two events (``wrapper``: its host work
+included, as a caller that waits on each call sees it), the mean of 20
+calls queued back to back (``queued``: the host works ahead of the
 card, so this is the kernel's own time whenever the host's share of a
-call is the shorter).  ``--slab-q`` forces the arena verifies' queries
+call is the shorter) and the mean of 20 calls queued behind a sleep
+kernel (``device``: the kernel's own time whatever the host's share).  ``--slab-q`` forces the arena verifies' queries
 per slab pass (a variant; by default the wrapper picks it from T).
 
   * packed: the segmented Review shape — one packed group, b = 2, S = 4,
@@ -43,10 +44,16 @@ per slab pass (a variant; by default the wrapper picks it from T).
   * flash: the prefill's shape (B 8, H 9, S 2,000, D 64, bf16, causal),
     contiguous (B, H, S, D) and the model's strided (B, S, H, D) views,
     beside ``scaled_dot_product_attention``; the other head dims of
-    ``ops.FLASH_HEAD_DIMS`` at the same B, H and S; the float32 route.
+    ``ops.FLASH_HEAD_DIMS`` at the same B, H and S; yi-9b's local heads
+    under ``--model-ranks 2`` (B 8, H 16, S 2,000, D 128, causal) and the
+    forward with its lse at smollm-135m's train shape (B 8, H 9, S 2,048,
+    D 64, causal), each on the model's strided views beside
+    ``scaled_dot_product_attention``; the float32 route.
   * hubert: hubert-xlarge's attention (B 2, H 16, D 80, bidirectional,
     bf16) at S 1,000 and 1,500, beside ``scaled_dot_product_attention``
-    and the float32 route, with the bound (operations).
+    and the float32 route, with the bound (operations); the forward with
+    its lse at the two D 80 training shapes (zamba2-2.7b: B 2, H 32,
+    S 2,048, causal; hubert-xlarge: B 4, H 16, S 2,048, bidirectional).
 
   * rows: the static verify (row 1, ``sparse_verify_batch``: b = 2,
     W = 1, n = 12,867,144 leaves, m = 64, tau 3, a base plane of 0..5
@@ -128,6 +135,24 @@ def queued_ms(fn, calls: int = 20) -> float:
     return start.elapsed_time(end) / calls
 
 
+def device_ms(fn, calls: int = 20) -> float:
+    """Mean device time of ``calls`` calls of ``fn`` queued behind a sleep
+    kernel: the host enqueues them all while the card sleeps, so this is
+    the kernels' own time even where the host's share of a call is the
+    longer (``queued`` then measures the host)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)        # ≈ 25 ms at the H100's clocks
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def host_us(fn, calls: int = 20) -> float:
     """Mean host time of one call of ``fn`` in microseconds: the wrapper's
     work and its launches, queued without waiting for the card."""
@@ -142,7 +167,8 @@ def host_us(fn, calls: int = 20) -> float:
 
 
 def both(fn, iters: int) -> dict:
-    return {"wrapper": time_ms(fn, iters), "queued": queued_ms(fn)}
+    return {"wrapper": time_ms(fn, iters), "queued": queued_ms(fn),
+            "device": device_ms(fn)}
 
 
 def bench_packed(ops, ref, gen, iters: int) -> dict:
@@ -328,6 +354,11 @@ def bench_flash(ops, ref, gen, iters: int) -> dict:
         print(f"  flash bf16 D={Dv}: wrapper {out[f'bf16_d{Dv}']['wrapper']:.4f}"
               f" ms, queued {out[f'bf16_d{Dv}']['queued']:.4f} ms",
               flush=True)
+    for key, (Bx, Hx, Sx, Dx), lse in (
+            ("yi9b_local_heads", (8, 16, 2000, 128), False),
+            ("lse_train", (8, 9, 2048, 64), True)):
+        out[key] = fwd_beside_sdpa(ops, ref, gen, iters, Bx, Hx, Sx, Dx,
+                                   causal=True, lse=lse)
     q32, k32, v32 = q.float(), k.float(), v.float()
     out["f32"] = time_ms(lambda: ops.flash_attention_fwd(
         q32, k32, v32, causal=True), max(3, iters // 3))
@@ -335,11 +366,13 @@ def bench_flash(ops, ref, gen, iters: int) -> dict:
     t = out["bf16"]["queued"]
     print(f"flash (B={B} H={H} S={S} D={D} causal, {flops / 1e9:.1f} "
           f"GFLOP): bf16 wrapper {out['bf16']['wrapper']:.4f} ms, queued "
-          f"{t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s); strided (B, S, H, "
+          f"{t:.4f} ms, device {out['bf16']['device']:.4f} ms "
+          f"({flops / out['bf16']['device'] / 1e9:.1f} TFLOP/s); strided (B, S, H, "
           f"D) views wrapper {out['bf16_strided']['wrapper']:.4f}, queued "
           f"{out['bf16_strided']['queued']:.4f} ms; "
           f"scaled_dot_product_attention {out['sdpa']['wrapper']:.4f} / "
-          f"{out['sdpa']['queued']:.4f} ms; float32 route "
+          f"{out['sdpa']['queued']:.4f} / {out['sdpa']['device']:.4f} ms; "
+          f"float32 route "
           f"{out['f32']:.4f} ms; bound "
           f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms (operations)", flush=True)
     return out
@@ -370,13 +403,47 @@ def bench_hubert(ops, ref, gen, iters: int) -> dict:
         t = r["bf16"]["queued"]
         print(f"flash hubert (B={B} H={H} S={S} D={D} bidirectional, "
               f"{flops / 1e9:.2f} GFLOP): bf16 wrapper "
-              f"{r['bf16']['wrapper']:.4f} ms, queued {t:.4f} ms "
-              f"({flops / t / 1e9:.1f} TFLOP/s); "
+              f"{r['bf16']['wrapper']:.4f} ms, queued {t:.4f} ms, device "
+              f"{r['bf16']['device']:.4f} ms "
+              f"({flops / r['bf16']['device'] / 1e9:.1f} TFLOP/s); "
               f"scaled_dot_product_attention {r['sdpa']['wrapper']:.4f} / "
-              f"{r['sdpa']['queued']:.4f} ms; float32 route {r['f32']:.4f} "
+              f"{r['sdpa']['queued']:.4f} / {r['sdpa']['device']:.4f} ms; "
+              f"float32 route {r['f32']:.4f} "
               f"ms; bound {bnd:.4f} ms (operations)", flush=True)
         out[f"S{S}"] = r
+    for key, (Bx, Hx, Sx), causal in (("lse_zamba2", (2, 32, 2048), True),
+                                      ("lse_hubert", (4, 16, 2048), False)):
+        out[key] = fwd_beside_sdpa(ops, ref, gen, iters, Bx, Hx, Sx, D,
+                                   causal=causal, lse=True)
     return out
+
+
+def fwd_beside_sdpa(ops, ref, gen, iters: int, B: int, H: int, S: int,
+                    D: int, *, causal: bool, lse: bool) -> dict:
+    """The bf16 forward (with the lse where ``lse``: the training path's
+    forward) on the model's strided (B, S, H, D) views, checked against
+    its plain version, one call and queued, beside
+    ``scaled_dot_product_attention`` and the bound (operations)."""
+    import torch.nn.functional as F
+    x = tuple(torch.randn((B, S, H, D), device="cuda", generator=gen)
+              .bfloat16().transpose(1, 2) for _ in range(3))
+    check_flash(ops, ref, x, causal=causal)
+    r = {"bf16": both(lambda: ops.flash_attention_fwd(
+            *x, causal=causal, return_lse=lse), iters),
+         "sdpa": both(lambda: F.scaled_dot_product_attention(
+            *x, is_causal=causal), iters)}
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * B * H * D * pairs
+    r["bound_ms"] = flops / PEAK_BF16_FLOPS * 1e3
+    print(f"flash{' with lse' if lse else ''} (B={B} H={H} S={S} D={D} "
+          f"{'causal' if causal else 'bidirectional'}, strided views): "
+          f"bf16 wrapper {r['bf16']['wrapper']:.4f} ms, queued "
+          f"{r['bf16']['queued']:.4f} ms, device {r['bf16']['device']:.4f} "
+          f"ms ({flops / r['bf16']['device'] / 1e9:.1f} TFLOP/s); "
+          f"scaled_dot_product_attention {r['sdpa']['wrapper']:.4f} / "
+          f"{r['sdpa']['queued']:.4f} / {r['sdpa']['device']:.4f} ms; bound "
+          f"{r['bound_ms']:.4f} ms (operations)", flush=True)
+    return r
 
 
 def bench_rows(ops, ref, gen, iters: int) -> dict:
