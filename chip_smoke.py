@@ -64,16 +64,19 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      ``choose_plan``; (b) the static sharded bST (4 shards) there,
      ``make_sharded_searcher`` (scan) at τ = 1-3, ``gather_ids`` and
      ``gather_topk`` against the scan, a stable sort and numpy, and one
-     ``verify="gather"`` call; the batched launches of the scan (MI
-     verify, one per call over all queries) and the verify (one per call
-     over all shards) counted and timed; (c) ``SegmentedIndex`` with the
+     ``verify="gather"`` call; the MI candidate verify
+     (``hamming_distances_gather``, one launch per call over all
+     queries, held bit for bit against its plain version at τ 3's
+     captured shape and timed beside its bound and the old chain of
+     gather, copy and batched scan from the same ids) and the batched
+     verify (one per call over all shards) counted and timed; (c) ``SegmentedIndex`` with the
      multi and sharded backends and ``ShardedSegmentedIndex`` over bst
      stacks on 1,200,000 of phase 5's token sets (delta_cap 2^18), 1%
      deleted and a live delta buffer: top-k and range planes against the
      scan kernel, the fan-out against the fused path, the stacks' Jaccard
      re-rank against numpy; (d) SIH, MIH and HmSearch on 2^19 of phase
-     3's rows, masks
-     against ``LinearScan``.  Range-search and top-k times beside the
+     3's rows, masks against ``LinearScan``, MIH's and HmSearch's
+     verifies through ``hamming_distances_gather``.  Range-search and top-k times beside the
      bst backend's of phases 4 and 5;
  11. the retrieval server (``repro_torch.serving`` and ``store``) on
      4,500,000 of phase 5's token sets (L 16, b 2, Wp 8, delta_cap 2^20,
@@ -188,7 +191,9 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
 
 Phase 2 also sweeps the batched launches (grid.z over the batch) of the
 scan and the verify: batch 1, 3, 4 and 64, ragged n and m, shared and
-per-entry query planes, base planes with BIG lanes.
+per-entry query planes, base planes with BIG lanes; and the candidate
+verify: b 1/2/4/8, W 1-2, n not a multiple of 32, counts of 0, ragged
+and C, ids at 0 and n - 1.
 
 Phase 2 also sweeps the flash kernel at head dim 80 on both routes.
 Phase 5 also puts half of its index's block bytes in the cold tier
@@ -315,6 +320,11 @@ SWEEP_BATCH = [1, 3, 4, 64]
 BATCH_BL = [(1, 8), (2, 16), (4, 32), (8, 64)]
 BATCH_N = [1, 130, 4097, 100_003]
 BATCH_M = [1, 3, 8]
+# ... and of the candidate verify: (b, L) over W 1-2, n, C slots a query
+# (5 queries: counts 0, C and three ragged).
+GATHER_BL = [(1, 8), (2, 16), (4, 40), (8, 64)]
+GATHER_N = [4097, 1_000_003]
+GATHER_C = [1, 300, 2049]
 # Phase 10, the other backends: MI-bST over MI_BLOCKS blocks (the plan
 # choose_plan picks at the Review geometry and τ = 3) and the sharded bST
 # over SHARDS shards on phase 3's sketches; the segmented backends on the
@@ -1867,6 +1877,106 @@ def check_batched_kernels(torch, ops, ref, dev, gen, words, maxerr,
     return checks
 
 
+def gather_ids(torch, gen, dev, n: int, counts, C: int):
+    """(m, C) int32 candidate ids: each row's valid prefix ascending random
+    ids, 0 and n - 1 at its ends where it holds two, random ids past it
+    (what the compaction leaves there is never read)."""
+    ids = torch.randint(0, n, (len(counts), C), dtype=torch.int32,
+                        device=dev, generator=gen)
+    for j, k in enumerate(counts):
+        if k:
+            row = torch.randint(0, n, (k,), dtype=torch.int32, device=dev,
+                                generator=gen).sort().values
+            if k >= 2:
+                row[0], row[-1] = 0, n - 1
+            ids[j, :k] = row
+    return ids
+
+
+def check_gather_kernel(torch, ops, ref, dev, gen, words, maxerr,
+                        err) -> int:
+    """Phase 2, the candidate verify (``hamming_distances_gather``) against
+    its plain version: GATHER_BL over W 1-2, n not a multiple of 32, 5
+    queries whose counts are 0, C and ragged, ids at 0 and n - 1.
+    Returns the shapes checked."""
+    checks = 0
+    for b, L in GATHER_BL:
+        W = (L + 31) // 32
+        for n in GATHER_N:
+            db = words(b, W, n)
+            for C in GATHER_C:
+                m = 5
+                q = words(b, W, m)
+                ragged = torch.randint(0, C + 1, (3,), generator=gen,
+                                       device=dev).tolist()
+                counts = [0, C, *ragged]
+                ids = gather_ids(torch, gen, dev, n, counts, C)
+                cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+                got = ops.hamming_distances_gather(db, q, ids, cnt)
+                e = maxerr(got, ref.hamming_distances_gather_ref(db, q, ids,
+                                                                 cnt))
+                err["hamming_distances_gather"] = max(
+                    err["hamming_distances_gather"], e)
+                check(e == 0, f"hamming_distances_gather b={b} L={L} n={n} "
+                              f"C={C} counts={counts}")
+                checks += 1
+            del db
+    return checks
+
+
+def gather_bound(ops, full, qp, ids, counts):
+    """(bound_ms, bound_by, sector_ms) of one candidate verify from its
+    arguments: the bound over ``ops._gather_cost``'s bytes and
+    operations (the function's own), and the same bytes with a 32-byte
+    sector for each gathered word — what the (b, W, n) layout costs the
+    card when the candidates lie far apart, a layout figure beside the
+    bound."""
+    n_ops, nbytes, _ = ops._gather_cost(full, qp, ids, counts)
+    b, W, _ = full.shape
+    V = int(counts.clamp(0, ids.shape[1]).sum())
+    ms, by = bound_ms(nbytes, n_ops)
+    return ms, by, bound_ms(nbytes + 28 * b * W * V, n_ops)[0]
+
+
+def device_ms(torch, fn, calls: int = 20) -> float:
+    """Mean device time of ``calls`` calls of ``fn`` queued behind a sleep
+    kernel (the kernels' own time, whatever the host's share of a
+    call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)        # ≈ 25 ms at the H100's clocks
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def cold_device_ms(torch, fn, iters: int = 5) -> float:
+    """Median device time of one call of ``fn`` with the L2 cold: before
+    each call a 256 MB fill evicts the card's 50 MB L2 and a short sleep
+    kernel covers the host's enqueue, so the events bracket the kernels
+    alone."""
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    times = []
+    for _ in range(iters):
+        flush.fill_(_)
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del flush
+    return statistics.median(times)
+
+
 def host_ms(torch, fn, iters: int = 5):
     """(median, sorted samples): host-clock ms of a synchronised ``fn``
     after one warm-up."""
@@ -1923,8 +2033,10 @@ def batched_bound(B: int, b: int, W: int, n: int, m: int, q_sets: int,
 
 
 def static_multi(torch, dev, ops, ref, err, maxerr, sketches, qs, d,
-                 si_ms) -> dict:
-    """Phase 10 (a): the static MI-bST on the Review sketches."""
+                 si_ms) -> tuple:
+    """Phase 10 (a): the static MI-bST on the Review sketches.  Returns the
+    kernel lines of the candidate verify and of the batched scan (timed
+    on the same candidates, off the MI path)."""
     from repro_torch.core import build_multi_index, choose_plan, mi_search_batch
     from repro_torch.core.multi_index import candidate_capacity
 
@@ -1940,17 +2052,26 @@ def static_multi(torch, dev, ops, ref, err, maxerr, sketches, qs, d,
           f"{blocks}; model_bits {mi.model_bits()}", flush=True)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_kernel_stats()                       # the static MI path
-    res = {tau: mi_search_batch(mi, qs_t, tau) for tau in (1, 2, 3)}
+    res, per_call = {}, {}
+    for tau in (1, 2, 3):
+        before = ops.kernel_stats().get("hamming_distances_gather", 0)
+        res[tau] = mi_search_batch(mi, qs_t, tau)
+        per_call[tau] = ops.kernel_stats().get("hamming_distances_gather",
+                                               0) - before
     torch.cuda.synchronize()
     launches = ops.kernel_stats()
     peak = torch.cuda.max_memory_allocated()
     print(f"(a) mi_search_batch tau=1,2,3 (m={M_QUERIES}): launches "
-          f"{launches}, peak {peak / 2**30:.2f} GiB", flush=True)
-    check(launches.get("hamming_distances_batched", 0) > 0,
-          "the batched scan kernel not launched on the MI path")
+          f"{launches}, candidate verifies a call {per_call}, peak "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    check(all(c >= 1 for c in per_call.values()),
+          f"the candidate verify kernel not launched on every MI call: "
+          f"{per_call}")
+    check(not any(k.startswith("hamming_distances_batched")
+                  for k in launches),
+          f"the batched scan ran on the MI path: {launches}")
     check(not any(k.endswith(":ref") for k in launches),
           f"plain version ran on the MI path: {launches}")
-    n_valid = int(res[3].candidates.sum())        # the verify's real work
     for tau, r in res.items():
         inside = d <= tau
         check(int(r.overflow.sum()) == 0, f"MI tau={tau}: overflow")
@@ -1974,42 +2095,101 @@ def static_multi(torch, dev, ops, ref, err, maxerr, sketches, qs, d,
               "(phase 4)", flush=True)
     profile_window(torch, "(a) mi_search_batch tau=3",
                    lambda: mi_search_batch(mi, qs_t, 3))
-    cand, qv = capture_args(ops, "hamming_distances_batched",
-                            lambda: mi_search_batch(mi, qs_t, 3))
-    B, _, W, C = cand.shape
-    got = ops.hamming_distances_batched(cand, qv, block_m=1)
-    e = maxerr(got, ref.hamming_distances_batched_ref(cand, qv))
+    # the candidate verify at tau 3's captured shape, whole (m, C) output
+    full, qp, ids, counts = capture_args(
+        ops, "hamming_distances_gather", lambda: mi_search_batch(mi, qs_t, 3))
+    W = full.shape[1]
+    m, C = ids.shape
+    n_valid = int(counts.sum())                   # the verify's real work
+
+    def gather():
+        return ops.hamming_distances_gather(full, qp, ids, counts)
+    got = gather()
+    want = ref.hamming_distances_gather_ref(full, qp, ids, counts)
+    e = maxerr(got, want)
+    err["hamming_distances_gather"] = max(err["hamming_distances_gather"], e)
+    check(e == 0, "candidate verify at the MI verify's shape")
+    g_ms = time_ms(torch, gather)
+    g_queued = queued_ms(torch, gather)
+    g_device = device_ms(torch, gather)
+    g_cold = cold_device_ms(torch, gather)
+    g_plain = time_ms(torch, lambda: ref.hamming_distances_gather_ref(
+        full, qp, ids, counts), iters=3)
+    g_bnd, g_by, g_sector = gather_bound(ops, full, qp, ids, counts)
+    # the parent's chain from the same ids: the gather of every slot's
+    # columns, the copy into (m, b, W, C) and the batched scan over them
+    valid = torch.arange(C, device=dev)[None, :] < counts[:, None]
+    q_sets = qp.permute(2, 0, 1)[..., None].contiguous()     # (m, b, W, 1)
+
+    def gathered():
+        safe = torch.where(valid, ids, 0)
+        return full.index_select(2, safe.reshape(-1)).reshape(
+            b, W, m, C).permute(2, 0, 1, 3).contiguous()
+
+    def old_chain():
+        return ops.hamming_distances_batched(gathered(), q_sets,
+                                             block_m=1)[:, 0, :]
+    check(torch.equal(torch.where(valid, old_chain(), BIG), got),
+          "the old chain disagrees with the candidate verify")
+    chain_ms = time_ms(torch, old_chain)
+    chain_queued = queued_ms(torch, old_chain)
+    chain_device = device_ms(torch, old_chain)
+    chain_cold = cold_device_ms(torch, old_chain)
+    # the batched scan alone on the gathered slots (kernel row 2b's old
+    # design, off the MI path now): held bit for bit against its plain
+    # version and the same (m, 1, C) distances in one library call,
+    # batched cdist(p=0) over the symbols decoded from the same words;
+    # timed once each for its line of the kernels JSON
+    cand = gathered()
+    scan = ops.hamming_distances_batched(cand, q_sets, block_m=1)
+    e = maxerr(scan, ref.hamming_distances_batched_ref(cand, q_sets))
     err["hamming_distances_batched"] = max(err["hamming_distances_batched"], e)
     check(e == 0, "batched scan at the MI verify's shape")
-    ms = time_ms(torch, lambda: ops.hamming_distances_batched(cand, qv,
-                                                              block_m=1))
-    queued = queued_ms(torch, lambda: ops.hamming_distances_batched(
-        cand, qv, block_m=1))
-    plain = time_ms(torch, lambda: ref.hamming_distances_batched_ref(cand, qv),
-                    iters=3)
-    # the same (B, 1, C) distances in one library call: batched cdist(p=0)
-    # over the symbols, decoded from the same words
-    qf, cf = planes_to_symbols(torch, qv, b, L), planes_to_symbols(torch, cand,
-                                                                   b, L)
-    check(torch.equal(torch.cdist(qf, cf, p=0).to(torch.int32), got),
+    s_ms = time_ms(torch, lambda: ops.hamming_distances_batched(
+        cand, q_sets, block_m=1))
+    s_plain = time_ms(torch, lambda: ref.hamming_distances_batched_ref(
+        cand, q_sets), iters=3)
+    qf, cf = (planes_to_symbols(torch, x, b, L) for x in (q_sets, cand))
+    check(torch.equal(torch.cdist(qf, cf, p=0).to(torch.int32), scan),
           "batched cdist(p=0) disagrees with the batched scan at the MI verify")
     lib_ms = time_ms(torch, lambda: torch.cdist(qf, cf, p=0))
-    # bound of the launch over its C padded slots, and over the candidates
-    # this run's data holds (the slots past a query's count are id 0's
-    # words, the reference's static capacity): the kernel line's bound
-    pad_bnd, _ = batched_bound(B, b, W, C, 1, B, verify=False)
-    bnd, by = batched_bound(1, b, W, n_valid, 1, B, verify=False)
-    print(f"hamming_distances_batched at the MI verify (B={B} queries, one "
-          f"each, b={b} W={W}, C={C} slots, {n_valid} valid candidates, "
-          f"tile 1): {ms:.4f} ms, queued {queued:.4f} ms, bound {bnd:.4f} ms "
-          f"({by}) over the valid candidates, {pad_bnd:.4f} ms over the "
-          f"slots, plain {plain:.3f} ms, batched cdist(p=0) {lib_ms:.3f} ms",
+    # the old 4-byte reckoning (each word once, as if the candidates were
+    # contiguous), over the valid candidates and over every slot
+    old_bnd, by = batched_bound(1, b, W, n_valid, 1, m, verify=False)
+    pad_bnd, _ = batched_bound(m, b, W, C, 1, m, verify=False)
+    print(f"hamming_distances_gather at the MI verify ({m} queries, b={b} "
+          f"W={W}, C={C} slots, {n_valid} valid candidates): {g_ms:.4f} "
+          f"ms, queued {g_queued:.4f} ms, device {g_device:.4f} ms, L2 "
+          f"cold {g_cold:.4f} ms, bound {g_bnd:.4f} ms ({g_by}; with a "
+          f"32-byte sector a gathered word {g_sector:.4f}; old reckoning "
+          f"{old_bnd:.4f} over the valid candidates, {pad_bnd:.4f} over "
+          f"the slots), plain "
+          f"{g_plain:.3f} ms; the old chain (index_select + permute + "
+          f"batched scan) {chain_ms:.4f} ms, queued {chain_queued:.4f} ms, "
+          f"device {chain_device:.4f} ms, L2 cold {chain_cold:.4f} ms",
           flush=True)
-    del mi, cand, qv, got, qf, cf
+    print(f"hamming_distances_batched on the gathered slots (tile 1): "
+          f"{s_ms:.4f} ms, plain {s_plain:.3f} ms, batched cdist(p=0) "
+          f"{lib_ms:.3f} ms", flush=True)
+    del mi, full, qp, ids, counts, got, want, cand, scan, qf, cf, valid
     torch.cuda.empty_cache()
-    return {"launches": launches["hamming_distances_batched"], "ms": ms,
-            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-            "library_ms": lib_ms, "batched": "queries"}
+    gather_json = {"launches": launches["hamming_distances_gather"],
+                   "ms": g_ms, "queued_ms": g_queued, "device_ms": g_device,
+                   "cold_device_ms": g_cold,
+                   "plain_ms": g_plain, "bound_ms": g_bnd, "bound_by": g_by,
+                   "library_ms": None, "sector_reckoning_ms": g_sector,
+                   "old_reckoning_ms": old_bnd,
+                   "slots_reckoning_ms": pad_bnd,
+                   "old_chain_ms": chain_ms,
+                   "old_chain_queued_ms": chain_queued,
+                   "old_chain_device_ms": chain_device,
+                   "old_chain_cold_device_ms": chain_cold}
+    # off the MI path: launched on the main path no time
+    batched_json = {"launches": launches.get("hamming_distances_batched", 0),
+                    "main_path": False, "ms": s_ms, "plain_ms": s_plain, "bound_ms": old_bnd,
+                    "bound_by": by, "library_ms": lib_ms,
+                    "batched": "queries"}
+    return gather_json, batched_json
 
 
 def static_sharded(torch, dev, ops, ref, err, maxerr, sketches, qs, d,
@@ -2151,7 +2331,7 @@ def segmented_backends(torch, dev, ops, corpus10, bst_ms) -> None:
         "multi": (lambda: SegmentedIndex(L, b, delta_cap=DELTA10_CAP,
                                          backend="multi",
                                          mi_blocks=MI_BLOCKS, device=dev),
-                  ("hamming_distances_batched", "hamming_distances")),
+                  ("hamming_distances_gather", "hamming_distances")),
         "sharded": (lambda: SegmentedIndex(L, b, delta_cap=DELTA10_CAP,
                                            backend="sharded",
                                            n_shards=SHARDS, device=dev),
@@ -2244,10 +2424,11 @@ def segmented_backends(torch, dev, ops, corpus10, bst_ms) -> None:
         torch.cuda.empty_cache()
 
 
-def baselines_check(torch, dev, sketches) -> None:
-    """Phase 10 (d): SIH, MIH and HmSearch (host numpy indexes, the scan
-    kernel verifying) on the first BASE_N Review rows, BASE_Q queries,
-    masks against ``LinearScan``."""
+def baselines_check(torch, dev, ops, sketches) -> None:
+    """Phase 10 (d): SIH, MIH and HmSearch (host numpy indexes; MIH's and
+    HmSearch's candidates verified by the candidate verify kernel) on the
+    first BASE_N Review rows, BASE_Q queries, masks against
+    ``LinearScan``."""
     from repro_torch.core import MIH, SIH, HmSearch, LinearScan
 
     db = sketches[:BASE_N]
@@ -2269,9 +2450,15 @@ def baselines_check(torch, dev, sketches) -> None:
         ix = build()
         build_s = time.perf_counter() - t0
         t0 = time.perf_counter()
+        ops.reset_kernel_stats()
         masks = [search(ix, q) for q in qs]
         torch.cuda.synchronize()
         query_s = time.perf_counter() - t0
+        launches = ops.kernel_stats()     # SIH enumerates, verifies nothing
+        check((name == "SIH" or launches.get("hamming_distances_gather", 0))
+              and not any(k.endswith(":ref") for k in launches),
+              f"{name}: the candidate verify kernel not launched: "
+              f"{launches}")
         for i, (q, mask) in enumerate(zip(qs, masks)):
             check(np.array_equal(mask, scan.search(q, tau)),
                   f"{name} tau={tau} query {i} != LinearScan")
@@ -5263,7 +5450,8 @@ def main() -> int:
     err = dict.fromkeys(("sparse_verify_batch", "hamming_distances",
                          "sparse_verify_arena_packed", "sparse_verify_arena",
                          "exact_rerank", "sparse_verify_batch_batched",
-                         "hamming_distances_batched"), 0)
+                         "hamming_distances_batched",
+                         "hamming_distances_gather"), 0)
     err["flash_attention_fwd"] = 0.0
     n_checks = 0
 
@@ -5315,6 +5503,12 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"batched scan and verify launches vs plain: {batched_checks} "
           f"bit-exact, batch {SWEEP_BATCH} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    gather_checks = check_gather_kernel(torch, ops, ref, dev, gen, words,
+                                        maxerr, err)
+    torch.cuda.synchronize()
+    print(f"candidate verify vs plain: {gather_checks} bit-exact "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     arena_checks = check_arena_kernels(torch, ops, ref, dev, gen, words,
@@ -5543,8 +5737,8 @@ def main() -> int:
     sketches, qs = review_static(args.seed)
     d = LinearScan.build(sketches, REVIEW_B, device="cuda").distances(qs)
     sub_done("Review sketches and the scan")
-    mi_json = static_multi(torch, dev, ops, ref, err, maxerr, sketches, qs,
-                           d, si_ms)
+    gather_json, mi_json = static_multi(torch, dev, ops, ref, err, maxerr,
+                                        sketches, qs, d, si_ms)
     sub_done("a")
     sh_json = static_sharded(torch, dev, ops, ref, err, maxerr, sketches, qs,
                              d, si_ms)
@@ -5553,7 +5747,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     segmented_backends(torch, dev, ops, corpus10, bst_seg_ms)
     sub_done("c")
-    baselines_check(torch, dev, sketches)
+    baselines_check(torch, dev, ops, sketches)
     sub_done("d")
     del sketches, qs
     phase_done("10 (the other backends)")
@@ -5673,6 +5867,11 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/hamming.cu",
          "replaces": "src/repro/kernels/hamming_kernel.py:70",
          "max_abs_err": err["hamming_distances_batched"], **mi_json},
+        {"name": "hamming_distances_gather", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/hamming.cu",
+         "replaces": "src/repro/kernels/hamming_kernel.py:70",
+         "reached_through": "src/repro/core/multi_index.py:167",
+         "max_abs_err": err["hamming_distances_gather"], **gather_json},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

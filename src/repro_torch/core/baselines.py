@@ -7,7 +7,8 @@ time).  Their inverted indexes are host numpy structures, as in the JAX
 package: a lexicographically sorted key array (the raw sketch bytes
 viewed as numpy ``void`` scalars, memcmp order) queried by binary
 search, and signature enumeration on the host.  Verification goes
-through the ``hamming_distances`` kernel on the index's device.
+through the candidate verify kernel (``hamming_distances_gather``) on
+the index's device; the linear scan through ``hamming_distances``.
 """
 
 from __future__ import annotations
@@ -38,11 +39,13 @@ def _vertical(sketches: np.ndarray, b: int, device) -> torch.Tensor:
 def _verify(full_vert: torch.Tensor, b: int, q: np.ndarray, ids: np.ndarray,
             tau: int, n: int) -> np.ndarray:
     """(n,) bool mask of the candidate ``ids`` within ``tau`` of ``q``:
-    their columns gathered on the device, one ``hamming_distances``
-    launch."""
+    one ``hamming_distances_gather`` launch reads their columns through
+    the ids (m = 1, every slot valid)."""
     dev = full_vert.device
-    cand = full_vert.index_select(2, torch.from_numpy(ids).to(dev))
-    dist = ops.hamming_distances(cand, _vertical(q[None], b, dev))[0]
+    cand = torch.from_numpy(ids.astype(np.int32)).to(dev)[None]   # (1, k)
+    counts = torch.full((1,), len(ids), dtype=torch.int32, device=dev)
+    dist = ops.hamming_distances_gather(full_vert, _vertical(q[None], b, dev),
+                                        cand, counts)[0]
     mask = np.zeros(n, dtype=bool)
     mask[ids[dist.cpu().numpy() <= tau]] = True
     return mask

@@ -9,11 +9,12 @@ verification re-checks the full-length Hamming distance of the
 compacted candidates (fixed capacity from the cost model, with the
 overflow ladder on top).
 
-The verify gathers each query's candidates into one contiguous
-(m, b, W, C) tensor and scores all m queries in ONE launch of the
-batched scan kernel (``ops.hamming_distances_batched``, grid.z = m, one
-query per entry) — the JAX package's ``jax.vmap`` of
-``hamming_distances`` over the query axis.
+The verify scores all m queries' compacted candidates in ONE launch of
+the candidate verify kernel (``ops.hamming_distances_gather``), which
+reads the (b, W, n) verify planes through the candidate ids and scores
+only each query's valid prefix — where the JAX package gathers
+``full_vert[:, :, ids]`` for every slot and vmaps ``hamming_distances``
+over the query axis.
 
 Every result is bit-identical to ``repro.core.multi_index``.  Torch runs
 eagerly, so a "searcher" is a cached closure over (index, τ, caps,
@@ -127,8 +128,8 @@ def _mi_search_trace_batch(mi: MultiIndex, qs: torch.Tensor, *, tau: int,
                            id_live: torch.Tensor | None = None
                            ) -> MultiSearchResult:
     """Batched MI search: every block runs the 2D-frontier batch search,
-    the candidate sets compact per query, and one batched scan launch
-    scores each query against its own gathered candidates.
+    the candidate sets compact per query, and one candidate verify launch
+    scores each query against its own candidates through their ids.
 
     ``id_live``: optional (n,) bool tombstone mask — dead ids leave the
     candidate union *before* compaction, so they take neither candidate
@@ -153,13 +154,9 @@ def _mi_search_trace_batch(mi: MultiIndex, qs: torch.Tensor, *, tau: int,
     ids, _, cvalid, ov = _compact_batch(all_ids, zeros, cand_mask, cand_cap)
     overflow += ov
     C = ids.shape[1]
-    safe_ids = torch.where(cvalid, ids, 0)                      # (m, C)
-    b, W = mi.full_vert.shape[:2]
-    cand_vert = mi.full_vert.index_select(2, safe_ids.reshape(-1)).reshape(
-        b, W, m, C).permute(2, 0, 1, 3).contiguous()            # (m, b, W, C)
-    q_vert = pack_vertical_torch(qs, mi.b)[..., None]           # (m, b, W, 1)
-    dist = ops.hamming_distances_batched(cand_vert, q_vert,
-                                         block_m=1)[:, 0, :]    # (m, C)
+    q_planes = ops.to_lane_major(pack_vertical_torch(qs, mi.b))  # (b, W, m)
+    dist = ops.hamming_distances_gather(mi.full_vert, q_planes, ids,
+                                        n_cand.clamp(max=C))    # (m, C)
     ok = cvalid & (dist <= tau)
     # invalid candidate slots land in the spare column n, sliced off (the
     # reference's mode="drop" scatter)

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "sparse_verify_batch_batched_launch": [_P, _P, _P, _P, _P, _LL, _I, _I,
                                            _I, _I, _I, _LL, _LL, _LL, _LL,
                                            _I, _I, _P],
+    "hamming_distances_gather_launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                                        _I, _LL, _P],
     "sparse_verify_arena_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
                                    _LL, _I, _I, _I, _I, _P],
     "sparse_verify_arena_packed_launch": [_P, _P, _P, _P, _P, _P, _P, _P,

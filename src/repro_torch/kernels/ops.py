@@ -20,18 +20,21 @@ nothing is padded here.
 
 ``hamming_distances_batched`` and ``sparse_verify_batch_batched`` are
 the scan and the verify over a leading batch axis, in one launch
-(grid.z): the MI-bST verify batches per-query candidate sets, the
-sharded bST verify its shards.  The unbatched scan and static
-verifies launch the same kernels at batch 1.
+(grid.z): the sharded bST verify batches its shards, and the batched
+scan is the counterpart of the JAX package's ``vmap`` of the scan.  The
+unbatched scan and static verifies launch the same kernels at batch 1.
+``hamming_distances_gather`` is the MI-bST candidate verify: it reads
+the database through each query's candidate ids and scores only the
+valid prefix of its row, with no gathered copy.
 
 ``flash_attention_fwd`` and ``flash_attention_bwd`` are the float
 kernels: (B, H, S, D) float32 or bfloat16 attention and its FA-2
 gradient, read through strides.
 
 While an op counter is active (``launch/op_cost.py``'s ``OpCounter``,
-the dry-run's), the flash wrappers and the scan and static verify
-wrappers record their kernel's operations and bytes from their
-arguments' shapes — the reckoning of the bound column of PERF.md's
+the dry-run's), the flash wrappers, the scan and static verify wrappers
+and the candidate verify record their kernel's operations and bytes
+from their arguments — the reckoning of the bound column of PERF.md's
 kernel table, so the count reads the same work whatever runs it — and
 the ops they run inside are not counted again.  On the ``meta`` device
 they then return empty outputs of the kernel's shapes and dtypes; on
@@ -213,6 +216,24 @@ def _verify_batched_cost(paths_vert, q_vert, base_dist, **_):
             _int32_planes((B, m, n), paths_vert.device, 2))
 
 
+def _gather_cost(full_vert, q_vert, ids, counts, **_):
+    """(operations, bytes, empty output) of a candidate verify over V
+    valid slots: the function's own bytes — V ids and the b·W words of
+    each valid candidate read, every (m, C) output slot written, the
+    query words and counts read — and V·W·(b XOR + (b-1) OR + popc +
+    add) operations.  V is the clamped counts' sum, or every slot on
+    ``meta``, where the counts are unknown.  (The card moves a 32-byte
+    sector for each gathered word of far-apart candidates: a cost of the
+    (b, W, n) layout, not of the function; PERF.md's row 2b prints it
+    beside the bound.)"""
+    b, W, _ = full_vert.shape
+    m, C = ids.shape
+    V = m * C if counts.is_meta else int(counts.clamp(0, C).sum())
+    nbytes = 4 * V + 4 * b * W * V + 4 * m * C + 4 * (b * W * m + m)
+    return (V * W * (2 * b + 1), nbytes,
+            _int32_planes((m, C), full_vert.device, 1))
+
+
 def to_lane_major(planes: torch.Tensor) -> torch.Tensor:
     """(n, b, W) sketch-major -> (b, W, n) lane-major (kernel layout)."""
     return planes.permute(1, 2, 0).contiguous()
@@ -348,9 +369,9 @@ def hamming_distances_batched(db_vert: torch.Tensor, q_vert: torch.Tensor,
     """(B, b, W, n) x (B or 1, b, W, m) -> (B, m, n) int32 Hamming
     distances: ``hamming_distances`` for B databases in ONE launch
     (grid.z = B).  A query batch of 1 is shared by every entry (batch
-    stride 0).  The MI-bST candidate verify passes its per-query
-    candidate sets, (m, b, W, C) against (m, b, W, 1): one query per
-    entry, so the kernel plays a query tile of one."""
+    stride 0).  Per-query candidate sets, (m, b, W, C) against (m, b, W,
+    1), are the JAX package's ``vmap`` of the scan over the MI-bST's
+    queries (the port's MI path takes ``hamming_distances_gather``)."""
     if _COUNTER is not None:
         return _count_call(hamming_distances_batched, _scan_batched_cost,
                            db_vert, q_vert, block_m=block_m,
@@ -360,6 +381,68 @@ def hamming_distances_batched(db_vert: torch.Tensor, q_vert: torch.Tensor,
         return ref.hamming_distances_batched_ref(db_vert, q_vert)
     return _launch_scan("hamming_distances_batched", db_vert, q_vert,
                         block_m, block_n)
+
+
+def _check_gather(full_vert: torch.Tensor, q_vert: torch.Tensor,
+                  ids: torch.Tensor, counts: torch.Tensor) -> None:
+    """The candidate verify's operands: contiguous int32 (b, W, n) planes
+    with b in 1..8, (b, W, m) queries, m <= 65535, (m,) counts, and (m, C)
+    int32 ids whose columns are contiguous (a row stride >= C, such as a
+    slice of a wider compaction buffer, is taken as it is)."""
+    name = "hamming_distances_gather"
+    dev = full_vert.device
+    for what, x, dim in (("full_vert", full_vert, 3), ("q_vert", q_vert, 3),
+                         ("counts", counts, 1), ("ids", ids, 2)):
+        if x.dtype != torch.int32 or x.dim() != dim or x.device != dev:
+            raise ValueError(f"{name}: {what} must be a {dim}-D int32 tensor "
+                             f"on {dev}, got {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}")
+        if what != "ids" and not x.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    b, W, _ = full_vert.shape
+    m, C = ids.shape
+    if tuple(q_vert.shape) != (b, W, m) or tuple(counts.shape) != (m,):
+        raise ValueError(f"{name}: queries {tuple(q_vert.shape)} and counts "
+                         f"{tuple(counts.shape)} do not fit planes "
+                         f"{(b, W)} and ids {(m, C)}")
+    if (C > 1 and ids.stride(1) != 1) or (m > 1 and ids.stride(0) < C):
+        raise ValueError(f"{name}: ids must have contiguous rows, got "
+                         f"strides {ids.stride()}")
+    if not 1 <= b <= 8 or m > 65535:
+        raise ValueError(f"{name}: b={b} outside 1..8 or m={m} past the "
+                         "grid's y extent")
+
+
+def hamming_distances_gather(full_vert: torch.Tensor, q_vert: torch.Tensor,
+                             ids: torch.Tensor, counts: torch.Tensor, *,
+                             use_kernel: bool | None = None) -> torch.Tensor:
+    """(b, W, n) database x (b, W, m) queries through (m, C) candidate ids
+    -> (m, C) int32: the Hamming distance of query j to ``ids[j, s]`` for
+    s < ``counts[j]``, BIG past it — the MI-bST candidate verify (the JAX
+    package gathers ``full_vert[:, :, ids]`` and vmaps the scan over the
+    queries).  The kernel reads each valid candidate's words through its
+    id and only stores BIG past the counts."""
+    if _COUNTER is not None:
+        return _count_call(hamming_distances_gather, _gather_cost, full_vert,
+                           q_vert, ids, counts, use_kernel=use_kernel)
+    name = "hamming_distances_gather"
+    _check_gather(full_vert, q_vert, ids, counts)
+    if not _on_kernel(full_vert, use_kernel):
+        _count(name, False)
+        return ref.hamming_distances_gather_ref(full_vert, q_vert, ids, counts)
+    from . import _build
+    b, W, n = full_vert.shape
+    m, C = ids.shape
+    out = torch.empty((m, C), dtype=torch.int32, device=full_vert.device)
+    lib = _build.load_library()
+    code = lib.hamming_distances_gather_launch(
+        full_vert.data_ptr(), q_vert.data_ptr(), ids.data_ptr(),
+        counts.data_ptr(), out.data_ptr(), n, m, C, b, W,
+        ids.stride(0) if m > 1 else C,
+        torch.cuda.current_stream(full_vert.device).cuda_stream)
+    _build.check(lib, code, name)
+    _count(name, m * C > 0)
+    return out
 
 
 def sparse_verify_batch_batched(paths_vert: torch.Tensor,

@@ -79,6 +79,29 @@ def hamming_distances_batched_ref(db_vert: torch.Tensor,
     return dist
 
 
+def hamming_distances_gather_ref(full_vert: torch.Tensor,
+                                 q_vert: torch.Tensor, ids: torch.Tensor,
+                                 counts: torch.Tensor) -> torch.Tensor:
+    """Per-query candidate distances through the candidate ids.
+
+    full_vert: (b, W, n) int32 bit planes; q_vert: (b, W, m);
+    ids:       (m, C) int32 candidate ids, each row's first ``counts[j]``
+               valid (the compacted prefix);
+    counts:    (m,) int32;
+    returns:   (m, C) int32 — the Hamming distance of query j to
+               ``ids[j, s]`` where s < counts[j], BIG past it.
+    """
+    b, W, _ = full_vert.shape
+    m, C = ids.shape
+    valid = torch.arange(C, device=ids.device)[None, :] < counts[:, None]
+    safe = torch.where(valid, ids, 0)
+    cand = full_vert.index_select(2, safe.reshape(-1)).reshape(
+        b, W, m, C).permute(2, 0, 1, 3)                       # (m, b, W, C)
+    d = hamming_distances_batched_ref(
+        cand, q_vert.permute(2, 0, 1)[..., None])[:, 0, :]    # (m, C)
+    return torch.where(valid, d, BIG)
+
+
 def sparse_verify_batch_batched_ref(paths_vert: torch.Tensor,
                                     q_vert: torch.Tensor,
                                     base_dist: torch.Tensor, tau: int):

@@ -9,6 +9,8 @@ package's ``launch/dryrun.py`` and ``hlo_cost.py``.
     dot compiled by JAX;
   * the flash wrappers on ``meta`` count their formula and none of the
     plain version's ops, and return empty outputs of the kernel's shapes;
+    so does the MI-bST candidate verify under ``mi_column_dists`` (every
+    slot counted valid on ``meta``, the real counts on the CPU);
   * the counting mesh's collective calls and bytes for
     ``moe_apply_sharded``'s forward and backward at (1, 2) and (2, 2)
     equal ``Mesh.stats`` of real 2- and 4-rank gloo runs;
@@ -30,6 +32,7 @@ The JAX dry-run modules set ``XLA_FLAGS`` when imported; the tests import
 """
 
 import dataclasses
+import functools
 import json
 import os
 
@@ -50,6 +53,7 @@ from repro.optim.adamw import Hyper as JHyper
 from repro.optim.adamw import adamw_init as jadamw_init
 from repro.train.steps import make_train_step as jmake_train_step
 from repro_torch.configs.registry import all_cells, get_config
+from repro_torch.core import multi_index as tmi
 from repro_torch.kernels import ops
 from repro_torch.launch import dryrun, dryrun_search, profile_cell
 from repro_torch.launch.mesh import CountingMesh
@@ -146,6 +150,53 @@ def test_flash_on_meta_counts_its_formula(causal, window, q_offset):
     assert out.is_meta and out.shape == q.shape and out.dtype == q.dtype
     assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
     assert [t.shape for t in (dq, dk, dv)] == [q.shape, k.shape, v.shape]
+
+
+def gather_formula(b, W, m, C, V):
+    """The candidate verify's (operations, bytes) over V valid slots: the
+    bound's reckoning of PERF.md's row 2b (V ids and their b·W words
+    read, m·C outputs written, the query words and counts read)."""
+    return V * W * (2 * b + 1), (4 * V + 4 * b * W * V + 4 * m * C
+                                 + 4 * (b * W * m + m))
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_mi_column_dists_counts_the_gather_verify(device, monkeypatch):
+    """``mi_column_dists`` under an ``OpCounter`` records one
+    ``hamming_distances_gather`` by its formula — V every slot on
+    ``meta``, the clamped counts' sum on the CPU — and the wrapper
+    returns an (m, C) int32 plane."""
+    rng = np.random.default_rng(11)
+    b, L, n, m, tau = 2, 40, 400, 9, 3
+    db = rng.integers(0, 1 << b, size=(n, L)).astype(np.uint8)
+    mi = tmi.build_multi_index(db, b, 2, device=device)
+    caps, cc = tmi.mi_trace_params(mi, tau)
+    qs = torch.from_numpy(db[:m].astype(np.int32)).to(device)
+    seen = {}
+    real = ops.hamming_distances_gather
+
+    @functools.wraps(real)          # counted under the wrapper's name
+    def spy(*a, **kw):
+        seen["args"], seen["out"] = a, real(*a, **kw)
+        return seen["out"]
+    monkeypatch.setattr(ops, "hamming_distances_gather", spy)
+    with OpCounter() as c:
+        dist, overflow = tmi.mi_column_dists(mi, qs, tau, caps, cc)
+    _, _, ids, counts = seen["args"]
+    C = ids.shape[1]
+    assert C == min(cc, n)
+    V = m * C if device == "meta" else int(counts.sum())
+    assert 0 < V <= m * C
+    W = (L + 31) // 32
+    assert c.cost.kernels["hamming_distances_gather"] == [
+        1, *map(float, gather_formula(b, W, m, C, V))]
+    out = seen["out"]
+    assert out.shape == (m, C) and out.dtype == torch.int32
+    assert out.is_meta == (device == "meta")
+    assert dist.shape == (m, n) and dist.dtype == torch.int32
+    if device == "cpu":
+        want, _ = tmi.mi_column_dists(mi, qs, tau, caps, cc)
+        assert torch.equal(dist, want)
 
 
 def test_flash_attention_autograd_on_meta_counts_the_kernels():

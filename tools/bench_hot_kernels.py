@@ -61,7 +61,15 @@ per slab pass (a variant; by default the wrapper picks it from T).
     12,886,488, m = 64) at phase 4's shapes, random words; where the
     tree has them, their batched launches at phase 10's shapes: the
     verify over 4 shards of 3,220,448 leaves (queries shared) and the
-    scan over 64 candidate sets of 78,660 columns, one query each.
+    scan over 64 candidate sets of 78,660 columns, one query each; then
+    row 2b, the MI-bST candidate verify, from the same 64 rows of
+    sorted random ids over 12,886,488 columns (78,660 slots a row, the
+    valid counts drawn to phase 10 (a)'s τ 3 min / median / max,
+    ``MI_COUNTS``), two ways: ``hamming_distances_gather``, where the
+    tree has it, beside its bound, and the old chain (the
+    where, ``index_select`` + ``permute().contiguous()`` and
+    ``hamming_distances_batched``), each checked against its plain
+    version first.
 
   * bwd: the FA-2 backward (``ops.flash_attention_bwd``) at smollm-135m's
     train shape (B 8, H 9, S 2,048, D 64, causal, bf16, the model's
@@ -101,7 +109,11 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
+PEAK_OPS_PER_S = 67e12          # H100 SXM 32-bit integer / float32
 BIG = 1 << 20
+# Candidates a query at chip_smoke.py phase 10 (a)'s tau 3 (min, median,
+# max over its 64 queries, C = 78,660 slots).
+MI_COUNTS = (9555, 9842, 10039)
 
 
 def time_ms(fn, iters: int) -> float:
@@ -512,6 +524,72 @@ def bench_rows(ops, ref, gen, iters: int) -> dict:
           f"{m} candidate sets of {C} (one query each): wrapper "
           f"{out['scan_queries']['wrapper']:.4f} ms, queued "
           f"{out['scan_queries']['queued']:.4f} ms", flush=True)
+    del db, q
+    out.update(bench_mi_verify(ops, ref, gen, iters, words, same))
+    return out
+
+
+def mi_counts(gen, m: int, C: int) -> torch.Tensor:
+    """(m,) candidate counts drawn to ``MI_COUNTS``: one query at the min,
+    one at the max, the rest uniform half below the median, half above."""
+    lo, med, hi = MI_COUNTS
+    u = torch.rand((m,), generator=gen, device="cuda")
+    half = torch.arange(m, device="cuda") % 2 == 0
+    c = torch.where(half, lo + u * (med - lo), med + u * (hi - med))
+    c[0], c[1] = lo, hi
+    return c.round().clamp(0, C).to(torch.int32)
+
+
+def bench_mi_verify(ops, ref, gen, iters: int, words, same) -> dict:
+    """Row 2b two ways from the same ids (``bench_rows``' doc)."""
+    m, n, C, b, W = 64, 12_886_488, 78_660, 2, 1
+    dev = torch.device("cuda")
+    db, q = words(b, W, n), words(b, W, m)
+    counts = mi_counts(gen, m, C)
+    ids = torch.zeros((m, C), dtype=torch.int32, device=dev)   # as compacted
+    for j, k in enumerate(counts.tolist()):
+        ids[j, :k] = torch.randint(0, n, (k,), dtype=torch.int32, device=dev,
+                                   generator=gen).sort().values
+    valid = torch.arange(C, device=dev)[None, :] < counts[:, None]
+    V = int(counts.sum())
+    q_sets = q.permute(2, 0, 1)[..., None].contiguous()       # (m, b, W, 1)
+
+    def gathered():
+        safe = torch.where(valid, ids, 0)
+        return db.index_select(2, safe.reshape(-1)).reshape(
+            b, W, m, C).permute(2, 0, 1, 3).contiguous()
+
+    def old_chain():
+        return ops.hamming_distances_batched(gathered(), q_sets,
+                                             block_m=1)[:, 0, :]
+    cand = gathered()
+    same([ops.hamming_distances_batched(cand, q_sets, block_m=1)],
+         [ref.hamming_distances_batched_ref(cand, q_sets)], "row 2b chain")
+    del cand
+    out = {"mi_chain": both(old_chain, iters)}
+    line = (f"row 2b from {m} rows of sorted ids over {n} columns ({C} "
+            f"slots, {V} valid, counts {MI_COUNTS}): old chain wrapper "
+            f"{out['mi_chain']['wrapper']:.4f}, queued "
+            f"{out['mi_chain']['queued']:.4f}, device "
+            f"{out['mi_chain']['device']:.4f} ms")
+    if hasattr(ops, "hamming_distances_gather"):
+        want = ref.hamming_distances_gather_ref(db, q, ids, counts)
+        same([torch.where(valid, old_chain(), BIG)], [want],
+             "row 2b old chain against the candidate verify's plain version")
+
+        def gather():
+            return ops.hamming_distances_gather(db, q, ids, counts)
+        same([gather()], [want], "row 2b gather")
+        g = out["mi_gather"] = both(gather, iters)
+        n_ops, nbytes, _ = ops._gather_cost(db, q, ids, counts)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = n_ops / PEAK_OPS_PER_S * 1e3
+        out["mi_bound"] = {"ms": max(t_bytes, t_ops), "valid": V}
+        line += (f"; gather wrapper {g['wrapper']:.4f}, queued "
+                 f"{g['queued']:.4f}, device {g['device']:.4f} ms; bound "
+                 f"{out['mi_bound']['ms']:.4f} ms "
+                 f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+    print(line, flush=True)
     return out
 
 
