@@ -144,7 +144,7 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      vocabulary (where 2 divides it), experts and cache slots a rank,
      yi-9b's parameters a rank half of (a)'s within 1%, parameter bytes
      and peak a rank, held to (a)'s rules against (a) over the prefill
-     and 15 decode steps (yi-9b on 2 of the 8 prompts), 32 / 48 flash
+     and 3 decode steps (yi-9b on 2 of the 8 prompts), 32 / 48 flash
      launches a prefill on each rank, the
      new K/V on the owner rank only, the collectives' bytes and seconds,
      which collectives gloo runs on CUDA tensors; (c) two data ranks on
@@ -188,6 +188,18 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      then rows 6l and 7 at zamba2's causal and hubert's bidirectional
      D 80 training shapes held against their plain versions and timed
      beside the bound and SDPA.
+ 18. the registry's three largest dense architectures served whole, one
+     at a time on the emptied card, bf16 parameters drawn there:
+     gemma2-27b (local / global layers, both softcaps, the rolling cache)
+     at its 8,192-token context (2 x 8,144 prompt tokens + 48 greedy),
+     command-r-35b and chameleon-34b at phase 7's requests: the flash
+     launches a prefill (46 / 40 / 48, gemma2's split by window and cap),
+     the flash wrapper at each prefill shape against
+     ``blockwise_attention``, the kernel path's prefill logits under
+     phase 7's second rule against an f32 plain path streamed a unit at a
+     time (2 requests), prefill and decode times, peak memory and a
+     profiled prefill; gemma2's prefill-then-decode across its wrapped
+     ring against the full forward (2 units at full width, f32).
 
 Phase 2 also sweeps the batched launches (grid.z over the batch) of the
 scan and the verify: batch 1, 3, 4 and 64, ragged n and m, shared and
@@ -2233,25 +2245,31 @@ def static_sharded(torch, dev, ops, ref, err, maxerr, sketches, qs, d,
               f"sharded tau={tau}: mask/dist != the scan kernel at tau")
         del inside
     masks, dists, _ = res[3]
-    got_ids = gather_ids(sh, masks)
+    # the host merges run on the checked rows alone (cut: over all 64
+    # queries they took ≈ 40 s of host numpy at this n)
     rows = list(GATHER_CHECK_ROWS)
-    for i in rows:
+    got_ids = gather_ids(sh, masks[rows])
+    for j, i in enumerate(rows):
         want = torch.nonzero(d[i] <= 3).flatten().cpu().numpy()
-        check(np.array_equal(got_ids[i], want), f"gather_ids row {i}")
-    ids, dk = gather_topk(sh, dists, TOPK)
+        check(np.array_equal(got_ids[j], want), f"gather_ids row {i}")
+    ids, dk = gather_topk(sh, dists[rows], TOPK)
     sd, si = torch.sort(torch.where(d[rows] <= 3, d[rows], BIG), dim=1,
                         stable=True)                # ties by id
     real = sd[:, :TOPK] < BIG
-    check(np.array_equal(ids[rows], torch.where(
+    check(np.array_equal(ids, torch.where(
         real, si[:, :TOPK], -1).cpu().numpy())
-          and np.array_equal(dk[rows], sd[:, :TOPK].cpu().numpy()),
+          and np.array_equal(dk, sd[:, :TOPK].cpu().numpy()),
           f"gather_topk rows {rows} != the stable sort")
     for i in (0, M_QUERIES - 1):                   # host witness
+        j = rows.index(i)
         hd = (sketches != qs[i][None, :]).sum(axis=1)
         hd = np.where(hd <= 3, hd, BIG)
-        order = np.lexsort((np.arange(n), hd))[:TOPK]
-        check(np.array_equal(ids[i], np.where(hd[order] < BIG, order, -1))
-              and np.array_equal(dk[i], hd[order]),
+        # (distance, id) order: a stable sort of the distances, one byte
+        # each (0..3, and 4 for BIG), which numpy sorts by radix
+        order = np.argsort(np.minimum(hd, 4).astype(np.uint8),
+                           kind="stable")[:TOPK]
+        check(np.array_equal(ids[j], np.where(hd[order] < BIG, order, -1))
+              and np.array_equal(dk[j], hd[order]),
               f"gather_topk row {i} != the numpy host check")
     del res, masks, dists, sd, si
     g = make_sharded_searcher(sh, 2, verify="gather")
@@ -3416,19 +3434,19 @@ def record_routes(fn, limit=None):
     return out, routes
 
 
-def check_family_flash(torch, dev, cfg, arch: str, seed: int,
-                       err: dict) -> None:
+def check_family_flash(torch, dev, cfg, arch: str, seed: int, err: dict,
+                       B: int = SERVE_BATCH, S: int = SERVE_PROMPT) -> None:
     """The flash wrapper the model calls (``models/flash.py``) at the
-    family's prefill shape, B SERVE_BATCH x S SERVE_PROMPT with its heads,
-    kv heads and head dim, causal, on random bf16 tensors, against the
-    port's plain ``blockwise_attention``: allclose at 2e-2 and row by row
+    family's prefill shape, B x S (phase 7's requests by default) with its
+    heads, kv heads and head dim, causal, at each window its layers use
+    and its cap, on random bf16 tensors, against the port's plain
+    ``blockwise_attention``: allclose at 2e-2 and row by row
     (FLASH_BF16_ROW_RTOL), as phase 7a holds smollm's GQA path."""
     from repro_torch.models.flash import flash_attention
     from repro_torch.models.layers import blockwise_attention
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    B, S, H, Hkv, D = (SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.n_kv,
-                       cfg.head_dim)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv, cfg.head_dim
     windows = ({0} if cfg.ssm else
                {cfg.window if k == "local" else 0 for k in cfg.attn_kinds})
     for window in sorted(windows):
@@ -3710,9 +3728,9 @@ MESH_ARCHS = ["granite-moe-3b-a800m", "yi-9b"]
 MESH_B_ROWS = {"yi-9b": 2}
 # (b)'s steps (the prefill and MESH_B_STEPS - 1 teacher-forced decode
 # steps, of (a)'s SERVE_GEN): each tensor-parallel decode step sums over
-# "model" two or three times a layer through gloo (0.3–0.6 s a step), so
-# (b) is cut to 16 of (a)'s 48
-MESH_B_STEPS = 16
+# "model" two or three times a layer through gloo (0.2–0.9 s a step), so
+# (b) is cut to 4 of (a)'s 48, which makes room for phase 18
+MESH_B_STEPS = 4
 MESH_HASH_SEED = "0"
 MESH_TIMEOUT_S = 480          # a part's ranks, build-free (phase 1 built)
 MESH_GROUP_TIMEOUT_S = 180    # a collective that waits longer fails
@@ -3940,7 +3958,8 @@ def hold_steps(torch, got, want, what: str) -> str:
             f"worst |logit diff| {worst:.3f} x that tolerance")
 
 
-def second_rule(torch, got, ref, f32, what: str) -> str:
+def second_rule(torch, got, ref, f32, what: str,
+                ref_name: str = "the no-mesh path") -> str:
     """Phase 7's second rule on prefill logits: ``got`` no farther from
     the f32 plain path than ``ref`` (x 1.5), or within LOGIT_RTOL of the
     largest logit."""
@@ -3950,8 +3969,8 @@ def second_rule(torch, got, ref, f32, what: str) -> str:
           f"{to32:.4f} from the f32 plain path, the reference {to32_ref:.4f}"
           f" (tolerance {tol:.4f})")
     return (f"{what}: prefill max |diff| to the f32 plain path {to32:.4f}, "
-            f"the no-mesh path's {to32_ref:.4f} (rule: <= max({tol:.4f}, "
-            f"1.5 x {to32_ref:.4f})); to the no-mesh path "
+            f"{ref_name}'s {to32_ref:.4f} (rule: <= max({tol:.4f}, "
+            f"1.5 x {to32_ref:.4f})); to {ref_name} "
             f"{float((got - ref).abs().max()):.4f}")
 
 
@@ -5373,6 +5392,366 @@ def family_training(torch, args, ops, ref, dev, gen, err, counts) -> dict:
     return out
 
 
+# Phase 18, the registry's three largest dense architectures served whole:
+# gemma2-27b (the only local/global stack: 23 layers at window 4,096 with
+# a rolling cache of 4,096 slots, 23 global, the attention softcap 50 in
+# every layer, the final softcap 30, post norms, gelu, sqrt(4,608) embedding
+# scale, a 256,000-row tied head) at its published context, 2 requests of
+# 8,144 prompt tokens + 48 greedy (s_max 8,192, so the window bites at
+# every position past 4,096); command-r-35b (256,000-row tied head) and
+# chameleon-34b at phase 7's requests.  bf16 parameters drawn on the card
+# at full width and depth (54.5 / 60.6 / 68.6 GB: none fits beside an f32
+# copy), one model at a time on a card the earlier phases have emptied
+# (under LARGE_HELD_MAX held before the first draw).  Each: (a) the
+# serving path through launch.serve.generate, its flash launches a prefill
+# (every attention layer, :bf16, none :ref) and gemma2's window and cap a
+# call; (b) the flash wrapper at the model's prefill shape against
+# blockwise_attention (phase 13's check; chameleon's attention shape is
+# command-r's, held once); (c) phase 7's second rule on LARGE_F32_ROWS
+# requests (gemma2: both; the others: 0-1, a cut): the kernel path's
+# prefill logits against the streamed f32 plain path, beside the bf16
+# attn_impl="ref" path, and the greedy first tokens equal wherever the f32
+# path's top-2 margin exceeds LOGIT_RTOL of its largest logit; (e) prefill
+# ms (median of 3 after the first call), decode ms a step over (a)'s
+# SERVE_GEN - 1 steps, the parameter bytes and the peak above the base,
+# one profiled prefill; then, gemma2 only and once its parameters are
+# freed, (d)
+# prefill-then-decode against the full forward at FAMILY_CONSISTENCY_TOL
+# (phase 13's rule) on LARGE_RING_UNITS units at full width with f32
+# masters: request 0's 8,192 served tokens, the first 8,191 prefilled
+# with an f32 cache, the last decoded at position 8,191, which overwrites
+# slot 4,095 of each local layer's ring.
+LARGE_DENSE = [("gemma2-27b", 2, 8144), ("command-r-35b", SERVE_BATCH,
+                                         SERVE_PROMPT),
+               ("chameleon-34b", SERVE_BATCH, SERVE_PROMPT)]
+LARGE_F32_ROWS = 2
+LARGE_RING_UNITS = 2
+LARGE_HEAD_ROWS = 1 << 15     # head rows a float32 chunk (≈ 0.6-1.1 GB)
+LARGE_HELD_MAX = 1 << 30
+
+
+def streamed_prefill_f32(params, cfg, batch: dict,
+                         head_rows: int = LARGE_HEAD_ROWS):
+    """``M.prefill``'s last-position logits (B, vocab) with
+    ``attn_impl="ref"`` in float32, for parameters too large to copy whole
+    to float32: the embedding rows the tokens use, then one unit's leaves
+    at a time, then the head ``head_rows`` vocabulary rows at a time, each
+    cast to float32 and dropped before the next, through the functions
+    ``M.prefill`` calls (``embed_inputs``, ``_attn_layer`` per
+    ``_layer_kind``, ``_lm_logits``).  Token stacks of attention layers
+    only (no SSM, no frame embeddings)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import model as M
+
+    if cfg.ssm or cfg.inputs_embeds:
+        raise ValueError(f"{cfg.arch_id}: the streamed path runs token "
+                         "stacks of attention layers only")
+    cfg = dataclasses.replace(cfg, attn_impl="ref")
+
+    def f32(tree):
+        return {k: f32(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+
+    with torch.no_grad():
+        rows, tokens = torch.unique(batch["tokens"].long(),
+                                    return_inverse=True)
+        x = M.embed_inputs({"embed": params["embed"][rows].float()}, cfg,
+                           {"tokens": tokens})
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)[None, :]
+        for unit in params["units"]:
+            unit = f32(unit.tree())
+            for pos in range(cfg.period):
+                x, _ = M._attn_layer(unit[f"l{pos}"], x, cfg,
+                                     M._layer_kind(cfg, pos),
+                                     positions=positions)
+            del unit
+        x = x[:, -1:]
+        top = {"final_norm": params["final_norm"].float()}
+        parts = []
+        for lo in range(0, cfg.vocab, head_rows):
+            if "lm_head" in params:
+                top["lm_head"] = params["lm_head"][:, lo:lo + head_rows].float()
+            else:
+                top["embed"] = params["embed"][lo:lo + head_rows].float()
+            parts.append(M._lm_logits(top, cfg, x))
+        return torch.cat(parts, -1)[:, 0]
+
+
+def record_flash(fn):
+    """Run ``fn`` with the (window, cap) of every ``ops.flash_attention_fwd``
+    call counted (``models/flash.py`` calls it through the module)."""
+    from collections import Counter
+
+    from repro_torch.kernels import ops
+    seen, fwd = Counter(), ops.flash_attention_fwd
+
+    def recording(q, k, v, **kw):
+        seen[(int(kw.get("window", 0)), float(kw.get("cap", 0.0)))] += 1
+        return fwd(q, k, v, **kw)
+
+    ops.flash_attention_fwd = recording
+    try:
+        out = fn()
+    finally:
+        ops.flash_attention_fwd = fwd
+    return out, seen
+
+
+def release_card(torch) -> int:
+    """Drop what the earlier phases left pinned (the searcher and fused
+    program caches hold their indexes) and return the bytes still held;
+    where that passes LARGE_HELD_MAX, print the largest live blocks on
+    the card, with the Python frames that allocated them where the
+    allocator records its history."""
+    import gc
+
+    import importlib
+
+    from repro_torch.core import clear_mi_searcher_cache, clear_searcher_cache
+    segments = importlib.import_module("repro_torch.core.segments")
+    clear_searcher_cache()
+    clear_mi_searcher_cache()
+    segments.clear_fused_cache()
+    segments._SHARDED_SEARCHER_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    if held >= LARGE_HELD_MAX:
+        blocks = [b for seg in torch.cuda.memory._snapshot()["segments"]
+                  for b in seg["blocks"] if b["state"] == "active_allocated"]
+        for b in sorted(blocks, key=lambda b: -b["size"])[:12]:
+            frames = [f"{Path(f['filename']).name}:{f['line']} {f['name']}"
+                      for f in b.get("frames", [])
+                      if "repro_torch" in f["filename"]
+                      or f["filename"].endswith("chip_smoke.py")]
+            print(f"  held: {b['size'] / 2**20:.1f} MiB allocated at "
+                  f"{frames[:6] or 'no recorded frame'}", flush=True)
+    return held
+
+
+def ring_consistency(torch, args, seq) -> None:
+    """Phase 18 (d): gemma2-27b at full width cut to LARGE_RING_UNITS
+    units (f32 masters, drawn on the card): prefill ``seq`` (1, S) but its
+    last token into an f32 cache of S slots (the local layers' rings of
+    ``window`` slots wrapped), decode that token at position S - 1, and
+    hold the logits against ``M.forward`` at that position."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+
+    base = get_config("gemma2-27b")
+    cfg = dataclasses.replace(base, num_layers=LARGE_RING_UNITS * base.period)
+    f32 = torch.float32
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(
+        args.seed + 181), cfg, device="cuda")
+    S = seq.shape[1]
+    _, cache, n = M.prefill(params, cfg, {"tokens": seq[:, :-1]}, s_max=S,
+                            cache_dtype=f32)
+    slots = {M._layer_kind(cfg, pos): cache[0][f"l{pos}"][0].shape[1]
+             for pos in range(cfg.period)}
+    check(slots == {"local": cfg.window, "global": S},
+          f"gemma2-27b: cache slots {slots}, want a {cfg.window}-slot ring "
+          f"for the local layers and {S} for the global ones")
+    dec, _ = M.decode_step(params, cfg, seq[:, -1:], cache, n)
+    del cache
+    with torch.no_grad():
+        full = M.forward(params, cfg, {"tokens": seq})[:, -1].clone()
+    diff = (dec - full).abs()
+    lim = FAMILY_CONSISTENCY_TOL * (1 + full.abs())
+    print(f"(d) gemma2-27b cut to {cfg.num_layers} layers (f32): prefill "
+          f"{n} + decode 1 at position {n} (ring slot {n % cfg.window} of "
+          f"{cfg.window}; slots {slots}) vs the full forward: max |diff| "
+          f"{float(diff.max()):.3g}, max |logit| "
+          f"{float(full.abs().max()):.3f}, worst diff / (2e-2 + 2e-2 "
+          f"|logit|) {float((diff / lim).max()):.3f}", flush=True)
+    check(bool((diff <= lim).all()), "gemma2-27b: prefill-then-decode across "
+          "the wrapped ring differs from the full forward by more than 2e-2 "
+          "+ 2e-2 |logit|")
+    del params, dec, full
+
+
+def timed_decode(torch, fn):
+    """Run ``fn``, a ``launch.serve.generate`` call, with its decode steps
+    timed (``serve.make_decode_step`` wrapped: the card synchronised
+    before the first step and after ``fn``).  Returns (``fn``'s result,
+    the steps, their ms a step)."""
+    from repro_torch.launch import serve
+    make, state = serve.make_decode_step, {"steps": 0}
+
+    def making(cfg, **kw):
+        step = make(cfg, **kw)
+
+        def timed(*a, **k):
+            if not state["steps"]:
+                torch.cuda.synchronize()
+                state["t0"] = time.perf_counter()
+            state["steps"] += 1
+            return step(*a, **k)
+        return timed
+
+    serve.make_decode_step = making
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        serve.make_decode_step = make
+    n = state["steps"]
+    return out, n, ((time.perf_counter() - state["t0"]) * 1e3 / n if n
+                    else 0.0)
+
+
+def serve_large(torch, args, dev, ops, arch: str, B: int, S: int, err: dict,
+                held: dict) -> int:
+    """Phase 18, one model ((a)-(e) of the comment above LARGE_DENSE);
+    ``held`` maps each attention shape already held against
+    ``blockwise_attention`` to its model.  Returns the flash launches of a
+    prefill."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16")
+    G, s_max, bf16 = SERVE_GEN, S + SERVE_GEN, torch.bfloat16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(
+        args.seed + 180), cfg, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_bytes = param_bytes(params)
+    rng = np.random.default_rng(args.seed + 18)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
+                               .astype(np.int32)).to(dev)
+    n_attn = M.n_attention_layers(cfg)
+    kinds = [M._layer_kind(cfg, pos) for pos in range(cfg.period)]
+    n_local = kinds.count("local") * cfg.n_units
+    print(f"{arch}: {cfg.num_layers} layers ({n_local} local at window "
+          f"{cfg.window}), d_model {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv} x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+          f" (tied {cfg.tie_embeddings}), softcaps {cfg.softcap_attn} / "
+          f"{cfg.softcap_final}: {n_bytes / 1e9:.2f} GB of bf16 parameters "
+          f"drawn on the card in {draw_s:.1f} s; {B} requests x {S} prompt "
+          f"tokens + {G} greedy (s_max {s_max})", flush=True)
+
+    # (a) the serving path, its decode steps timed (e)
+    ops.reset_kernel_stats()
+    t0 = time.perf_counter()
+    ((tokens, logits), steps, decode_ms), windows = record_flash(
+        lambda: timed_decode(torch, lambda: generate(
+            params, cfg, prompts, G, s_max=s_max, compute_dtype=bf16)))
+    serve_s = time.perf_counter() - t0
+    launches = ops.kernel_stats()
+    want_w = {(cfg.window if kind == "local" else 0, cfg.softcap_attn):
+              kinds.count(kind) * cfg.n_units for kind in set(kinds)}
+    print(f"(a) serving path: {serve_s:.2f} s (first call), launches "
+          f"{launches}, flash calls by (window, cap) {dict(windows)}",
+          flush=True)
+    check(launches == {"flash_attention_fwd": n_attn,
+                       "flash_attention_fwd:bf16": n_attn},
+          f"{arch}: launches per prefill {launches}, want {n_attn} through "
+          "the bf16 kernel")
+    check(dict(windows) == want_w, f"{arch}: flash calls by (window, cap) "
+          f"{dict(windows)}, want {want_w}")
+    check(steps == G - 1, f"{arch}: {steps} decode steps, want {G - 1}")
+    check(tokens.shape == (B, G) and bool(((tokens >= 0)
+                                           & (tokens < cfg.vocab)).all()),
+          f"{arch}: generated tokens {tuple(tokens.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"{arch}: logits not finite")
+
+    # (b) the flash wrapper at the model's prefill shape
+    t0 = time.perf_counter()
+    shape = (B, S, cfg.n_heads, cfg.n_kv, cfg.head_dim, cfg.causal,
+             cfg.window if "local" in kinds else 0, cfg.softcap_attn)
+    if shape in held:
+        print(f"(b) {arch}: the attention shape of {held[shape]} (B {B}, S "
+              f"{S}, heads {cfg.n_heads}/{cfg.n_kv} x {cfg.head_dim}), held "
+              "there", flush=True)
+    else:
+        check_family_flash(torch, dev, cfg, arch, args.seed + 182, err, B=B,
+                           S=S)
+        held[shape] = arch
+    flash_s = time.perf_counter() - t0
+
+    # (c) the kernel path against the plain paths on LARGE_F32_ROWS requests
+    rows = prompts[:LARGE_F32_ROWS]
+    lk = logits[:LARGE_F32_ROWS]
+    t0 = time.perf_counter()
+    ops.reset_kernel_stats()
+    lr = M.prefill(params, dataclasses.replace(cfg, attn_impl="ref"),
+                   {"tokens": rows}, s_max=s_max)[0]
+    check(ops.kernel_stats() == {}, f"{arch}: the ref path launched "
+          f"{ops.kernel_stats()}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    l32 = streamed_prefill_f32(params, cfg, {"tokens": rows})
+    torch.cuda.synchronize()
+    ref_s, f32_s = t1 - t0, time.perf_counter() - t1
+    what = f"(c) {arch}, requests 0-{LARGE_F32_ROWS - 1}"
+    print(second_rule(torch, lk, lr, l32, what, "the bf16 plain path")
+          + f"; max |logit| {float(l32.abs().max()):.3f}", flush=True)
+    print(hold_steps(torch, [lk], [l32], f"{what}, first tokens against the "
+                     "f32 plain path"), flush=True)
+    del lr, l32, lk
+
+    # (e) times and memory
+    def prefill_once():
+        return M.prefill(params, cfg, {"tokens": prompts}, s_max=s_max)
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill_once()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    print(f"(e) {arch} prefill ({B} x {S} tokens): {prefill_ms:.2f} ms "
+          f"median of 3 ({sorted(round(x, 2) for x in times)}), "
+          f"{B * S / prefill_ms * 1e3:.0f} prompt tokens/s; decode "
+          f"{decode_ms:.3f} ms a step (batch {B}, the {steps} steps of (a));"
+          f" parameters {n_bytes / 2**30:.3f} GiB; peak {peak / 2**30:.3f} "
+          f"GiB above the {base_mem / 2**30:.3f} GiB held before the draw; "
+          f"(b) {flash_s:.1f} s, (c) the bf16 plain path {ref_s:.1f} s, the "
+          f"streamed f32 path {f32_s:.1f} s", flush=True)
+    profile_window(torch, f"(e) {arch} prefill", prefill_once, calls=1)
+    seq = torch.cat([prompts[:1], tokens[:1]], 1)
+    del params, prompts, tokens, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    if arch == "gemma2-27b":
+        t0 = time.perf_counter()
+        ring_consistency(torch, args, seq)
+        torch.cuda.empty_cache()
+        print(f"((d): {time.perf_counter() - t0:.1f} s)", flush=True)
+    return n_attn
+
+
+def large_dense(torch, args, dev, ops, err: dict) -> dict:
+    """Phase 18 (the comment above LARGE_DENSE).  Returns each model's
+    flash launches a prefill."""
+    held = release_card(torch)
+    print(f"phase 18 starts with {held / 2**30:.3f} GiB held by this "
+          f"process (limit {LARGE_HELD_MAX / 2**30:.0f} GiB)", flush=True)
+    check(held < LARGE_HELD_MAX, f"phase 18: {held} bytes held on the card "
+          "before the first draw")
+    out, shapes = {}, {}
+    for arch, B, S in LARGE_DENSE:
+        t0 = time.perf_counter()
+        out[arch] = serve_large(torch, args, dev, ops, arch, B, S, err,
+                                shapes)
+        print(f"({arch}: {time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5413,7 +5792,9 @@ def main() -> int:
     def phase_done(name: str) -> None:
         nonlocal t_phase
         now = time.perf_counter()
-        print(f"phase {name}: {now - t_phase:.1f} s", flush=True)
+        print(f"phase {name}: {now - t_phase:.1f} s "
+              f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB held)",
+              flush=True)
         t_phase = now
 
     # -- 1. device and build -------------------------------------------------
@@ -5493,6 +5874,8 @@ def main() -> int:
                                   f"m={m} tau={tau}")
                     n_checks += 1
             del db
+    # the sweep's last planes, held by main's names until now
+    del q, got, want, base, pruned, mask, dist, w_mask, w_dist
     torch.cuda.synchronize()
     print(f"kernels vs plain: {n_checks} verify + "
           f"{n_checks // len(SWEEP_TAU)} scan shapes bit-exact "
@@ -5610,7 +5993,7 @@ def main() -> int:
                               tail.t_root).index_select(1, tail.leaf_root)
     q_sfx = ops.to_lane_major(pack_vertical_torch(qs_t[:, index.ls:], index.b))
     qv = ops.to_lane_major(pack_vertical_torch(qs_t, REVIEW_B))
-    del f_ids, f_dists, f_valid, d, ranges
+    del f_ids, f_dists, f_valid, d, ranges, res, inside
     torch.cuda.empty_cache()
     slices = range(0, M_QUERIES, 8)              # 8-query slices bound memory
 
@@ -5786,6 +6169,8 @@ def main() -> int:
                 proc.wait()
             shutil.rmtree(work, ignore_errors=True)
     phase_done("17 (the families trained at full width)")
+    large = large_dense(torch, args, dev, ops, err)
+    phase_done("18 (the large dense models served whole)")
 
     kernels = [
         {"name": "sparse_verify_batch", "route": "cuda",
@@ -5829,7 +6214,9 @@ def main() -> int:
          "max_abs_err": err["flash_attention_fwd"], **flash,
          "head_dims": list(ops.FLASH_HEAD_DIMS), "ptxas": fwd_ptxas,
          "d80_hubert": hubert,
-         "family_launches": families, "mesh_launches": mesh["a"],
+         "family_launches": families,
+         "large_dense_launches": large,
+         "mesh_launches": mesh["a"],
          "tp_launches": mesh["b"], "tp_local_heads": mesh["local_heads"]},
         {"name": "flash_attention_fwd_lse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn.cu",

@@ -48,7 +48,11 @@ per slab pass (a variant; by default the wrapper picks it from T).
     under ``--model-ranks 2`` (B 8, H 16, S 2,000, D 128, causal) and the
     forward with its lse at smollm-135m's train shape (B 8, H 9, S 2,048,
     D 64, causal), each on the model's strided views beside
-    ``scaled_dot_product_attention``; the float32 route.
+    ``scaled_dot_product_attention``; the prefill shapes of gemma2-27b's
+    local and global layers (B 2, H 32, S 8,144, D 128, causal, window
+    4,096 and 0, cap 50: no PyTorch call beside them) and command-r-35b's
+    (B 8, H 64, S 2,000, D 128, causal, beside SDPA), with the local /
+    global ratio of their device times; the float32 route.
   * hubert: hubert-xlarge's attention (B 2, H 16, D 80, bidirectional,
     bf16) at S 1,000 and 1,500, beside ``scaled_dot_product_attention``
     and the float32 route, with the bound (operations); the forward with
@@ -114,6 +118,14 @@ BIG = 1 << 20
 # Candidates a query at chip_smoke.py phase 10 (a)'s tau 3 (min, median,
 # max over its 64 queries, C = 78,660 slots).
 MI_COUNTS = (9555, 9842, 10039)
+# chip_smoke.py phase 18's prefill shapes of the flash forward: gemma2-27b's
+# local and global layers (2 x 8,144 tokens, 32 heads over 16 KV heads,
+# softcap 50) and command-r-35b's (chameleon-34b's is the same):
+# (key, (B, H, S, D), window, cap), causal, the KV heads repeated
+LARGE_DENSE_SHAPES = (("gemma2_local", (2, 32, 8144, 128), 4096, 50.0),
+                      ("gemma2_global", (2, 32, 8144, 128), 0, 50.0),
+                      ("command_r", (8, 64, 2000, 128), 0, 0.0))
+CHECK_SEQ = 4096
 
 
 def time_ms(fn, iters: int) -> float:
@@ -371,6 +383,17 @@ def bench_flash(ops, ref, gen, iters: int) -> dict:
             ("lse_train", (8, 9, 2048, 64), True)):
         out[key] = fwd_beside_sdpa(ops, ref, gen, iters, Bx, Hx, Sx, Dx,
                                    causal=True, lse=lse)
+    for key, (Bx, Hx, Sx, Dx), window, cap in LARGE_DENSE_SHAPES:
+        out[key] = fwd_beside_sdpa(ops, ref, gen, iters, Bx, Hx, Sx, Dx,
+                                   causal=True, lse=False, window=window,
+                                   cap=cap)
+    if "gemma2_local" in out:
+        local, glob = (out[k]["bf16"]["device"]
+                       for k in ("gemma2_local", "gemma2_global"))
+        print(f"  gemma2-27b local / global layer (device): {local:.4f} / "
+              f"{glob:.4f} ms = {local / glob:.3f} (visible pairs "
+              f"{out['gemma2_local']['pairs'] / out['gemma2_global']['pairs']:.3f})",
+              flush=True)
     q32, k32, v32 = q.float(), k.float(), v.float()
     out["f32"] = time_ms(lambda: ops.flash_attention_fwd(
         q32, k32, v32, causal=True), max(3, iters // 3))
@@ -431,29 +454,39 @@ def bench_hubert(ops, ref, gen, iters: int) -> dict:
 
 
 def fwd_beside_sdpa(ops, ref, gen, iters: int, B: int, H: int, S: int,
-                    D: int, *, causal: bool, lse: bool) -> dict:
+                    D: int, *, causal: bool, lse: bool, window: int = 0,
+                    cap: float = 0.0) -> dict:
     """The bf16 forward (with the lse where ``lse``: the training path's
     forward) on the model's strided (B, S, H, D) views, checked against
     its plain version, one call and queued, beside
-    ``scaled_dot_product_attention`` and the bound (operations)."""
+    ``scaled_dot_product_attention`` (none under a window or a cap: no
+    one PyTorch call applies either inside the softmax) and the bound
+    (operations over the visible pairs)."""
     import torch.nn.functional as F
     x = tuple(torch.randn((B, S, H, D), device="cuda", generator=gen)
               .bfloat16().transpose(1, 2) for _ in range(3))
-    check_flash(ops, ref, x, causal=causal)
+    check_flash(ops, ref, x, causal=causal, window=window, cap=cap)
     r = {"bf16": both(lambda: ops.flash_attention_fwd(
-            *x, causal=causal, return_lse=lse), iters),
-         "sdpa": both(lambda: F.scaled_dot_product_attention(
-            *x, is_causal=causal), iters)}
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * B * H * D * pairs
+            *x, causal=causal, window=window, cap=cap, return_lse=lse),
+            iters)}
+    if window or cap:
+        r["sdpa"], sdpa = None, "none (window or cap)"
+    else:
+        r["sdpa"] = both(lambda: F.scaled_dot_product_attention(
+            *x, is_causal=causal), iters)
+        sdpa = (f"{r['sdpa']['wrapper']:.4f} / {r['sdpa']['queued']:.4f} / "
+                f"{r['sdpa']['device']:.4f} ms")
+    r["pairs"] = ops.visible_pairs(S, S, causal, window, 0)
+    flops = 4 * B * H * D * r["pairs"]
     r["bound_ms"] = flops / PEAK_BF16_FLOPS * 1e3
     print(f"flash{' with lse' if lse else ''} (B={B} H={H} S={S} D={D} "
-          f"{'causal' if causal else 'bidirectional'}, strided views): "
+          f"{'causal' if causal else 'bidirectional'}"
+          f"{f', window {window}' if window else ''}"
+          f"{f', cap {cap:g}' if cap else ''}, strided views): "
           f"bf16 wrapper {r['bf16']['wrapper']:.4f} ms, queued "
           f"{r['bf16']['queued']:.4f} ms, device {r['bf16']['device']:.4f} "
           f"ms ({flops / r['bf16']['device'] / 1e9:.1f} TFLOP/s); "
-          f"scaled_dot_product_attention {r['sdpa']['wrapper']:.4f} / "
-          f"{r['sdpa']['queued']:.4f} / {r['sdpa']['device']:.4f} ms; bound "
+          f"scaled_dot_product_attention {sdpa}; bound "
           f"{r['bound_ms']:.4f} ms (operations)", flush=True)
     return r
 
@@ -711,9 +744,16 @@ def bench_step(ops, ref, gen, iters: int) -> dict:
     return {"ms": ms, "times": times}
 
 
-def check_flash(ops, ref, x, causal: bool = True) -> None:
-    got = ops.flash_attention_fwd(*x, causal=causal)
-    want = ref.flash_attention_ref(*x, causal=causal)
+def check_flash(ops, ref, x, causal: bool = True, window: int = 0,
+                cap: float = 0.0) -> None:
+    """The kernel against its plain version; past CHECK_SEQ keys, on the
+    first batch row's first two heads only (each (row, head) is computed
+    apart, and the plain version holds whole (S, S) score planes)."""
+    kw = dict(causal=causal, window=window, cap=cap)
+    got = ops.flash_attention_fwd(*x, **kw)
+    if x[1].shape[2] > CHECK_SEQ:
+        x, got = tuple(a[:1, :2] for a in x), got[:1, :2]
+    want = ref.flash_attention_ref(*x, **kw)
     e = float((got.float() - want.float()).abs().max())
     if not e <= 2e-2:
         raise SystemExit(f"flash kernel max err {e} > 2e-2")
