@@ -119,9 +119,9 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      tokens/s, peak memory and a profiled step (the restart drill of
      ``launch.train.main`` runs in phase 16 (b), over two ranks).
  13. the MoE, SSM and hybrid families served (granite-moe-3b-a800m,
-     mamba2-1.3b, zamba2-2.7b at full width and depth, deepseek-moe-16b
-     at full width cut to 4 layers with bf16 parameters; 8 x 2,000 prompt
-     tokens, 48 greedy): flash launches counted a prefill, the flash
+     mamba2-1.3b, zamba2-2.7b at full width and depth; 8 x 2,000 prompt
+     tokens, 48 greedy; deepseek-moe-16b is served whole in phase 18):
+     flash launches counted a prefill, the flash
      wrapper held against its plain version at each family's attention
      shape, the prefill against the plain and f32 paths, MoE routing
      differences and drops, prefill-then-decode against the forward,
@@ -135,18 +135,23 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      at one of two model ranks' heads (16 of 32, 2 of 4 KV): (a) one rank
      (nccl), mesh (1, 1):
      granite-moe-3b-a800m through the expert-parallel MoE and yi-9b
-     through the sequence-parallel decode at full width and depth (bf16
-     parameters, 8 x 2,000 prompt tokens + 48 greedy) against the same
-     models with no mesh — kept (token, slot) masks, the second rule of
-     phase 7, greedy tokens where the margin is sure, 32 / 48 flash
-     launches a prefill; (b) two ranks sharing the card (gloo), mesh
-     (1, 2), the dense layers tensor parallel: half the heads, ffn,
-     vocabulary (where 2 divides it), experts and cache slots a rank,
-     yi-9b's parameters a rank half of (a)'s within 1%, parameter bytes
-     and peak a rank, held to (a)'s rules against (a) over the prefill
-     and 3 decode steps (yi-9b on 2 of the 8 prompts), 32 / 48 flash
-     launches a prefill on each rank, the
-     new K/V on the owner rank only, the collectives' bytes and seconds,
+     through the sequence-parallel decode, mamba2-1.3b and zamba2-2.7b
+     at full width and depth (bf16 parameters, 8 x 2,000 prompt tokens +
+     48 greedy; the two SSM models the prefill and 3 decode steps)
+     against the same models with no mesh — kept (token, slot) masks,
+     the second rule of phase 7, greedy tokens where the margin is sure,
+     32 / 48 / 0 / 9 flash launches a prefill; (b) two ranks sharing the
+     card (gloo), mesh (1, 2), the dense layers tensor parallel: half
+     the heads, ffn, vocabulary (where 2 divides it), experts, SSM heads
+     and cache slots a rank, each rank's parameter bytes against the
+     leaves it holds whole (yi-9b's half of (a)'s within 1%), peak a
+     rank, held to (a)'s rules against (a) over the prefill and 3 decode
+     steps (yi-9b, mamba2 and zamba2 on 2 of the 8 prompts), 32 / 48 /
+     0 / 9 flash launches a prefill on each rank, the SSM models' conv
+     and SSM states after the prefill (units 0 and -1) against (a)'s
+     no-mesh states on the rank's heads, the new K/V on the owner rank
+     only (zamba2's shared block: at its slot on every rank's heads),
+     the collectives' bytes and seconds,
      which collectives gloo runs on CUDA tensors; (c) two data ranks on
      the card: granite's prefill with one MoE group over both ranks'
      rows keeps one rank's mask; ``launch.serve`` (smollm-135m, phase
@@ -168,10 +173,12 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      resumes bit for bit), the checkpoint restored with no mesh, 60 lse
      forwards and 30 backwards a step on each rank; (c)
      granite-moe-3b-a800m cut to 8 layers at mesh (1, 2), 20 experts and
-     12 of 24 heads a rank (attention tensor parallel), through
-     ``make_train_step`` under ``use_mesh``: kept masks, losses, norms and
-     the updated expert shards against one rank, 16 lse forwards and 8
-     backwards a step on each rank.
+     12 of 24 heads a rank (attention tensor parallel), and mamba2-1.3b
+     cut to 8 layers there, 32 of 64 SSM heads a rank (the gated norm
+     summed over "model"), through ``make_train_step`` under
+     ``use_mesh``: kept masks, losses, norms and the updated expert,
+     ``wz`` / ``wx`` / ``out_proj`` shards against one rank, granite's 16
+     lse forwards and 8 backwards a step on each rank, none for mamba2.
  17. the families trained: mamba2-1.3b, hubert-xlarge,
      granite-moe-3b-a800m (all 32 layers) and zamba2-2.7b at full width
      and depth through ``launch.train.main`` (f32 masters, bf16 compute,
@@ -188,18 +195,21 @@ and never imports jax or the JAX package.  Phases, each fatal on failure:
      then rows 6l and 7 at zamba2's causal and hubert's bidirectional
      D 80 training shapes held against their plain versions and timed
      beside the bound and SDPA.
- 18. the registry's three largest dense architectures served whole, one
-     at a time on the emptied card, bf16 parameters drawn there:
-     gemma2-27b (local / global layers, both softcaps, the rolling cache)
-     at its 8,192-token context (2 x 8,144 prompt tokens + 48 greedy),
-     command-r-35b and chameleon-34b at phase 7's requests: the flash
-     launches a prefill (46 / 40 / 48, gemma2's split by window and cap),
-     the flash wrapper at each prefill shape against
-     ``blockwise_attention``, the kernel path's prefill logits under
-     phase 7's second rule against an f32 plain path streamed a unit at a
-     time (2 requests), prefill and decode times, peak memory and a
-     profiled prefill; gemma2's prefill-then-decode across its wrapped
-     ring against the full forward (2 units at full width, f32).
+ 18. the registry's three largest dense architectures and
+     deepseek-moe-16b served whole, one at a time on the emptied card,
+     bf16 parameters drawn there: gemma2-27b (local / global layers,
+     both softcaps, the rolling cache) at its 8,192-token context (2 x
+     8,144 prompt tokens + 48 greedy), command-r-35b, chameleon-34b and
+     deepseek-moe-16b (28 MoE layers of 64 experts, top-6 and 2 shared)
+     at phase 7's requests: the flash launches a prefill (46 / 40 / 48 /
+     28, gemma2's split by window and cap), the flash wrapper at each
+     prefill shape against ``blockwise_attention``, the kernel path's
+     prefill logits under phase 7's second rule against an f32 plain
+     path streamed a unit at a time (2 requests; deepseek's routings
+     that differ and dropped pairs printed), prefill and decode times,
+     peak memory and a profiled prefill; gemma2's prefill-then-decode
+     across its wrapped ring and deepseek's against the full forward (2
+     units at full width, f32).
 
 Phase 2 also sweeps the batched launches (grid.z over the batch) of the
 scan and the verify: batch 1, 3, 4 and 64, ragged n and m, shared and
@@ -421,9 +431,8 @@ TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 2 ** -7, 2 ** -5
 # serves smollm-135m (8 requests of 2,000 prompt tokens, 48 greedy
 # tokens, random weights from --seed, f32 masters, bf16 compute):
 # granite-moe-3b-a800m, mamba2-1.3b and zamba2-2.7b at their published
-# width and depth; deepseek-moe-16b at full width with its depth cut to
-# FAMILY_DEEPSEEK_LAYERS of 28 and bf16 parameters (its 16.4 B weights
-# are 66 GB as f32 masters, past the card with a bf16 copy beside them).
+# width and depth (deepseek-moe-16b, whose 16.9 B weights are 67.5 GB as
+# f32 masters, is served whole with bf16 parameters in phase 18).
 # Each prefill is held against the plain attn_impl="ref" path under
 # phase 7's second rule, and prefill-then-decode against the full
 # forward at the next position on one request, the JAX package's own
@@ -434,9 +443,7 @@ TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 2 ** -7, 2 ** -5
 # the forward drops (token, slot) pairs of the last position that the
 # one-token decode keeps (cap = max(⌈k/E · 1.25⌉, k)), so the two differ
 # by design (granite-moe at full width on an H100: 44.6 at logits of 370).
-FAMILIES = ["granite-moe-3b-a800m", "mamba2-1.3b", "zamba2-2.7b",
-            "deepseek-moe-16b"]
-FAMILY_DEEPSEEK_LAYERS = 4
+FAMILIES = ["granite-moe-3b-a800m", "mamba2-1.3b", "zamba2-2.7b"]
 FAMILY_CONSISTENCY_TOL = 2e-2
 # Phase 14, the port's tools on the card at their own default sizes, each
 # a process of its own that must return 0: the overload tool both at its
@@ -3434,6 +3441,33 @@ def record_routes(fn, limit=None):
     return out, routes
 
 
+def moe_routing(torch, cfg, arch: str, r_k, r_r, r_32=None) -> str:
+    """The (token, slot) routings that differ between the kernel path's
+    per-layer expert indices ``r_k`` and the plain path's ``r_r`` (in all
+    and layer by layer), and from the f32 plain path's ``r_32`` where
+    given; the pairs the kernel path's capacity plan drops."""
+    from repro_torch.models.moe import _capacity_plan
+    E, k = cfg.n_experts, cfg.top_k
+    runs = [r for r in (r_k, r_r, r_32) if r is not None]
+    check(all(len(r) == cfg.num_layers for r in runs), f"{arch}: "
+          f"{[len(r) for r in runs]} routings recorded, want {cfg.num_layers}"
+          " a path")
+    per = [routing_differences(torch, [a], [b], E) for a, b in zip(r_k, r_r)]
+    differ = sum(per)
+    dropped = sum(int((~_capacity_plan(a, E, cfg.capacity_factor)[0]).sum())
+                  for a in r_k)
+    pairs = len(r_k) * r_k[0].shape[-2] * k
+    line = (f"MoE routing: {differ} of {pairs} (token, slot) routings differ "
+            f"between the kernel and plain paths ({differ / pairs:.4%}; by "
+            f"layer {per})")
+    if r_32 is not None:
+        line += (f", {routing_differences(torch, r_k, r_32, E)} and "
+                 f"{routing_differences(torch, r_r, r_32, E)} of each from "
+                 "the f32 plain path")
+    return (line + f"; {dropped} pairs dropped a prefill ({dropped / pairs:.4%})"
+            f" at capacity factor {cfg.capacity_factor}")
+
+
 def check_family_flash(torch, dev, cfg, arch: str, seed: int, err: dict,
                        B: int = SERVE_BATCH, S: int = SERVE_PROMPT) -> None:
     """The flash wrapper the model calls (``models/flash.py``) at the
@@ -3481,22 +3515,14 @@ def serve_family(torch, args, dev, ops, arch: str, err: dict) -> int:
     (token, slot) pairs; prefill-then-decode against the full forward;
     prefill and decode times and the peak memory.  Returns the flash
     launches of one prefill."""
-    import copy
     import dataclasses
 
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as M
-    from repro_torch.models.moe import _capacity_plan
     from repro_torch.train.steps import cast_for_compute, make_decode_step
 
     cfg = get_config(arch)
-    cut = ""
-    if arch == "deepseek-moe-16b":
-        cfg = dataclasses.replace(cfg, num_layers=FAMILY_DEEPSEEK_LAYERS,
-                                  param_dtype="bfloat16")
-        cut = (f"; depth cut to {FAMILY_DEEPSEEK_LAYERS} of 28 layers, bf16 "
-               "parameters")
     B, S, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
     s_max = S + G
     bf16, f32 = torch.bfloat16, torch.float32
@@ -3514,7 +3540,7 @@ def serve_family(torch, args, dev, ops, arch: str, err: dict) -> int:
           f"attention layers a prefill {n_attn} (heads {cfg.n_heads}/"
           f"{cfg.n_kv} x {cfg.head_dim}), experts {cfg.n_experts} top-"
           f"{cfg.top_k} shared {cfg.n_shared}, ssm {cfg.ssm}, vocab "
-          f"{cfg.vocab}: {n_params} parameters ({cfg.param_dtype}{cut}); "
+          f"{cfg.vocab}: {n_params} parameters ({cfg.param_dtype}); "
           f"{B} requests x {S} prompt tokens + {G} greedy", flush=True)
 
     ops.reset_kernel_stats()                       # the main path's window
@@ -3547,9 +3573,7 @@ def serve_family(torch, args, dev, ops, arch: str, err: dict) -> int:
         params_c, ref_cfg, {"tokens": prompts}, s_max=s_max))
     check(ops.kernel_stats() == {}, f"{arch}: the ref path launched "
           f"{ops.kernel_stats()}")
-    params32 = (params if cfg.param_dtype == "float32"   # f32 compute
-                else copy.deepcopy(params).float())
-    l32 = M.prefill(params32, ref_cfg, {"tokens": prompts},
+    l32 = M.prefill(params, ref_cfg, {"tokens": prompts},
                     s_max=s_max)[0]
     tol = LOGIT_RTOL * float(lr.abs().max())
     to32_k = float((lk - l32).abs().max())
@@ -3569,29 +3593,18 @@ def serve_family(torch, args, dev, ops, arch: str, err: dict) -> int:
     print(f"greedy first tokens equal on the two paths: {int(same.sum())}/"
           f"{B}", flush=True)
     if cfg.n_experts:
-        E, k = cfg.n_experts, cfg.top_k
-        differ = routing_differences(torch, r_k, r_r, E)
-        dropped = sum(int((~_capacity_plan(a, E, cfg.capacity_factor)[0])
-                          .sum()) for a in r_k)
-        pairs = len(r_k) * B * S * k
-        check(len(r_k) == len(r_r) == cfg.num_layers,
-              f"{arch}: {len(r_k)} routings recorded, want {cfg.num_layers}")
-        print(f"MoE routing: {differ} of {pairs} (token, slot) routings "
-              f"differ between the kernel and plain paths "
-              f"({differ / pairs:.4%}); {dropped} pairs dropped a prefill "
-              f"({dropped / pairs:.4%}) at capacity factor "
-              f"{cfg.capacity_factor}", flush=True)
+        print(moe_routing(torch, cfg, arch, r_k, r_r), flush=True)
     del lr, l32, r_k, r_r
 
     # prefill-then-decode against the full forward, f32 compute, request 0
     one = prompts[:1]
     ccfg = (dataclasses.replace(cfg, capacity_factor=cfg.n_experts
                                 / cfg.top_k) if cfg.n_experts else cfg)
-    _, cache, n1 = M.prefill(params32, ccfg, {"tokens": one[:, :-1]},
+    _, cache, n1 = M.prefill(params, ccfg, {"tokens": one[:, :-1]},
                              s_max=S + 1, cache_dtype=f32)
-    dec_logits, _ = M.decode_step(params32, ccfg, one[:, -1:], cache, n1)
+    dec_logits, _ = M.decode_step(params, ccfg, one[:, -1:], cache, n1)
     with torch.no_grad():
-        full = M.forward(params32, ccfg, {"tokens": one})[:, -1]
+        full = M.forward(params, ccfg, {"tokens": one})[:, -1]
     diff = (dec_logits - full).abs()
     lim = FAMILY_CONSISTENCY_TOL * (1 + full.abs())
     lossless = (f", capacity factor {ccfg.capacity_factor}"
@@ -3603,7 +3616,7 @@ def serve_family(torch, args, dev, ops, arch: str, err: dict) -> int:
           f"{float((diff / lim).max()):.3f}", flush=True)
     check(bool((diff <= lim).all()), f"{arch}: prefill-then-decode differs "
           "from the full forward by more than 2e-2 + 2e-2 |logit|")
-    del cache, dec_logits, full, params32
+    del cache, dec_logits, full
 
     # times
     dec = make_decode_step(cfg, compute_dtype=bf16)
@@ -3702,17 +3715,29 @@ def tools_on_card() -> None:
 # greedy tokens equal wherever the no-mesh path's top-2 margin exceeds
 # LOGIT_RTOL of its largest logit (48 steps, the no-mesh path fed the
 # mesh path's tokens), the flash launches of a prefill 32 and 48.
+# mamba2-1.3b and zamba2-2.7b (the SSM heads and the gated norm, zamba2's
+# shared attention block) join them at full width and depth over the
+# prefill and MESH_B_STEPS - 1 decode steps only (a cut: (b) holds no
+# more), their no-mesh conv and SSM states of units 0 and -1 saved after
+# the prefill.
 # (b) two ranks sharing the card (gloo, which NCCL's one-rank-a-card rule
 # leaves), mesh (1, 2), the dense layers tensor parallel over "model":
 # granite's 12 of 24 heads, 4 of 8 KV heads and 20 of 40 experts (its
 # 49,155-row vocabulary whole), yi-9b's 16 of 32 heads, 2 of 4 KV heads,
 # 5,504 of 11,008 ffn, 32,000 of 64,000 vocabulary rows and 1,024 of
-# 2,048 cache slots a rank (each rank's parameter bytes printed,
-# yi-9b's checked at half of (a)'s within 1%, the peak a rank once the
-# whole parameters are dropped), (a)'s tokens fed, (a)'s rules against
-# (a)'s no-mesh run over the prefill and MESH_B_STEPS - 1 decode steps;
-# the new K/V on the owner rank only at every decode step; the
-# collectives' bytes and seconds of a prefill and a decode step.  (c) data parallelism over two ranks on the card: granite's
+# 2,048 cache slots a rank, mamba2's 32 of 64 SSM heads (the gated norm's
+# squares summed over "model") and 25,140 of 50,280 vocabulary rows,
+# zamba2's 40 of 80 SSM heads and its shared block's 16 of 32 heads (D
+# 80) and KV heads (each rank's parameter bytes printed and checked
+# against the leaves the placement halves and those it keeps whole,
+# yi-9b's at half of (a)'s within 1%, the peak a rank once the whole
+# parameters are dropped), (a)'s tokens fed, (a)'s rules against (a)'s
+# no-mesh run over the prefill and MESH_B_STEPS - 1 decode steps; the
+# new K/V on the owner rank only at every decode step of a sequence-split
+# cache, at its slot on every rank of a head-split one; the SSM models'
+# conv and SSM states after the prefill on each rank against (a)'s on
+# the rank's heads and channels; the collectives' bytes and seconds of a
+# prefill and a decode step.  (c) data parallelism over two ranks on the card: granite's
 # prefill at two data ranks (capacity 1.25, one MoE group over both
 # ranks' rows) keeps one rank's (token, slot) mask and meets (a)'s rules
 # on its logits.  Then the serve CLI at phase 7's requests: one rank in
@@ -3721,11 +3746,15 @@ def tools_on_card() -> None:
 # tensor parallel, smollm's 9 heads whole): each rank's greedy tokens
 # one rank's, its prefill's and last step's logits within LOGIT_RTOL of
 # the largest of one rank's.
-MESH_ARCHS = ["granite-moe-3b-a800m", "yi-9b"]
+MESH_MOE, MESH_SEQ = "granite-moe-3b-a800m", "yi-9b"
+MESH_SSM = ("mamba2-1.3b", "zamba2-2.7b")
+MESH_ARCHS = [MESH_MOE, MESH_SEQ, *MESH_SSM]
 # (b)'s prompts of an arch where not all SERVE_BATCH: yi-9b's tensor-
 # parallel prefill sums 131 MB over "model" twice a layer through gloo's
-# host staging (≈ 0.6 GB/s), so its prompts are cut to 2 rows
-MESH_B_ROWS = {"yi-9b": 2}
+# host staging (≈ 0.6 GB/s), so its prompts are cut to 2 rows; mamba2's
+# and zamba2's sum 66 / 82 MB once a block (48 / 54 blocks, zamba2's
+# shared block twice more 9 times) and are cut alike
+MESH_B_ROWS = {MESH_SEQ: 2, MESH_SSM[0]: 2, MESH_SSM[1]: 2}
 # (b)'s steps (the prefill and MESH_B_STEPS - 1 teacher-forced decode
 # steps, of (a)'s SERVE_GEN): each tensor-parallel decode step sums over
 # "model" two or three times a layer through gloo (0.2–0.9 s a step), so
@@ -3734,7 +3763,27 @@ MESH_B_STEPS = 4
 MESH_HASH_SEED = "0"
 MESH_TIMEOUT_S = 480          # a part's ranks, build-free (phase 1 built)
 MESH_GROUP_TIMEOUT_S = 180    # a collective that waits longer fails
-MESH_OWNER_LAYERS = (0, -1)   # yi-9b layers whose slices are checked a step
+MESH_OWNER_LAYERS = (0, -1)   # units whose KV writes are checked a step
+# (b)'s SSM states after the prefill (conv windows and the scan's state of
+# every SSM layer of units MESH_OWNER_LAYERS) on the rank's heads and
+# channels, under phase 7's second rule in norms: each tensor's distance
+# to (a)'s f32 plain path's (f32 parameters, compute and caches), over
+# the f32 tensor's norm, within 1.5 x (a)'s no-mesh bf16 tensor's, or
+# within MESH_STATE_RTOL.  In bf16 compute each rank's out_proj partial
+# product is rounded to bf16 before the sum over "model" (the whole
+# product once), so the residual stream entering a layer differs by a
+# rounding a block, and both bf16 paths drift from the f32 one as deep
+# into the stack as unit -1 (47 mamba2 blocks, 53 zamba2 ones).  A bound
+# on single elements did not hold that drift on an H100: mamba2's last
+# conv_x window came 0.168 from the no-mesh bf16 one at a largest 4.16
+# (1.29 x 2^-5 of it), and the elementwise second rule (1.5 x the no-mesh
+# path's largest distance to the f32 states) reached 0.80 of its limit
+# on rank 0 and failed on rank 1: the largest error of 0.5 M elements
+# is a tail statistic two bf16 paths do not share.  Norms average it; a
+# rank holding another rank's heads, or a norm summed over too few
+# ranks, is O(1) away from the f32 states in norm too.  The elementwise
+# distances are printed.
+MESH_STATE_RTOL = 2 ** -5
 # (c)'s serve CLI: phase 7's requests, one rank and then two model ranks
 SERVE_CLI_ARGV = ["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
                   "--prompt-len", str(SERVE_PROMPT), "--gen-len",
@@ -3780,9 +3829,10 @@ def mesh_spawn(torch, args, part: str, world: int, work: Path) -> list:
             log.close()
     for line in (work / f"{part}0.log").read_text().splitlines():
         print(f"  {line}", flush=True)
-    for r, p in enumerate(procs):
-        check(p.returncode == 0, f"phase 15 ({part}) rank {r} exited "
-              f"{p.returncode}:\n{(work / f'{part}{r}.log').read_text()[-4000:]}")
+    failed = [f"rank {r} exited {p.returncode}:\n"
+              f"{(work / f'{part}{r}.log').read_text()[-4000:]}"
+              for r, p in enumerate(procs) if p.returncode != 0]
+    check(not failed, f"phase 15 ({part}) " + "\n".join(failed))
     return [torch.load(work / f"{part}_rank{r}.pt", weights_only=False)
             for r in range(world)]
 
@@ -3886,12 +3936,22 @@ def routing_differences(torch, a, b, n_experts: int) -> int:
     return differ
 
 
+def ssm_states(cache) -> dict:
+    """{(unit, layer): {field: tensor}} of the SSM caches (conv windows
+    and state, ``models/ssm.py``'s ``SSMCache``) of units
+    MESH_OWNER_LAYERS, copied."""
+    return {(u, name): {f: t.clone() for f, t in zip(c._fields, c)}
+            for u in MESH_OWNER_LAYERS for name, c in cache[u].items()
+            if hasattr(c, "_fields")}
+
+
 def mesh_generate(torch, cfg, params, prompts, mesh, fed=None,
                   n_steps: int = SERVE_GEN) -> dict:
     """Prefill ``prompts`` and decode ``n_steps`` - 1 tokens (``fed``'s when
     given, else the greedy ones) under ``mesh`` (None: no mesh), the MoE
     plans of the prefill recorded: per-step logits (B, V) on the card,
-    the tokens, the prefill's flash launches, the prefill and decode
+    the tokens, the prefill's flash launches, the SSM states after the
+    prefill (``ssm_states``), the prefill and decode
     times and collective stats."""
     import contextlib
 
@@ -3915,6 +3975,7 @@ def mesh_generate(torch, cfg, params, prompts, mesh, fed=None,
         launches = ops.kernel_stats()
         if mesh is not None:
             stats["prefill"] = {k: list(v) for k, v in mesh.stats.items()}
+        states = ssm_states(cache) if cfg.ssm else {}
         steps = [logits]
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
         tokens = [tok if fed is None else fed[:, :1]]
@@ -3933,7 +3994,7 @@ def mesh_generate(torch, cfg, params, prompts, mesh, fed=None,
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t0) * 1e3 / (n_steps - 1)
     return {"logits": steps, "tokens": torch.cat(tokens, 1), "plans": plans,
-            "launches": launches, "prefill_ms": prefill_ms,
+            "launches": launches, "states": states, "prefill_ms": prefill_ms,
             "decode_ms": decode_ms, "stats": stats, "cache": cache}
 
 
@@ -3983,7 +4044,10 @@ def tp_placement(cfg, m: int) -> str:
     layers (the divisibility fallback keeps the rest whole)."""
     def part(n, what):
         return f"{what} {n // m} of {n}" if n % m == 0 else f"{what} {n} whole"
-    parts = [part(cfg.n_heads, "heads"), part(cfg.n_kv, "KV heads")]
+    parts = ([part(cfg.n_heads, "heads"), part(cfg.n_kv, "KV heads")]
+             if cfg.n_heads else [])
+    if cfg.ssm:
+        parts.append(part(cfg.n_ssm_heads, "SSM heads"))
     if cfg.d_ff:
         parts.append(part(cfg.d_ff, "ffn"))
     if cfg.n_experts:
@@ -4023,13 +4087,14 @@ def mesh_part_a(torch, spec, work: Path) -> dict:
               f"{SERVE_GEN} greedy", flush=True)
         M.prefill(params, cfg, {"tokens": prompts},       # warm-up at the
                   s_max=SERVE_PROMPT + SERVE_GEN)         # prefill's shapes
-        got = mesh_generate(torch, cfg, mine, prompts, mesh)
+        n_steps = MESH_B_STEPS if cfg.ssm else SERVE_GEN  # the SSMs: (b)'s
+        got = mesh_generate(torch, cfg, mine, prompts, mesh, n_steps=n_steps)
         want = {"flash_attention_fwd": n_attn,
-                "flash_attention_fwd:bf16": n_attn}
+                "flash_attention_fwd:bf16": n_attn} if n_attn else {}
         check(got["launches"] == want, f"(a) {arch}: launches a prefill "
               f"{got['launches']}, want {want}")
         ref = mesh_generate(torch, cfg, params, prompts, None,
-                            fed=got["tokens"])
+                            fed=got["tokens"], n_steps=n_steps)
         del mine
         got.pop("cache"), ref.pop("cache")
         if cfg.n_experts:
@@ -4047,17 +4112,21 @@ def mesh_part_a(torch, spec, work: Path) -> dict:
                   flush=True)
         params32 = copy.deepcopy(params).float()
         del params
-        l32 = M.prefill(params32, dataclasses.replace(cfg, attn_impl="ref"),
-                        {"tokens": prompts}, s_max=SERVE_PROMPT + 1)[0]
-        del params32
+        rows = MESH_B_ROWS.get(arch, SERVE_BATCH)
+        l32, cache32, _ = M.prefill(params32, dataclasses.replace(
+            cfg, attn_impl="ref"), {"tokens": prompts},
+            s_max=SERVE_PROMPT + 1, cache_dtype=torch.float32)
+        states32 = ssm_states(cache32) if cfg.ssm else {}
+        del params32, cache32
         print(second_rule(torch, got["logits"][0], ref["logits"][0], l32,
                           f"(a) {arch}"), flush=True)
         print(hold_steps(torch, got["logits"], ref["logits"], f"(a) {arch}"),
               flush=True)
         print(f"prefill {got['prefill_ms']:.2f} ms under the mesh, "
               f"{ref['prefill_ms']:.2f} without; decode "
-              f"{got['decode_ms']:.3f} / {ref['decode_ms']:.3f} ms a step; "
-              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"{got['decode_ms']:.3f} / {ref['decode_ms']:.3f} ms a step "
+              f"over {n_steps - 1} steps; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"flash launches a prefill {got['launches']}", flush=True)
         torch.save({"digest": batch_digest(torch, prompts),
                     "param_bytes": whole_bytes,
@@ -4065,9 +4134,14 @@ def mesh_part_a(torch, spec, work: Path) -> dict:
                     "logits": [x.cpu() for x in ref["logits"]],
                     "f32": l32.cpu(),
                     "routes": [p[1][0].to(torch.uint8).cpu()
-                               for p in ref["plans"]]},
+                               for p in ref["plans"]],
+                    **{key: {k: {f: t[:rows].cpu() for f, t in v.items()}
+                             for k, v in states.items()}
+                       for key, states in (("states", ref["states"]),
+                                           ("states32", states32))}},
                    work / f"ref_{arch}.pt")
-        out[arch] = {"launches": got["launches"]["flash_attention_fwd"],
+        out[arch] = {"launches": got["launches"].get("flash_attention_fwd",
+                                                     0),
                      "prefill_ms": got["prefill_ms"],
                      "decode_ms": got["decode_ms"],
                      "param_bytes": whole_bytes}
@@ -4113,6 +4187,70 @@ def stats_line(stats: dict) -> str:
                      for k, (c, b, s) in sorted(stats.items())) or "none"
 
 
+def leaf_split(whole: dict, mine) -> tuple:
+    """(the parameter bytes a rank of two model ranks holds by the
+    placement: half of every leaf it splits, the others whole; the leaves
+    it keeps whole, unit indices dropped).  Fails on a leaf that is
+    neither.  ``whole``: each leaf's element count before the split."""
+    import re
+    want, kept = 0, set()
+    for name, p in mine.named_parameters():
+        n = whole[name]
+        check(p.numel() in (n, n // 2) and not (p.numel() < n and n % 2),
+              f"(b) {name}: {p.numel()} of {n} elements on a rank")
+        if p.numel() == n:
+            kept.add(re.sub(r"^units\.\d+\.(l\d+\.)?", "", name))
+        want += p.numel() * p.element_size()
+    return want, sorted(kept)
+
+
+def check_ssm_states(mesh, got: dict, ref: dict, ref32: dict) -> str:
+    """Phase 15 (b)'s state check (the comment above MESH_STATE_RTOL):
+    each of this rank's SSM caches after the prefill against (a)'s
+    no-mesh bf16 one ``ref`` and f32 plain one ``ref32`` on the rank's
+    heads (the state's heads, conv_x's channels; conv_B and conv_C
+    whole).  Returns, by field, the worst relative distances in norm to
+    the f32 states (this rank's, the no-mesh path's) and the largest
+    elementwise distance to the no-mesh bf16 states relative to their
+    largest magnitude."""
+    r = mesh.coord("model")
+    check(sorted(got) == sorted(ref) == sorted(ref32), f"(b) SSM caches "
+          f"{sorted(got)}, (a)'s {sorted(ref)} and {sorted(ref32)}")
+    worst = {}
+    for key, fields in ref.items():
+        for f in fields:
+            have = got[key][f].float()
+            want, want32 = (x[key][f].to(have.device).float()
+                            for x in (ref, ref32))
+            dim = {"state": 1, "conv_x": 2}.get(f)
+            if dim is not None:
+                n = have.shape[dim]
+                check(2 * n == want.shape[dim], f"(b) {key} {f}: {n} of "
+                      f"{want.shape[dim]} a rank, not half")
+                want, want32 = (x.narrow(dim, r * n, n) for x in (want,
+                                                                  want32))
+            check(have.shape == want.shape, f"(b) {key} {f}: "
+                  f"{tuple(have.shape)}, (a) {tuple(want.shape)}")
+            norm32 = max(float(want32.norm()), 1e-30)
+            to32 = float((have - want32).norm()) / norm32
+            ref_to32 = float((want - want32).norm()) / norm32
+            drift = (float((have - want).abs().max())
+                     / max(float(want.abs().max()), 1e-30))
+            check(to32 <= max(MESH_STATE_RTOL, 1.5 * ref_to32), f"(b) {key} "
+                  f"{f}: {to32:.4g} (relative norm) from the f32 plain path's"
+                  f" state, the no-mesh bf16 state {ref_to32:.4g}")
+            w = worst.setdefault(f, [0.0, 0.0, 0.0])
+            w[:] = max(w[0], to32), max(w[1], ref_to32), max(w[2], drift)
+    return (f"SSM states after the prefill ({len(ref)} layers of units "
+            f"{MESH_OWNER_LAYERS}) on rank {r}'s heads, worst by field: "
+            "relative norm distance to the f32 plain path's states (rule: "
+            "<= max(2^-5, 1.5 x the no-mesh bf16 path's)), this rank / no "
+            "mesh; largest elementwise distance to the no-mesh bf16 states "
+            "over their largest: " + ", ".join(
+                f"{f} {a:.4f} / {b:.4f}; {c:.4f}"
+                for f, (a, b, c) in sorted(worst.items())))
+
+
 def mesh_part_b(torch, spec, work: Path) -> dict:
     """Phase 15 (b): two ranks on the one card, mesh (1, 2)."""
     import torch.distributed as dist
@@ -4136,13 +4274,17 @@ def mesh_part_b(torch, spec, work: Path) -> dict:
             [batch_digest(torch, prompts)], device="cuda"), "model")
         check(bool((digests == ref["digest"]).all()), f"(b) {arch}: ranks "
               f"drew batches {digests.tolist()}, (a) {ref['digest']}")
+        whole = {n: p.numel() for n, p in params.named_parameters()}
         mine = shard_state(params, mesh)
         del params
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         held_bytes = param_bytes(mine)
         share = held_bytes / ref["param_bytes"]
-        if arch == MESH_ARCHS[1]:          # every dense dimension divides
+        want_bytes, kept = leaf_split(whole, mine)
+        check(held_bytes == want_bytes, f"(b) {arch}: rank {rank} holds "
+              f"{held_bytes} parameter bytes, the placement {want_bytes}")
+        if arch == MESH_SEQ:               # every dense dimension divides
             check(abs(share - 0.5) <= 0.005, f"(b) {arch}: rank {rank} "
                   f"holds {held_bytes} parameter bytes, {share:.4f} of "
                   f"(a)'s {ref['param_bytes']}, not half within 1%")
@@ -4155,9 +4297,10 @@ def mesh_part_b(torch, spec, work: Path) -> dict:
         got = mesh_generate_owner(torch, cfg, mine, prompts[:rows], mesh,
                                   ref["tokens"][:rows].to("cuda"), held,
                                   n_steps=MESH_B_STEPS)
-        check(got["launches"] == {"flash_attention_fwd": n_attn,
-                                  "flash_attention_fwd:bf16": n_attn},
-              f"(b) {arch}: launches a prefill {got['launches']}")
+        want = {"flash_attention_fwd": n_attn,
+                "flash_attention_fwd:bf16": n_attn} if n_attn else {}
+        check(got["launches"] == want, f"(b) {arch}: launches a prefill "
+              f"{got['launches']}, want {want}")
         same = mesh.all_gather(got["logits"][-1].contiguous()[None], "model")
         check(torch.equal(same[0], same[1]), f"(b) {arch}: the ranks' "
               "logits differ")
@@ -4165,25 +4308,26 @@ def mesh_part_b(torch, spec, work: Path) -> dict:
         lines = [f"tensor parallel over 2 model ranks: "
                  f"{tp_placement(cfg, 2)}; rank {rank} holds "
                  f"{held_bytes / 1e9:.3f} GB of parameters, {share:.4f} of "
-                 f"(a)'s {ref['param_bytes'] / 1e9:.3f} GB; {rows} of "
-                 f"{SERVE_BATCH} prompts"]
+                 f"(a)'s {ref['param_bytes'] / 1e9:.3f} GB, the placement's "
+                 f"bytes exactly (leaves kept whole: {', '.join(kept)}); "
+                 f"{rows} of {SERVE_BATCH} prompts"]
         if cfg.n_experts:
-            bad, kept = sharded_plan_mismatches(torch, got["plans"], cfg)
+            bad, kept_pairs = sharded_plan_mismatches(torch, got["plans"],
+                                                      cfg)
             check(bad == 0, f"(b) {arch}: rank {rank}: {bad} kept pairs "
                   "differ from one rank's plan")
             differ = routing_differences(
                 torch, [p[1] for p in got["plans"]],
                 [r.to("cuda") for r in ref["routes"]], cfg.n_experts)
             lines.append(f"rank 0 holds {held['experts']} of "
-                         f"{cfg.n_experts} experts; its kept pairs ({kept}) "
-                         "are one rank's plan's on its experts, 0 differ; "
-                         f"routings differing from (a): {differ}")
-        else:
-            lines.append(f"rank 0 holds {held['slots']} of "
-                         f"{SERVE_PROMPT + SERVE_GEN} cache slots; the new "
-                         f"K/V landed on the owner rank only at all "
-                         f"{MESH_B_STEPS - 1} decode steps (layers "
-                         f"{MESH_OWNER_LAYERS} checked)")
+                         f"{cfg.n_experts} experts; its kept pairs "
+                         f"({kept_pairs}) are one rank's plan's on its "
+                         f"experts, 0 differ; routings differing from (a): "
+                         f"{differ}")
+        lines.append(held["cache"])
+        if cfg.ssm:
+            lines.append(check_ssm_states(mesh, got["states"], ref["states"],
+                                          ref["states32"]))
         lines.append(second_rule(torch, got["logits"][0],
                                  ref["logits"][0][:rows].to("cuda"),
                                  ref["f32"][:rows].to("cuda"), f"(b) {arch}"))
@@ -4203,8 +4347,7 @@ def mesh_part_b(torch, spec, work: Path) -> dict:
                 print(line, flush=True)
         out[arch] = {"stats": got["stats"], "prefill_ms": got["prefill_ms"],
                      "decode_ms": got["decode_ms"], "param_bytes": held_bytes,
-                     "peak": peak,
-                     "launches": got["launches"]["flash_attention_fwd"]}
+                     "peak": peak, "launches": n_attn}
         del got, mine, ref, prompts, same
         torch.cuda.empty_cache()
     out["c"] = mesh_data_parallel(torch, spec, work)
@@ -4213,25 +4356,32 @@ def mesh_part_b(torch, spec, work: Path) -> dict:
 
 def mesh_generate_owner(torch, cfg, params, prompts, mesh, fed,
                         held: dict, n_steps: int = SERVE_GEN) -> dict:
-    """``mesh_generate`` with, for a sequence-split cache, every decode
-    step's write checked: the rank that owns slot ``cache_len`` changed
-    exactly that slot of its slice, the other rank's slice is unchanged
-    (MESH_OWNER_LAYERS' keys and values)."""
+    """``mesh_generate`` with every decode step's KV writes checked on
+    units MESH_OWNER_LAYERS (the first layer's cache; zamba2's shared
+    block's): a sequence-split cache changed exactly slot ``cache_len``
+    of the owner rank's slice and nothing of the other's; a cache split
+    by heads (or whole) changed exactly that slot on every rank.  The SSM
+    caches are replaced whole each step (their prefill states are checked
+    in ``mesh_part_b``); mamba2 keeps no KV cache.  ``held["cache"]``
+    gets the summary line."""
     from repro_torch.models import model as M
-    if not (cfg.decode_kv_shard == "seq" and "model" in mesh.axis_names):
+    if cfg.ssm and not cfg.shared_attn_every:
+        held["cache"] = ("no KV cache: the SSM states are replaced whole "
+                         "each decode step")
         return mesh_generate(torch, cfg, params, prompts, mesh, fed=fed,
                              n_steps=n_steps)
+    seq = cfg.decode_kv_shard == "seq"
+    name = "shared" if cfg.ssm else "l0"
+    layers = [(u % cfg.n_units, name) for u in MESH_OWNER_LAYERS]
     step, orig = [0], M.decode_step
-    layers = [(u, "l0") for u in (MESH_OWNER_LAYERS[0] % cfg.n_units,
-                                  MESH_OWNER_LAYERS[1] % cfg.n_units)]
 
     def checked(params_, cfg_, tokens, cache, cache_len, **kw):
         before = [[t.clone() for t in cache[u][n]] for u, n in layers]
         out = orig(params_, cfg_, tokens, cache, cache_len, **kw)
-        s_loc = cache[0]["l0"][0].shape[1]
-        held["slots"] = s_loc
-        owner = int(cache_len) // s_loc
-        slot = int(cache_len) - owner * s_loc
+        s_loc, kv = cache[0][name][0].shape[1:3]
+        owner, slot = ((int(cache_len) // s_loc, int(cache_len) % s_loc)
+                       if seq else (mesh.coord("model"), int(cache_len)))
+        held.update(slots=s_loc, kv_heads=kv)
         for (u, n), old in zip(layers, before):
             for new, o in zip(cache[u][n], old):
                 changed = (new != o).any(dim=(0, 2, 3))
@@ -4240,18 +4390,25 @@ def mesh_generate_owner(torch, cfg, params, prompts, mesh, fed,
                 else:
                     ok = not bool(changed.any())
                 check(ok, f"(b) decode step {step[0]}: rank "
-                      f"{mesh.coord('model')}'s slice of layer {u} changed "
-                      f"at {changed.nonzero().flatten().tolist()}, owner "
-                      f"{owner} slot {slot}")
+                      f"{mesh.coord('model')}'s slice of unit {u} {n} "
+                      f"changed at {changed.nonzero().flatten().tolist()}, "
+                      f"owner {owner} slot {slot}")
         step[0] += 1
         return out
 
     M.decode_step = checked
     try:
-        return mesh_generate(torch, cfg, params, prompts, mesh, fed=fed,
-                             n_steps=n_steps)
+        got = mesh_generate(torch, cfg, params, prompts, mesh, fed=fed,
+                            n_steps=n_steps)
     finally:
         M.decode_step = orig
+    where = (f"{held['slots']} of {SERVE_PROMPT + SERVE_GEN} cache slots; "
+             "the new K/V landed on the owner rank only" if seq else
+             f"{held['kv_heads']} of {cfg.n_kv} KV heads of the {name} "
+             "cache; the new K/V landed at its slot on every rank")
+    held["cache"] = (f"rank 0 holds {where} at all {step[0]} decode steps "
+                     f"(units {MESH_OWNER_LAYERS} checked)")
+    return got
 
 
 def mesh_data_parallel(torch, spec, work: Path) -> dict:
@@ -4265,7 +4422,7 @@ def mesh_data_parallel(torch, spec, work: Path) -> dict:
     from repro_torch.models import model as M
     from repro_torch.models.moe import _capacity_plan
 
-    arch = MESH_ARCHS[0]
+    arch = MESH_MOE
     mesh = make_host_mesh()
     n, r = mesh.shape["data"], batch_coord(mesh)
     ref = torch.load(work / f"ref_{arch}.pt", weights_only=False)
@@ -4334,7 +4491,7 @@ def tp_local_flash(torch, dev, seed: int, err: dict) -> dict:
     from repro_torch.models.flash import flash_attention
     from repro_torch.models.layers import _repeat_kv, blockwise_attention
 
-    cfg = get_config(MESH_ARCHS[1])
+    cfg = get_config(MESH_SEQ)
     B, S, H, Hkv, D = (SERVE_BATCH, SERVE_PROMPT, cfg.n_heads // 2,
                        cfg.n_kv // 2, cfg.head_dim)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -4471,10 +4628,12 @@ def serve_cli_ranks(torch, work: Path) -> str:
 
 def mesh_layer(torch, args, dev, err: dict) -> dict:
     """Phase 15: the flash wrapper at each model's prefill shape that phase
-    13 did not hold and at yi-9b's local heads, then (a)–(c) in processes
-    of their own; returns the flash launches of a prefill of each model
-    under the mesh (a) and on each rank of (b), and the local-head
-    wrapper's record."""
+    13 did not hold, at zamba2's shared block on one of two model ranks'
+    heads (as (b) launches it) and at yi-9b's local heads, then (a)–(c) in
+    processes of their own; returns the flash launches of a prefill of
+    each model under the mesh (a) and on each rank of (b), and the
+    local-head wrapper's record."""
+    import dataclasses
     import shutil
 
     from repro_torch.configs.registry import get_config
@@ -4483,6 +4642,11 @@ def mesh_layer(torch, args, dev, err: dict) -> dict:
         if arch not in FAMILIES:
             check_family_flash(torch, dev, get_config(arch), arch,
                                args.seed + 150 + i, err)
+    zamba2 = get_config(MESH_SSM[1])
+    check_family_flash(torch, dev, dataclasses.replace(
+        zamba2, n_heads=zamba2.n_heads // 2, n_kv=zamba2.n_kv // 2),
+        f"{MESH_SSM[1]} on one of two model ranks", args.seed + 155, err,
+        B=MESH_B_ROWS[MESH_SSM[1]])
     local = tp_local_flash(torch, dev, args.seed + 160, err)
     torch.cuda.empty_cache()
     print(f"phase 15 starts with {torch.cuda.memory_allocated() / 2**30:.2f}"
@@ -4548,9 +4712,22 @@ def mesh_layer(torch, args, dev, err: dict) -> dict:
 # each weight: Adam's first steps move a weight by ±lr wherever |g| is
 # well above eps, so a weight whose bf16 gradient rounds across zero in
 # one path moves the other way; the update's own distance is printed).
+# mamba2-1.3b, cut to P16_EP_LAYERS of 48 layers at full width, trains in
+# the same two ranks after granite, against its own one-rank reference
+# (run beside granite's): 32 of its 64 SSM heads a rank, the gated norm's
+# squares summed over "model", 25,140 of 50,280 vocabulary rows; the same
+# rules on losses and norms, and each rank's updated wz / wx (in_proj's z
+# and x streams) and out_proj slices of the first and last layer against
+# the one-rank update's (bf16 compute, as granite's: the SSD backward
+# through the _ToModel / _FromModel pair on CUDA tensors).
 P16_CKPT_EVERY, P16_FAIL_AT = 3, 7
 P16_EP_ARCH, P16_EP_LAYERS, P16_EP_STEPS, P16_EP_BATCH = (
     "granite-moe-3b-a800m", 8, 3, 4)
+# the two models of (c), and the leaves (block, leaf, the dimension the
+# "model" axis splits) whose slices are held against the one-rank update
+P16_TP_LEAVES = {P16_EP_ARCH: (("moe", "w_gate", 0), ("moe", "w_down", 0)),
+                 "mamba2-1.3b": (("ssm", "wz", 1), ("ssm", "wx", 1),
+                                 ("ssm", "out_proj", 0))}
 P16_DRYRUN_TIMEOUT_S = 420
 P16_CLI_TIMEOUT_S = 300
 
@@ -4823,12 +5000,11 @@ def data_parallel_cli(torch, args, work: Path, beside) -> dict:
     return {r: counts for r, (_, counts) in launches.items()}
 
 
-def ep_config():
+def ep_config(arch: str):
     import dataclasses
 
     from repro_torch.configs.registry import get_config
-    cfg = get_config(P16_EP_ARCH)
-    return dataclasses.replace(cfg, num_layers=P16_EP_LAYERS)
+    return dataclasses.replace(get_config(arch), num_layers=P16_EP_LAYERS)
 
 
 def ep_batch(torch, cfg, step: int, seed: int) -> dict:
@@ -4869,18 +5045,17 @@ def ep_steps(torch, cfg, params, seed: int, mesh=None) -> dict:
     return out
 
 
-EP_LEAVES = ("w_gate", "w_down")
-
-
-def ep_experts(params, cfg) -> dict:
-    """The routed experts of the first and last layers, on the host."""
+def ep_leaves(params, cfg) -> dict:
+    """P16_TP_LEAVES of the first and last layers, on the host."""
     units = params["units"]
-    return {(u, k): units[u]["l0"]["moe"][k].detach().float().cpu().clone()
-            for u in (0, cfg.n_units - 1) for k in EP_LEAVES}
+    return {(u, b, k): units[u]["l0"][b][k].detach().float().cpu().clone()
+            for u in (0, cfg.n_units - 1)
+            for b, k, _ in P16_TP_LEAVES[cfg.arch_id]}
 
 
 def mesh_part_ep(torch, spec, work: Path) -> dict:
-    """Phase 16 (c), one rank of mesh (1, 2)."""
+    """Phase 16 (c), one rank of mesh (1, 2): each model of
+    P16_TP_LEAVES in turn."""
     import torch.distributed as dist
 
     from repro_torch.distributed.sharding import shard_state
@@ -4888,93 +5063,115 @@ def mesh_part_ep(torch, spec, work: Path) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as M
 
-    cfg = ep_config()
     mesh = make_mesh((1, 2), ("data", "model"))
-    whole = M.init_params(torch.Generator(device="cuda").manual_seed(
-        spec["seed"]), cfg, device="cuda")
-    mine = shard_state(whole, mesh)
-    del whole
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    mesh.stats.clear()
-    ops.reset_kernel_stats()
-    out = ep_steps(torch, cfg, mine, spec["seed"], mesh)
-    launches = ops.kernel_stats()
-    bad, kept = sharded_plan_mismatches(torch, out.pop("plans"), cfg)
-    check(bad == 0, f"(c) rank {dist.get_rank()}: {bad} of the kept pairs "
-          "differ from one rank's plan")
-    out.update(kept=kept, experts=ep_experts(mine, cfg), launches=launches,
-               stats={k: list(v) for k, v in mesh.stats.items()},
-               peak=torch.cuda.max_memory_allocated(),
-               lo=mesh.coord("model") * cfg.n_experts // 2)
-    return out
+    res = {}
+    for arch in P16_TP_LEAVES:
+        cfg = ep_config(arch)
+        whole = M.init_params(torch.Generator(device="cuda").manual_seed(
+            spec["seed"]), cfg, device="cuda")
+        mine = shard_state(whole, mesh)
+        del whole
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.stats.clear()
+        ops.reset_kernel_stats()
+        out = ep_steps(torch, cfg, mine, spec["seed"], mesh)
+        launches = ops.kernel_stats()
+        bad, kept = sharded_plan_mismatches(torch, out.pop("plans"), cfg)
+        check(bad == 0, f"(c) {arch} rank {dist.get_rank()}: {bad} of the "
+              "kept pairs differ from one rank's plan")
+        out.update(kept=kept, leaves=ep_leaves(mine, cfg), launches=launches,
+                   stats={k: list(v) for k, v in mesh.stats.items()},
+                   peak=torch.cuda.max_memory_allocated())
+        res[arch] = out
+        del mine
+        torch.cuda.empty_cache()
+    return res
 
 
-def expert_parallel_training(torch, args, work: Path) -> dict:
-    """Phase 16 (c): the one-rank reference here, then two ranks, whose
-    flash launches it returns by rank."""
+def tensor_parallel_training(torch, args, work: Path) -> dict:
+    """Phase 16 (c): each model's one-rank reference here, then both
+    models in two ranks; returns each model's flash launches by rank."""
     from repro_torch.models import model as M
 
-    cfg = ep_config()
-    params = M.init_params(torch.Generator(device="cuda").manual_seed(
-        args.seed), cfg, device="cuda")
-    before = ep_experts(params, cfg)
-    one = ep_steps(torch, cfg, params, args.seed)
-    one.pop("plans")
-    want = ep_experts(params, cfg)
-    del params
-    torch.cuda.empty_cache()
+    ref = {}
+    for arch in P16_TP_LEAVES:
+        cfg = ep_config(arch)
+        params = M.init_params(torch.Generator(device="cuda").manual_seed(
+            args.seed), cfg, device="cuda")
+        before = ep_leaves(params, cfg)
+        one = ep_steps(torch, cfg, params, args.seed)
+        one.pop("plans")
+        ref[arch] = (one, before, ep_leaves(params, cfg))
+        del params
+        torch.cuda.empty_cache()
     ranks = mesh_spawn(torch, args, "ep", 2, work)
-    worst_w = worst_d = 0.0
-    for r, got in enumerate(ranks):
-        for i in range(P16_EP_STEPS):
-            check(abs(got["loss"][i] - one["loss"][i])
-                  <= TRAIN_LOSS_RTOL * abs(one["loss"][i])
-                  and abs(got["gnorm"][i] - one["gnorm"][i])
-                  <= TRAIN_GNORM_RTOL * abs(one["gnorm"][i]),
-                  f"(c) rank {r} step {i}: loss {got['loss'][i]} gnorm "
-                  f"{got['gnorm'][i]}, one rank {one['loss'][i]} "
-                  f"{one['gnorm'][i]}")
-        for key, w in got["experts"].items():
-            lo, hi = got["lo"], got["lo"] + w.shape[0]
-            err = float((w - want[key][lo:hi]).norm()
-                        / want[key][lo:hi].norm())
-            worst_w = max(worst_w, err)
-            check(err <= TRAIN_LOSS_RTOL, f"(c) rank {r} {key}: the updated "
-                  f"experts {err:.3g} (relative norm) from the one-rank "
-                  "slice")
-            delta = w - before[key][lo:hi]
-            ref = want[key][lo:hi] - before[key][lo:hi]
-            worst_d = max(worst_d, float((delta - ref).norm() / ref.norm()))
-    for r, got in enumerate(ranks):
-        counts = got["launches"]
-        check(counts.get("flash_attention_fwd:lse") == 2 * cfg.num_layers
-              * P16_EP_STEPS
-              and counts.get("flash_attention_bwd") == cfg.num_layers
-              * P16_EP_STEPS
-              and not any(k.endswith(":ref") for k in counts),
-              f"(c) rank {r} launches {counts}")
-    stats = ranks[0]["stats"]
-    print(f"(c) tensor parallel over 2 model ranks: {tp_placement(cfg, 2)};"
-          f" flash launches by rank over {P16_EP_STEPS} steps "
-          f"{[r['launches'] for r in ranks]}", flush=True)
-    print(f"(c) {P16_EP_ARCH} cut to {P16_EP_LAYERS} layers, mesh (1, 2), "
-          f"{cfg.n_experts // 2} experts a rank, {P16_EP_STEPS} steps of "
-          f"{P16_EP_BATCH} x {TRAIN_SEQ}: kept masks one rank's "
-          f"({ranks[0]['kept']} and {ranks[1]['kept']} pairs kept); losses "
-          f"{[round(x, 4) for x in ranks[0]['loss']]} (one rank "
-          f"{[round(x, 4) for x in one['loss']]}), gnorms "
-          f"{[round(x, 4) for x in ranks[0]['gnorm']]} (one rank "
-          f"{[round(x, 4) for x in one['gnorm']]}); the updated expert "
-          f"shards within {worst_w:.2e} of the one-rank slices (relative "
-          f"norm), their updates within {worst_d:.2e}; step ms "
-          f"{[round(x, 1) for x in ranks[0]['ms']]} (one rank "
-          f"{[round(x, 1) for x in one['ms']]}); peak a rank "
-          f"{max(r['peak'] for r in ranks) / 2**30:.2f} GiB; collectives "
-          f"of {P16_EP_STEPS} steps on rank 0 (calls, bytes, host s): "
-          f"{ {k: [v[0], v[1], round(v[2], 3)] for k, v in stats.items()} }",
-          flush=True)
-    return {r: got["launches"] for r, got in enumerate(ranks)}
+    for arch, (one, before, want) in ref.items():
+        cfg = ep_config(arch)
+        split = {k: d for _, k, d in P16_TP_LEAVES[arch]}
+        worst_w = worst_d = 0.0
+        for r, res in enumerate(ranks):
+            got = res[arch]
+            for i in range(P16_EP_STEPS):
+                check(abs(got["loss"][i] - one["loss"][i])
+                      <= TRAIN_LOSS_RTOL * abs(one["loss"][i])
+                      and abs(got["gnorm"][i] - one["gnorm"][i])
+                      <= TRAIN_GNORM_RTOL * abs(one["gnorm"][i]),
+                      f"(c) {arch} rank {r} step {i}: loss {got['loss'][i]} "
+                      f"gnorm {got['gnorm'][i]}, one rank {one['loss'][i]} "
+                      f"{one['gnorm'][i]}")
+            for key, w in got["leaves"].items():
+                dim = split[key[2]]
+                n = w.shape[dim]
+                check(2 * n == want[key].shape[dim], f"(c) {arch} rank {r} "
+                      f"{key}: {n} of {want[key].shape[dim]} a rank")
+                mine = want[key].narrow(dim, r * n, n)
+                err = float((w - mine).norm() / mine.norm())
+                worst_w = max(worst_w, err)
+                check(err <= TRAIN_LOSS_RTOL, f"(c) {arch} rank {r} {key}: "
+                      f"the updated slice {err:.3g} (relative norm) from the "
+                      "one-rank slice")
+                start = before[key].narrow(dim, r * n, n)
+                worst_d = max(worst_d, float((w - start - (mine - start))
+                                             .norm() / (mine - start).norm()))
+            counts, attn = got["launches"], M.n_attention_layers(cfg)
+            check(counts.get("flash_attention_fwd", 0)
+                  == counts.get("flash_attention_fwd:lse", 0)
+                  == 2 * attn * P16_EP_STEPS
+                  and counts.get("flash_attention_bwd", 0)
+                  == attn * P16_EP_STEPS
+                  and not any(k.endswith(":ref") for k in counts),
+                  f"(c) {arch} rank {r} launches {counts}")
+        stats = ranks[0][arch]["stats"]
+        what = (f"{cfg.n_experts // 2} experts a rank" if cfg.n_experts else
+                f"{cfg.n_ssm_heads // 2} of {cfg.n_ssm_heads} SSM heads a "
+                "rank")
+        leaves = "/".join(k for _, k, _ in P16_TP_LEAVES[arch])
+        masks = (f"kept masks one rank's ({ranks[0][arch]['kept']} and "
+                 f"{ranks[1][arch]['kept']} pairs kept); " if cfg.n_experts
+                 else "")
+        print(f"(c) {arch} tensor parallel over 2 model ranks: "
+              f"{tp_placement(cfg, 2)}; flash launches by rank over "
+              f"{P16_EP_STEPS} steps {[r[arch]['launches'] for r in ranks]}",
+              flush=True)
+        print(f"(c) {arch} cut to {P16_EP_LAYERS} layers, mesh (1, 2), "
+              f"{what}, {P16_EP_STEPS} steps of {P16_EP_BATCH} x {TRAIN_SEQ}"
+              f": {masks}losses "
+              f"{[round(x, 4) for x in ranks[0][arch]['loss']]} (one rank "
+              f"{[round(x, 4) for x in one['loss']]}), gnorms "
+              f"{[round(x, 4) for x in ranks[0][arch]['gnorm']]} (one rank "
+              f"{[round(x, 4) for x in one['gnorm']]}); the updated {leaves}"
+              f" shards within {worst_w:.2e} of the one-rank slices (relative"
+              f" norm), their updates within {worst_d:.2e}; step ms "
+              f"{[round(x, 1) for x in ranks[0][arch]['ms']]} (one rank "
+              f"{[round(x, 1) for x in one['ms']]}); peak a rank "
+              f"{max(r[arch]['peak'] for r in ranks) / 2**30:.2f} GiB; "
+              f"collectives of {P16_EP_STEPS} steps on rank 0 (calls, bytes, "
+              f"host s): "
+              f"{ {k: [v[0], v[1], round(v[2], 3)] for k, v in stats.items()} }",
+              flush=True)
+    return {arch: {r: res[arch]["launches"] for r, res in enumerate(ranks)}
+            for arch in P16_TP_LEAVES}
 
 
 def mesh_training(torch, args, start_counts=lambda: None) -> dict:
@@ -4997,12 +5194,12 @@ def mesh_training(torch, args, start_counts=lambda: None) -> dict:
         counts, counted = dryrun_counts()
         start_counts()
 
-        def expert_parallel():
+        def tensor_parallel():
             t1 = time.perf_counter()
-            ep.update(expert_parallel_training(torch, args, work))
+            ep.update(tensor_parallel_training(torch, args, work))
             print(f"(c: {time.perf_counter() - t1:.1f} s, beside (b)'s "
                   "runs)", flush=True)
-        launches = data_parallel_cli(torch, args, work, expert_parallel)
+        launches = data_parallel_cli(torch, args, work, tensor_parallel)
         print(f"(b and c: {time.perf_counter() - t0:.1f} s)", flush=True)
         t0 = time.perf_counter()
         try:
@@ -5392,38 +5589,47 @@ def family_training(torch, args, ops, ref, dev, gen, err, counts) -> dict:
     return out
 
 
-# Phase 18, the registry's three largest dense architectures served whole:
-# gemma2-27b (the only local/global stack: 23 layers at window 4,096 with
-# a rolling cache of 4,096 slots, 23 global, the attention softcap 50 in
-# every layer, the final softcap 30, post norms, gelu, sqrt(4,608) embedding
-# scale, a 256,000-row tied head) at its published context, 2 requests of
-# 8,144 prompt tokens + 48 greedy (s_max 8,192, so the window bites at
-# every position past 4,096); command-r-35b (256,000-row tied head) and
-# chameleon-34b at phase 7's requests.  bf16 parameters drawn on the card
-# at full width and depth (54.5 / 60.6 / 68.6 GB: none fits beside an f32
-# copy), one model at a time on a card the earlier phases have emptied
-# (under LARGE_HELD_MAX held before the first draw).  Each: (a) the
-# serving path through launch.serve.generate, its flash launches a prefill
-# (every attention layer, :bf16, none :ref) and gemma2's window and cap a
-# call; (b) the flash wrapper at the model's prefill shape against
+# Phase 18, the registry's three largest dense architectures and its one
+# MoE too large for phase 13's f32 masters, served whole: gemma2-27b (the
+# only local/global stack: 23 layers at window 4,096 with a rolling cache
+# of 4,096 slots, 23 global, the attention softcap 50 in every layer, the
+# final softcap 30, post norms, gelu, sqrt(4,608) embedding scale, a
+# 256,000-row tied head) at its published context, 2 requests of 8,144
+# prompt tokens + 48 greedy (s_max 8,192, so the window bites at every
+# position past 4,096); command-r-35b (256,000-row tied head),
+# chameleon-34b and deepseek-moe-16b (28 layers of 64 routed experts,
+# top-6, and 2 shared, capacity factor 1.25, a 102,400-row head) at phase
+# 7's requests.  bf16 parameters drawn on the card at full width and depth
+# (54.5 / 60.6 / 68.6 / 33.8 GB: none fits beside an f32 copy), one model
+# at a time on a card the earlier phases have emptied (under
+# LARGE_HELD_MAX held before the first draw).  Each: (a) the serving path
+# through launch.serve.generate, its flash launches a prefill (every
+# attention layer, :bf16, none :ref) and gemma2's window and cap a call;
+# (b) the flash wrapper at the model's prefill shape against
 # blockwise_attention (phase 13's check; chameleon's attention shape is
 # command-r's, held once); (c) phase 7's second rule on LARGE_F32_ROWS
 # requests (gemma2: both; the others: 0-1, a cut): the kernel path's
 # prefill logits against the streamed f32 plain path, beside the bf16
 # attn_impl="ref" path, and the greedy first tokens equal wherever the f32
-# path's top-2 margin exceeds LOGIT_RTOL of its largest logit; (e) prefill
-# ms (median of 3 after the first call), decode ms a step over (a)'s
-# SERVE_GEN - 1 steps, the parameter bytes and the peak above the base,
-# one profiled prefill; then, gemma2 only and once its parameters are
-# freed, (d)
+# path's top-2 margin exceeds LOGIT_RTOL of its largest logit; for
+# deepseek all three paths prefill those requests alone (the capacity is
+# the batch's), and the routings that differ between them (per layer
+# between the kernel and plain paths) and the dropped (token, slot) pairs
+# are printed, as phase 13 prints granite's; (e) prefill ms (median of 3
+# after the first call), decode ms a step over (a)'s SERVE_GEN - 1 steps,
+# the parameter bytes and the peak above the base, one profiled prefill;
+# then, for gemma2 and deepseek once their parameters are freed, (d)
 # prefill-then-decode against the full forward at FAMILY_CONSISTENCY_TOL
-# (phase 13's rule) on LARGE_RING_UNITS units at full width with f32
-# masters: request 0's 8,192 served tokens, the first 8,191 prefilled
-# with an f32 cache, the last decoded at position 8,191, which overwrites
-# slot 4,095 of each local layer's ring.
-LARGE_DENSE = [("gemma2-27b", 2, 8144), ("command-r-35b", SERVE_BATCH,
-                                         SERVE_PROMPT),
-               ("chameleon-34b", SERVE_BATCH, SERVE_PROMPT)]
+# (phase 13's rule, deepseek at the lossless capacity factor E / top_k)
+# on LARGE_RING_UNITS units at full width with f32 masters: request 0's
+# served tokens (gemma2 8,192, deepseek 2,048), all but the last
+# prefilled with an f32 cache, the last decoded (gemma2's at position
+# 8,191 overwrites slot 4,095 of each local layer's ring).
+LARGE_MODELS = [("gemma2-27b", 2, 8144),
+                ("command-r-35b", SERVE_BATCH, SERVE_PROMPT),
+                ("chameleon-34b", SERVE_BATCH, SERVE_PROMPT),
+                ("deepseek-moe-16b", SERVE_BATCH, SERVE_PROMPT)]
+LARGE_CONSISTENCY = ("gemma2-27b", "deepseek-moe-16b")
 LARGE_F32_ROWS = 2
 LARGE_RING_UNITS = 2
 LARGE_HEAD_ROWS = 1 << 15     # head rows a float32 chunk (≈ 0.6-1.1 GB)
@@ -5431,15 +5637,19 @@ LARGE_HELD_MAX = 1 << 30
 
 
 def streamed_prefill_f32(params, cfg, batch: dict,
-                         head_rows: int = LARGE_HEAD_ROWS):
+                         head_rows: int = LARGE_HEAD_ROWS,
+                         moe_groups: int = 1):
     """``M.prefill``'s last-position logits (B, vocab) with
     ``attn_impl="ref"`` in float32, for parameters too large to copy whole
     to float32: the embedding rows the tokens use, then one unit's leaves
     at a time, then the head ``head_rows`` vocabulary rows at a time, each
     cast to float32 and dropped before the next, through the functions
     ``M.prefill`` calls (``embed_inputs``, ``_attn_layer`` per
-    ``_layer_kind``, ``_lm_logits``).  Token stacks of attention layers
-    only (no SSM, no frame embeddings)."""
+    ``_layer_kind``, ``_lm_logits``).  Token stacks of attention layers,
+    dense or MoE (no SSM, no frame embeddings): an MoE layer routes and
+    drops as ``M.prefill``'s does at the same ``moe_groups`` (both
+    default to one group over the batch) and the config's capacity
+    factor, through ``_attn_layer``'s own dispatch."""
     import dataclasses
 
     import torch
@@ -5447,7 +5657,7 @@ def streamed_prefill_f32(params, cfg, batch: dict,
 
     if cfg.ssm or cfg.inputs_embeds:
         raise ValueError(f"{cfg.arch_id}: the streamed path runs token "
-                         "stacks of attention layers only")
+                         "stacks of attention layers only (dense or MoE)")
     cfg = dataclasses.replace(cfg, attn_impl="ref")
 
     def f32(tree):
@@ -5466,7 +5676,8 @@ def streamed_prefill_f32(params, cfg, batch: dict,
             for pos in range(cfg.period):
                 x, _ = M._attn_layer(unit[f"l{pos}"], x, cfg,
                                      M._layer_kind(cfg, pos),
-                                     positions=positions)
+                                     positions=positions,
+                                     moe_groups=moe_groups)
             del unit
         x = x[:, -1:]
         top = {"final_norm": params["final_norm"].float()}
@@ -5532,19 +5743,25 @@ def release_card(torch) -> int:
     return held
 
 
-def ring_consistency(torch, args, seq) -> None:
-    """Phase 18 (d): gemma2-27b at full width cut to LARGE_RING_UNITS
-    units (f32 masters, drawn on the card): prefill ``seq`` (1, S) but its
-    last token into an f32 cache of S slots (the local layers' rings of
-    ``window`` slots wrapped), decode that token at position S - 1, and
-    hold the logits against ``M.forward`` at that position."""
+def unit_consistency(torch, args, arch: str, seq) -> None:
+    """Phase 18 (d): ``arch`` at full width cut to LARGE_RING_UNITS units
+    (f32 masters, drawn on the card; an MoE at the lossless capacity
+    factor E / top_k): prefill ``seq`` (1, S) but its last token into an
+    f32 cache of S slots (gemma2's local layers' rings of ``window`` slots
+    wrapped), decode that token at position S - 1, and hold the logits
+    against ``M.forward`` at that position."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model as M
 
-    base = get_config("gemma2-27b")
+    base = get_config(arch)
     cfg = dataclasses.replace(base, num_layers=LARGE_RING_UNITS * base.period)
+    lossless = ""
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                  / cfg.top_k)
+        lossless = f", capacity factor {cfg.capacity_factor}"
     f32 = torch.float32
     params = M.init_params(torch.Generator(device="cuda").manual_seed(
         args.seed + 181), cfg, device="cuda")
@@ -5553,24 +5770,25 @@ def ring_consistency(torch, args, seq) -> None:
                             cache_dtype=f32)
     slots = {M._layer_kind(cfg, pos): cache[0][f"l{pos}"][0].shape[1]
              for pos in range(cfg.period)}
-    check(slots == {"local": cfg.window, "global": S},
-          f"gemma2-27b: cache slots {slots}, want a {cfg.window}-slot ring "
-          f"for the local layers and {S} for the global ones")
+    want = {kind: min(cfg.window, S) if kind == "local" else S
+            for kind in slots}
+    check(slots == want, f"{arch}: cache slots {slots}, want {want} (a "
+          f"{cfg.window}-slot ring for local layers)")
+    ring = (f"ring slot {n % cfg.window} of {cfg.window}; "
+            if "local" in slots else "")
     dec, _ = M.decode_step(params, cfg, seq[:, -1:], cache, n)
     del cache
     with torch.no_grad():
         full = M.forward(params, cfg, {"tokens": seq})[:, -1].clone()
     diff = (dec - full).abs()
     lim = FAMILY_CONSISTENCY_TOL * (1 + full.abs())
-    print(f"(d) gemma2-27b cut to {cfg.num_layers} layers (f32): prefill "
-          f"{n} + decode 1 at position {n} (ring slot {n % cfg.window} of "
-          f"{cfg.window}; slots {slots}) vs the full forward: max |diff| "
-          f"{float(diff.max()):.3g}, max |logit| "
-          f"{float(full.abs().max()):.3f}, worst diff / (2e-2 + 2e-2 "
-          f"|logit|) {float((diff / lim).max()):.3f}", flush=True)
-    check(bool((diff <= lim).all()), "gemma2-27b: prefill-then-decode across "
-          "the wrapped ring differs from the full forward by more than 2e-2 "
-          "+ 2e-2 |logit|")
+    print(f"(d) {arch} cut to {cfg.num_layers} layers (f32{lossless}): "
+          f"prefill {n} + decode 1 at position {n} ({ring}slots {slots}) vs "
+          f"the full forward: max |diff| {float(diff.max()):.3g}, max "
+          f"|logit| {float(full.abs().max()):.3f}, worst diff / (2e-2 + "
+          f"2e-2 |logit|) {float((diff / lim).max()):.3f}", flush=True)
+    check(bool((diff <= lim).all()), f"{arch}: prefill-then-decode differs "
+          "from the full forward by more than 2e-2 + 2e-2 |logit|")
     del params, dec, full
 
 
@@ -5606,7 +5824,7 @@ def timed_decode(torch, fn):
 
 def serve_large(torch, args, dev, ops, arch: str, B: int, S: int, err: dict,
                 held: dict) -> int:
-    """Phase 18, one model ((a)-(e) of the comment above LARGE_DENSE);
+    """Phase 18, one model ((a)-(e) of the comment above LARGE_MODELS);
     ``held`` maps each attention shape already held against
     ``blockwise_attention`` to its model.  Returns the flash launches of a
     prefill."""
@@ -5634,10 +5852,14 @@ def serve_large(torch, args, dev, ops, arch: str, B: int, S: int, err: dict,
     n_attn = M.n_attention_layers(cfg)
     kinds = [M._layer_kind(cfg, pos) for pos in range(cfg.period)]
     n_local = kinds.count("local") * cfg.n_units
+    moe = (f", {cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared} "
+           f"shared (d_ff {cfg.moe_d_ff}), capacity factor "
+           f"{cfg.capacity_factor}" if cfg.n_experts else "")
     print(f"{arch}: {cfg.num_layers} layers ({n_local} local at window "
           f"{cfg.window}), d_model {cfg.d_model}, heads {cfg.n_heads}/"
-          f"{cfg.n_kv} x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
-          f" (tied {cfg.tie_embeddings}), softcaps {cfg.softcap_attn} / "
+          f"{cfg.n_kv} x {cfg.head_dim}, d_ff {cfg.d_ff}{moe}, vocab "
+          f"{cfg.vocab} (tied {cfg.tie_embeddings}), softcaps "
+          f"{cfg.softcap_attn} / "
           f"{cfg.softcap_final}: {n_bytes / 1e9:.2f} GB of bf16 parameters "
           f"drawn on the card in {draw_s:.1f} s; {B} requests x {S} prompt "
           f"tokens + {G} greedy (s_max {s_max})", flush=True)
@@ -5682,17 +5904,23 @@ def serve_large(torch, args, dev, ops, arch: str, B: int, S: int, err: dict,
     flash_s = time.perf_counter() - t0
 
     # (c) the kernel path against the plain paths on LARGE_F32_ROWS requests
-    rows = prompts[:LARGE_F32_ROWS]
-    lk = logits[:LARGE_F32_ROWS]
+    # (an MoE's capacity is the batch's: all three prefill the rows alone)
+    rows = {"tokens": prompts[:LARGE_F32_ROWS]}
     t0 = time.perf_counter()
+    if cfg.n_experts:
+        (lk, _, _), r_k = record_routes(lambda: M.prefill(
+            params, cfg, rows, s_max=s_max))
+    else:
+        lk = logits[:LARGE_F32_ROWS]
     ops.reset_kernel_stats()
-    lr = M.prefill(params, dataclasses.replace(cfg, attn_impl="ref"),
-                   {"tokens": rows}, s_max=s_max)[0]
+    (lr, _, _), r_r = record_routes(lambda: M.prefill(
+        params, dataclasses.replace(cfg, attn_impl="ref"), rows,
+        s_max=s_max))
     check(ops.kernel_stats() == {}, f"{arch}: the ref path launched "
           f"{ops.kernel_stats()}")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    l32 = streamed_prefill_f32(params, cfg, {"tokens": rows})
+    l32, r_32 = record_routes(lambda: streamed_prefill_f32(params, cfg, rows))
     torch.cuda.synchronize()
     ref_s, f32_s = t1 - t0, time.perf_counter() - t1
     what = f"(c) {arch}, requests 0-{LARGE_F32_ROWS - 1}"
@@ -5700,7 +5928,11 @@ def serve_large(torch, args, dev, ops, arch: str, B: int, S: int, err: dict,
           + f"; max |logit| {float(l32.abs().max()):.3f}", flush=True)
     print(hold_steps(torch, [lk], [l32], f"{what}, first tokens against the "
                      "f32 plain path"), flush=True)
-    del lr, l32, lk
+    if cfg.n_experts:
+        print(f"(c) {arch}: " + moe_routing(torch, cfg, arch, r_k, r_r, r_32),
+              flush=True)
+        del r_k
+    del lr, l32, lk, r_r, r_32
 
     # (e) times and memory
     def prefill_once():
@@ -5727,16 +5959,16 @@ def serve_large(torch, args, dev, ops, arch: str, B: int, S: int, err: dict,
     del params, prompts, tokens, logits
     gc.collect()
     torch.cuda.empty_cache()
-    if arch == "gemma2-27b":
+    if arch in LARGE_CONSISTENCY:
         t0 = time.perf_counter()
-        ring_consistency(torch, args, seq)
+        unit_consistency(torch, args, arch, seq)
         torch.cuda.empty_cache()
         print(f"((d): {time.perf_counter() - t0:.1f} s)", flush=True)
     return n_attn
 
 
-def large_dense(torch, args, dev, ops, err: dict) -> dict:
-    """Phase 18 (the comment above LARGE_DENSE).  Returns each model's
+def large_models(torch, args, dev, ops, err: dict) -> dict:
+    """Phase 18 (the comment above LARGE_MODELS).  Returns each model's
     flash launches a prefill."""
     held = release_card(torch)
     print(f"phase 18 starts with {held / 2**30:.3f} GiB held by this "
@@ -5744,7 +5976,7 @@ def large_dense(torch, args, dev, ops, err: dict) -> dict:
     check(held < LARGE_HELD_MAX, f"phase 18: {held} bytes held on the card "
           "before the first draw")
     out, shapes = {}, {}
-    for arch, B, S in LARGE_DENSE:
+    for arch, B, S in LARGE_MODELS:
         t0 = time.perf_counter()
         out[arch] = serve_large(torch, args, dev, ops, arch, B, S, err,
                                 shapes)
@@ -6169,8 +6401,8 @@ def main() -> int:
                 proc.wait()
             shutil.rmtree(work, ignore_errors=True)
     phase_done("17 (the families trained at full width)")
-    large = large_dense(torch, args, dev, ops, err)
-    phase_done("18 (the large dense models served whole)")
+    large = large_models(torch, args, dev, ops, err)
+    phase_done("18 (the large models served whole)")
 
     kernels = [
         {"name": "sparse_verify_batch", "route": "cuda",
@@ -6215,7 +6447,7 @@ def main() -> int:
          "head_dims": list(ops.FLASH_HEAD_DIMS), "ptxas": fwd_ptxas,
          "d80_hubert": hubert,
          "family_launches": families,
-         "large_dense_launches": large,
+         "large_model_launches": large,
          "mesh_launches": mesh["a"],
          "tp_launches": mesh["b"], "tp_local_heads": mesh["local_heads"]},
         {"name": "flash_attention_fwd_lse", "route": "cuda",
@@ -6224,8 +6456,9 @@ def main() -> int:
          "launches": trained["flash_attention_fwd:lse"],
          "mesh_train_launches": {r: c.get("flash_attention_fwd:lse", 0)
                                  for r, c in mesh_train["b"].items()},
-         "tp_train_launches": {r: c.get("flash_attention_fwd:lse", 0)
-                               for r, c in mesh_train["c"].items()},
+         "tp_train_launches": {
+             a: {r: c.get("flash_attention_fwd:lse", 0) for r, c in rc.items()}
+             for a, rc in mesh_train["c"].items()},
          "family_train_launches": {
              a: c.get("flash_attention_fwd:lse", 0)
              for a, c in families_trained["launches"].items()},
@@ -6238,8 +6471,9 @@ def main() -> int:
          "launches": trained["flash_attention_bwd"],
          "mesh_train_launches": {r: c.get("flash_attention_bwd", 0)
                                  for r, c in mesh_train["b"].items()},
-         "tp_train_launches": {r: c.get("flash_attention_bwd", 0)
-                               for r, c in mesh_train["c"].items()},
+         "tp_train_launches": {
+             a: {r: c.get("flash_attention_bwd", 0) for r, c in rc.items()}
+             for a, rc in mesh_train["c"].items()},
          "family_train_launches": {
              a: c.get("flash_attention_bwd", 0)
              for a, c in families_trained["launches"].items()},

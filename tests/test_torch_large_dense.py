@@ -1,6 +1,8 @@
 """``chip_smoke.py`` phase 18's CPU-checkable parts at SMOKE sizes: the
-streamed float32 plain path it holds the large dense models against, and
-gemma2's rolling cache across two wraps of its ring, against the JAX
+streamed float32 plain path it holds the large models against (the
+three dense ones and the MoE stacks, deepseek-moe-16b's and
+granite-moe's: routed and dropped as ``M.prefill`` routes and drops),
+and gemma2's rolling cache across two wraps of its ring, against the JAX
 package.
 
 Tolerances and why:
@@ -36,6 +38,7 @@ from repro_torch.train.steps import make_decode_step, make_prefill_step
 
 ROOT = Path(__file__).resolve().parents[1]
 LARGE = ["gemma2-27b", "command-r-35b", "chameleon-34b"]
+MOE = ["deepseek-moe-16b", "granite-moe-3b-a800m"]
 B, S = 2, 12
 HEAD_ROWS = 96        # three vocabulary chunks of SMOKE's 256, the last ragged
 
@@ -65,10 +68,10 @@ def tokens(cfg, n: int = S) -> np.ndarray:
 
 
 def test_large_dense_are_phase_18s(chip_smoke):
-    assert [a for a, _, _ in chip_smoke.LARGE_DENSE] == LARGE
+    assert [a for a, _, _ in chip_smoke.LARGE_MODELS] == LARGE + MOE[:1]
 
 
-@pytest.mark.parametrize("arch", LARGE)
+@pytest.mark.parametrize("arch", LARGE + MOE)
 def test_streamed_prefill_equals_whole_f32_copy(chip_smoke, arch):
     """bf16 parameters (as phase 18 draws them): the streamed path, one
     unit and one head chunk in float32 at a time, against ``M.prefill``
@@ -87,7 +90,39 @@ def test_streamed_prefill_equals_whole_f32_copy(chip_smoke, arch):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("arch", LARGE)
+@pytest.mark.parametrize("moe_groups", [1, 2])
+def test_streamed_prefill_drops_as_prefill(chip_smoke, moe_groups):
+    """deepseek's SMOKE stack at capacity factor 1 (pairs dropped) in one
+    and two MoE groups: the streamed path keeps and drops the (token,
+    slot) pairs ``M.prefill`` does at the same ``moe_groups``, bit for
+    bit."""
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b", smoke=True),
+                              param_dtype="bfloat16", capacity_factor=1.0)
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    batch = {"tokens": t(tokens(cfg))}
+    plan, dropped = moe._capacity_plan, []
+
+    def counting(idx, *a, **kw):
+        out = plan(idx, *a, **kw)
+        dropped.append(int((~out[0]).sum()))
+        return out
+    moe._capacity_plan = counting
+    try:
+        got = chip_smoke.streamed_prefill_f32(params, cfg, batch,
+                                              head_rows=HEAD_ROWS,
+                                              moe_groups=moe_groups)
+    finally:
+        moe._capacity_plan = plan
+    whole = copy.deepcopy(params).float()
+    want = TM.prefill(whole, dataclasses.replace(cfg, attn_impl="ref"),
+                      batch, moe_groups=moe_groups)[0]
+    assert sum(dropped) > 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch", LARGE + MOE)
 def test_streamed_prefill_matches_jax(chip_smoke, arch):
     """JAX's float32 SMOKE parameters carried across: the streamed path
     against JAX's float32 prefill logits (its plain attention)."""

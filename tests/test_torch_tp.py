@@ -43,6 +43,12 @@ updated leaf within 1e-5 (absolute) of one rank's, except where one
 rank's clipped |g| lies within ten eps (Adam's update there is
 ill-conditioned, ``test_three_train_steps_match_jax``'s exemption).
 
+The SSM cases' conv windows and scan states after a float32-cached
+prefill (every SSM layer) equal the one-rank run's on each rank's heads
+(the state's heads, conv_x's d_inner channels; conv_B and conv_C whole;
+every head where the heads do not split) within 1e-5 of the largest
+magnitude, the logits' rule.
+
 Each rank holds exactly 1/m of every dense leaf whose dimension the
 "model" axis divides and the whole leaf where it does not; ``Mesh.stats``
 counts the sums over "model" of a forward that the design predicts (one
@@ -76,6 +82,7 @@ B, S, GEN = 4, 12, 3
 S_MAX = S + GEN + 1
 HYPER = dict(base_lr=1e-3, total_steps=10, warmup_steps=1)
 CKPT_ARCHS = ["yi-9b", "mamba2-1.3b"]
+SSM_ARCHS = ["mamba2-1.3b", "zamba2-2.7b", "mamba2-3-heads"]
 
 
 def _config(name, get_config):
@@ -105,6 +112,16 @@ def _inputs(cfg, seed: int) -> dict:
 
 def _numpy(tree):
     return {n: p.detach().numpy().copy() for n, p in tree.items()}
+
+
+def _ssm_states(M, params, cfg, tokens) -> dict:
+    """{(unit, layer): {field: array}} of every SSM cache of a prefill
+    with float32 caches (conv windows and the scan's state)."""
+    _, cache, _ = M.prefill(params, cfg, {"tokens": tokens}, s_max=S_MAX,
+                            cache_dtype=torch.float32)
+    return {(u, name): {f: t.numpy() for f, t in zip(c._fields, c)}
+            for u, unit in enumerate(cache) for name, c in unit.items()
+            if hasattr(c, "_fields")}
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +177,8 @@ def tp_worker(payload) -> dict:
                         mine, cfg, data["fed"][:, i:i + 1], cache, n_len + i)
                     steps.append(logits.numpy())
                 res["steps"] = steps
+                if cfg.ssm:
+                    res["states"] = _ssm_states(M, mine, cfg, data["tokens"])
             train = {k: v for k, v in data.items() if k != "fed"}
             names = [k for k, _ in mine.named_parameters()]
             mine.requires_grad_(True)
@@ -221,6 +240,8 @@ def _one_rank(cfg, params, inputs) -> dict:
                                           n_len + i)
             steps.append(logits.numpy())
         out["steps"] = steps
+        if cfg.ssm:
+            out["states"] = _ssm_states(M, params, cfg, t["tokens"])
     batch = {k: v for k, v in t.items() if k != "fed"}
     params.requires_grad_(True)
     loss = M.loss_fn(params, cfg, batch, remat=True)
@@ -346,6 +367,37 @@ def test_prefill_decode_match_one_rank_and_jax(arch, mesh, runs):
         _close(got, one["steps"][step], 1e-5, f"step {step}, one rank")
         _close(got, jax_run["steps"][step], 1e-4 if step == 0 else 2e-2,
                f"step {step}, JAX")
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=str)
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_states_after_prefill_match_one_rank_on_rank_heads(arch, mesh,
+                                                               runs):
+    """Each rank's conv windows and scan states after the prefill against
+    the one-rank run's on the rank's rows and heads: a head split the
+    ranks got wrong (the wrong slice, or a gated norm summed over too few
+    ranks feeding the next layer) shows as a state off by O(1)."""
+    from repro_torch.configs.registry import get_config
+    cfg = _config(arch, get_config)
+    ref, ranks, _ = runs
+    one = ref[arch][2]["states"]
+    dp, m = mesh
+    H, P = cfg.n_ssm_heads, cfg.ssm_head_dim
+    h = H // m if H % m == 0 else H
+    for r in ranks[mesh]:
+        got, c = r[arch]["states"], r["coords"]
+        assert sorted(got) == sorted(one)
+        rows = slice(c["data"] * B // dp, (c["data"] + 1) * B // dp)
+        h0 = c["model"] * h if h < H else 0
+        for key, fields in one.items():
+            for f, want in fields.items():
+                want = want[rows]
+                if f == "state":
+                    want = want[:, h0:h0 + h]
+                elif f == "conv_x":
+                    want = want[..., h0 * P:(h0 + h) * P]
+                assert got[key][f].shape == want.shape, (key, f)
+                _close(got[key][f], want, 1e-5, f"{key} {f}")
 
 
 def _ill(one, name) -> np.ndarray:

@@ -52,7 +52,10 @@ per slab pass (a variant; by default the wrapper picks it from T).
     local and global layers (B 2, H 32, S 8,144, D 128, causal, window
     4,096 and 0, cap 50: no PyTorch call beside them) and command-r-35b's
     (B 8, H 64, S 2,000, D 128, causal, beside SDPA), with the local /
-    global ratio of their device times; the float32 route.
+    global ratio of their device times; deepseek-moe-16b's prefill (B 8,
+    H 16, S 2,000, D 128, causal) and zamba2-2.7b's shared block on one
+    of two model ranks' heads (B 2, H 16, S 2,000, D 80, causal), each
+    beside SDPA; the float32 route.
   * hubert: hubert-xlarge's attention (B 2, H 16, D 80, bidirectional,
     bf16) at S 1,000 and 1,500, beside ``scaled_dot_product_attention``
     and the float32 route, with the bound (operations); the forward with
@@ -380,7 +383,9 @@ def bench_flash(ops, ref, gen, iters: int) -> dict:
               flush=True)
     for key, (Bx, Hx, Sx, Dx), lse in (
             ("yi9b_local_heads", (8, 16, 2000, 128), False),
-            ("lse_train", (8, 9, 2048, 64), True)):
+            ("lse_train", (8, 9, 2048, 64), True),
+            ("deepseek", (8, 16, 2000, 128), False),
+            ("zamba2_rank_heads", (2, 16, 2000, 80), False)):
         out[key] = fwd_beside_sdpa(ops, ref, gen, iters, Bx, Hx, Sx, Dx,
                                    causal=True, lse=lse)
     for key, (Bx, Hx, Sx, Dx), window, cap in LARGE_DENSE_SHAPES:
